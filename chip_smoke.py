@@ -1,0 +1,459 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's INT8 translation path on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises, and the script exits non-zero without the
+final line):
+
+1. card   — name and power limit from ``nvidia-smi``; no CUDA → exit 1;
+2. build  — compile the four CUDA kernels from ``src/repro_torch/csrc``;
+3. kernels vs plain — each kernel at the main path's shapes against its
+   plain PyTorch version on the card, with its time, the plain version's,
+   a library call's where one computes the same function, and its bound;
+4. end to end — transformer-base at full width (bf16 activations, float32
+   weights from ``torch.Generator`` seed 0): after a two-token warm-up,
+   KL-calibrate, quantize to INT8, greedy ``generate`` and beam-4
+   ``generate_beam`` with static activation scales, one greedy
+   ``generate`` with dynamic scales; then the first decode steps' logits
+   against the same run with ``impl="torch"``, and a profiled greedy run
+   (device busy time and its largest kernels);
+5. launch counts of the main path, and one JSON line describing each kernel;
+6. last line: ``{"ok": true, "device": {...}}``.
+
+It imports nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core peak
+F32_FLOPS_PER_S = 67e12        # float32 outside the tensor cores
+
+MAX_LEN = 64                   # decoder self-attention cache capacity
+MAX_NEW = 24
+N_REQUESTS = 16
+N_CALIB = 32
+BEAM = 4
+LOGIT_ATOL = 0.05              # kernel path vs plain path, see phase 4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Device milliseconds per call of ``fn``.
+
+    The timed launches queue up behind a sleeping kernel, so the GPU runs
+    them back to back and the host's launch overhead stays outside the
+    window between the two events.  The sleep is lengthened until it
+    outlasts the host's enqueueing.
+    """
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        sleep_end = torch.cuda.Event(enable_timing=True)
+        sleep_start = torch.cuda.Event(enable_timing=True)
+        sleep_start.record()
+        torch.cuda._sleep(cycles)
+        sleep_end.record()
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * sleep_start.elapsed_time(sleep_end):
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+
+
+def bound(bytes_moved: float, ops: float, ops_per_s: float):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def check_kernels(s_enc: int):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.int8_matmul import int8_matmul_cuda
+    from repro_torch.kernels.quantize import (quantize_rowwise_cuda,
+                                              quantize_static_cuda)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    results = {}
+
+    def row(name, shape, err, ms, plain_ms, bound_ms, bound_by, library_ms):
+        log(f"kernel {name} shape={shape} max_abs_err={err:.3g} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={bound_ms:.5f} ({bound_by}) library_ms="
+            + ("null" if library_ms is None else f"{library_ms:.4f}"))
+        return dict(shape=shape, max_abs_err=float(err), ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library_ms)
+
+    rows_m = (N_REQUESTS, N_REQUESTS * BEAM, N_REQUESTS * s_enc)
+
+    # K1 / K2: exact int8 codes (and bit-equal K2 scales)
+    for M in rows_m:
+        for K in (512, 2048):
+            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            amax = float(x.float().abs().max()) * 0.7
+            q = quantize_static_cuda(x, amax)
+            err = (q.int() - ref.ref_quantize_static(x, amax).int()).abs().max()
+            if err:
+                raise AssertionError(f"quantize_static codes differ at "
+                                     f"{(M, K)}: {int(err)}")
+            b, o = bound(M * K * 3, M * K * 4, F32_FLOPS_PER_S)
+            results.setdefault("quantize_static", []).append(row(
+                "quantize_static", [M, K], float(err),
+                time_ms(lambda: quantize_static_cuda(x, amax)),
+                time_ms(lambda: ref.ref_quantize_static(x, amax)), b, o, None))
+
+            q, sc = quantize_rowwise_cuda(x)
+            rq, rsc = ref.ref_quantize_rowwise(x)
+            err = max(float((q.int() - rq.int()).abs().max()),
+                      float((sc - rsc).abs().max()))
+            if err:
+                raise AssertionError(f"quantize_rowwise differs at {(M, K)}: "
+                                     f"{err}")
+            b, o = bound(M * K * 3 + M * 4, M * K * 5, F32_FLOPS_PER_S)
+            results.setdefault("quantize_rowwise", []).append(row(
+                "quantize_rowwise", [M, K], err,
+                time_ms(lambda: quantize_rowwise_cuda(x)),
+                time_ms(lambda: ref.ref_quantize_rowwise(x)), b, o, None))
+
+    # K3: exact s32 accumulator; epilogue in the reference's op order
+    for M in rows_m:
+        for K, N in ((512, 512), (512, 2048), (2048, 512)):
+            a = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
+                              dtype=torch.int8)
+            w = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                              dtype=torch.int8)
+            a_scale = torch.rand((M, 1), generator=gen, device=dev) * 0.02
+            b_scale = torch.rand((1, N), generator=gen, device=dev) * 0.02
+            bias = torch.randn((N,), generator=gen, device=dev)
+            ones_a = torch.ones((1, 1), device=dev)
+            ones_b = torch.ones((1, N), device=dev)
+            acc = int8_matmul_cuda(a, ones_a, w, ones_b)
+            exact = torch.matmul(a.double(), w.double())
+            if not torch.equal(acc.double(), exact.float().double()):
+                raise AssertionError(f"int8_matmul accumulator differs at "
+                                     f"{(M, K, N)}")
+            f32 = int8_matmul_cuda(a, a_scale, w, b_scale, None, bias)
+            f32_ref = ref.ref_int8_matmul(a, a_scale, w, b_scale, None, bias)
+            rel = float(((f32 - f32_ref).abs()
+                         / f32_ref.abs().clamp_min(1e-30)).max())
+            if rel > 1e-6:
+                raise AssertionError(f"int8_matmul epilogue rel err {rel} at "
+                                     f"{(M, K, N)}")
+            run = lambda: int8_matmul_cuda(a, a_scale, w, b_scale, None, bias,
+                                           out_dtype=torch.bfloat16)
+            out = run()
+            out_ref = ref.ref_int8_matmul(a, a_scale, w, b_scale, None, bias,
+                                          out_dtype=torch.bfloat16)
+            err = float((out.float() - out_ref.float()).abs().max())
+            # at most one bf16 ulp (the f32 epilogues agree to 1e-6)
+            if not torch.allclose(out.float(), out_ref.float(), atol=0,
+                                  rtol=2.0 ** -7):
+                raise AssertionError(f"int8_matmul bf16 output differs at "
+                                     f"{(M, K, N)}: {err}")
+            lib_ms = None
+            if M > 16:                  # torch._int_mm wants M > 16
+                lib_ms = time_ms(lambda: torch._int_mm(a, w))
+            b, o = bound(M * K + K * N + M * 4 + N * 8 + M * N * 2,
+                         2 * M * N * K, INT8_OPS_PER_S)
+            results.setdefault("int8_matmul", []).append(row(
+                "int8_matmul", [M, K, N], err, time_ms(run),
+                time_ms(lambda: ref.ref_int8_matmul(
+                    a, a_scale, w, b_scale, None, bias,
+                    out_dtype=torch.bfloat16)), b, o, lib_ms))
+
+    # K4: flash decode vs masked softmax over the dequantized cache
+    H = HKV = 8
+    dh = 64
+    for B in (N_REQUESTS, N_REQUESTS * BEAM):
+        kq = torch.randint(-127, 128, (B, MAX_LEN, HKV, dh), generator=gen,
+                           device=dev, dtype=torch.int8)
+        vq = torch.randint(-127, 128, (B, MAX_LEN, HKV, dh), generator=gen,
+                           device=dev, dtype=torch.int8)
+        ks = torch.rand((B, MAX_LEN, HKV), generator=gen, device=dev) * 0.02
+        vs = torch.rand((B, MAX_LEN, HKV), generator=gen, device=dev) * 0.02
+        lengths = torch.randint(1, MAX_LEN + 1, (B,), generator=gen,
+                                device=dev, dtype=torch.int32)
+        qf = torch.randn((B, H, dh), generator=gen, device=dev)
+        sm = 1.0 / dh ** 0.5
+        o32 = decode_attention_cuda(qf, kq, ks, vq, vs, lengths, sm_scale=sm)
+        r32 = ref.ref_decode_attention(qf, kq, ks, vq, vs, lengths, sm)
+        err32 = float((o32 - r32).abs().max())
+        if not torch.allclose(o32, r32, atol=1e-5, rtol=1e-5):
+            raise AssertionError(f"decode_attention f32 err {err32} at B={B}")
+        q = qf.to(torch.bfloat16)
+        run = lambda: decode_attention_cuda(q, kq, ks, vq, vs, lengths,
+                                            sm_scale=sm)
+        out = run().float()
+        out_ref = ref.ref_decode_attention(q, kq, ks, vq, vs, lengths,
+                                           sm).float()
+        err = float((out - out_ref).abs().max())
+        # bf16 output: one bf16 ulp (2^-8 relative) of rounding either way
+        if not torch.allclose(out, out_ref, atol=1e-5, rtol=2.0 ** -7):
+            raise AssertionError(f"decode_attention bf16 err {err} at B={B}")
+        tokens = int(lengths.sum())
+        b, o = bound(tokens * HKV * (2 * dh + 8) + 2 * B * H * dh * 2 + 4 * B,
+                     4 * tokens * H * dh, F32_FLOPS_PER_S)
+        results.setdefault("decode_attention", []).append(row(
+            "decode_attention", [B, MAX_LEN, HKV, dh], max(err, err32),
+            time_ms(run),
+            time_ms(lambda: ref.ref_decode_attention(q, kq, ks, vq, vs,
+                                                     lengths, sm)),
+            b, o, None))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+def run_main_path(model, params, corpus):
+    import numpy as np
+    import torch
+    from repro_torch.core import Calibrator, QuantPolicy, Taps, quantize_model
+    from repro_torch.data import pad_batch
+    from repro_torch.serving import ServingEngine
+
+    requests = corpus[:N_REQUESTS]
+    src, lens = pad_batch([s.src for s in requests])
+    batch = {"src_tokens": src, "src_lengths": lens}
+
+    t0 = time.perf_counter()
+    cal = Calibrator()
+    for s in corpus[N_REQUESTS:N_REQUESTS + N_CALIB]:
+        taps = Taps()
+        tgt = np.concatenate([[1], s.tgt, [2]])[None, :]
+        model.forward(params, {
+            "src_tokens": torch.as_tensor(s.src[None, :], device="cuda"),
+            "tgt_tokens": torch.as_tensor(tgt, device="cuda")}, taps=taps)
+        cal.observe_taps(taps)
+    recs = cal.compute("symmetric")
+    qparams, qctx = quantize_model(params, recs,
+                                   QuantPolicy(act_quant="static"))
+    torch.cuda.synchronize()
+    n_q = sum(r.quantize for r in recs.values())
+    log(f"calibrate+quantize: {time.perf_counter() - t0:.3f} s, "
+        f"{n_q}/{len(recs)} calibrated sites quantizable")
+
+    runs = {}
+    engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN)
+    runs["greedy_static"] = engine.generate(batch, max_new_tokens=MAX_NEW)
+    runs["beam4_static"] = engine.generate_beam(batch, beam=BEAM,
+                                                max_new_tokens=MAX_NEW)
+    dparams, dctx = quantize_model(params, {},
+                                   QuantPolicy(act_quant="dynamic"))
+    dengine = ServingEngine(model, dparams, quant=dctx, max_len=MAX_LEN)
+    runs["greedy_dynamic"] = dengine.generate(batch, max_new_tokens=MAX_NEW)
+    for name, r in runs.items():
+        log(f"e2e {name}: tokens={r.n_tokens} steps={r.steps} "
+            f"tokens_per_s={r.tokens_per_s:.1f} prefill_s={r.prefill_s:.4f} "
+            f"decode_s={r.decode_s:.4f} host_syncs={r.host_syncs}")
+        if len(r.tokens) != N_REQUESTS:
+            raise AssertionError(f"{name}: {len(r.tokens)} outputs")
+        for t in r.tokens:
+            if len(t) > MAX_NEW or (len(t) and not (
+                    0 <= t.min() and t.max() < model.cfg.vocab)):
+                raise AssertionError(f"{name}: bad output {t}")
+    return batch, qparams, qctx
+
+
+def warm_up(model, params, corpus) -> None:
+    """Two-token runs (dynamic scales) so that library handles and caches
+    exist before the timed main path; their launches are not counted."""
+    from repro_torch.core import QuantPolicy, quantize_model
+    from repro_torch.data import pad_batch
+    from repro_torch.serving import ServingEngine
+
+    src, lens = pad_batch([s.src for s in corpus[:N_REQUESTS]])
+    batch = {"src_tokens": src, "src_lengths": lens}
+    qp, ctx = quantize_model(params, {}, QuantPolicy(act_quant="dynamic"))
+    engine = ServingEngine(model, qp, quant=ctx, max_len=MAX_LEN)
+    engine.generate(batch, max_new_tokens=2)
+    engine.generate_beam(batch, beam=BEAM, max_new_tokens=2)
+
+
+def check_against_plain(model, qparams, qctx, batch, steps: int = 3) -> float:
+    """The first decode steps with the kernels vs with the plain versions."""
+    import torch
+    b = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    ctxs = {"cuda": qctx, "torch": dataclasses.replace(qctx, impl="torch")}
+    states = {k: model.init_decode_state(N_REQUESTS, MAX_LEN, quantized=True)
+              for k in ctxs}
+    logits = {}
+    for k, ctx in ctxs.items():
+        logits[k], states[k] = model.prefill(qparams, b, states[k], quant=ctx)
+    worst = 0.0
+    for step in range(steps + 1):
+        for k in ctxs:
+            if not torch.isfinite(logits[k]).all():
+                raise AssertionError(f"non-finite logits ({k}, step {step})")
+        err = float((logits["cuda"] - logits["torch"]).abs().max())
+        log(f"logits step {step}: max |kernel - plain| = {err:.3g} "
+            f"(max |logit| {float(logits['torch'].abs().max()):.3g})")
+        worst = max(worst, err)
+        if step == steps:
+            break
+        tok = torch.argmax(logits["cuda"], dim=-1).to(torch.int32)
+        for k, ctx in ctxs.items():
+            logits[k], states[k] = model.decode_step(qparams, tok, states[k],
+                                                     quant=ctx)
+    # K1-K3 are exact; K4's bf16 output may round one ulp apart, and that
+    # can flip an activation code downstream: a small, bounded drift
+    if worst > LOGIT_ATOL:
+        raise AssertionError(f"kernel and plain logits differ by {worst}")
+    return worst
+
+
+def profile_greedy(model, qparams, qctx, batch) -> None:
+    """Device busy time of one greedy generate, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import ServingEngine
+
+    engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = engine.generate(batch, max_new_tokens=MAX_NEW)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (operator rows repeat their kernels' time);
+    # one stream, so kernels do not overlap and their sum is the busy time
+    from torch.autograd import DeviceType
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    field = ("self_device_time_total" if events
+             and hasattr(events[0], "self_device_time_total")
+             else "self_cuda_time_total")
+    rows = sorted(((getattr(e, field) / 1e3, e.key, e.count)
+                   for e in events if getattr(e, field) > 0), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    if busy_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    log(f"profile greedy_static (profiled): wall_ms={wall_ms:.1f} "
+        f"device_busy_ms={busy_ms:.2f} idle_share={1 - busy_ms / wall_ms:.3f} "
+        f"steps={res.steps}")
+    for ms, key, count in rows[:8]:
+        log(f"  device {ms:8.3f} ms  x{count:<5d} {key[:70]}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_corpus, pad_batch
+    from repro_torch.kernels import build, ops
+    from repro_torch.models import EncDecLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. card
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(card)
+
+    # 2. build
+    secs = build.build_seconds()
+    log(f"build: {secs:.2f} s ({build.library_path().name})")
+    for name, out in build.build_log.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    cfg = get_config("transformer-base")
+    corpus = make_corpus(N_REQUESTS + N_CALIB, cfg.vocab, seed=11)
+    s_enc = pad_batch([s.src for s in corpus[:N_REQUESTS]])[0].shape[1]
+    log(f"transformer-base: {N_REQUESTS} requests, S_enc={s_enc}, "
+        f"max_len={MAX_LEN}, max_new_tokens={MAX_NEW}")
+
+    # 3. kernels vs plain
+    results = check_kernels(s_enc)
+
+    # 4. end to end
+    model = EncDecLM(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    warm_up(model, params, corpus)
+    ops.reset_launch_counts()
+    batch, qparams, qctx = run_main_path(model, params, corpus)
+    counts = ops.launch_counts()
+    log(f"launches on the main path: {json.dumps(counts)}")
+    check_against_plain(model, qparams, qctx, batch)
+    profile_greedy(model, qparams, qctx, batch)
+
+    # 5. launch counts and the kernel table
+    headline = {"quantize_static": [N_REQUESTS * s_enc, 512],
+                "quantize_rowwise": [N_REQUESTS * s_enc, 512],
+                "int8_matmul": [N_REQUESTS * BEAM, 512, 512],
+                "decode_attention": [N_REQUESTS * BEAM, MAX_LEN, 8, 64]}
+    replaces = {
+        "quantize_static": "src/repro/kernels/quantize.py:79",
+        "quantize_rowwise": "src/repro/kernels/quantize.py:38",
+        "int8_matmul": "src/repro/kernels/int8_matmul.py:145",
+        "decode_attention": "src/repro/kernels/decode_attention.py:80"}
+    sources = {
+        "quantize_static": "src/repro_torch/csrc/quantize.cu",
+        "quantize_rowwise": "src/repro_torch/csrc/quantize.cu",
+        "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
+        "decode_attention": "src/repro_torch/csrc/decode_attention.cu"}
+    kernels = []
+    for name in replaces:
+        r = next(x for x in results[name] if x["shape"] == headline[name])
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name],
+            "replaces": replaces[name], "launches": counts[name],
+            "max_abs_err": max(x["max_abs_err"] for x in results[name]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"]})
+    missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+    print(json.dumps({"kernels": kernels}), flush=True)
+
+    # 6. last line
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

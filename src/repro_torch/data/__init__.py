@@ -1,0 +1,16 @@
+"""Data substrate: synthetic corpus, ordering (paper §5.4), BLEU."""
+
+from repro_torch.data.metrics import corpus_bleu  # noqa: F401
+from repro_torch.data.sorting import (  # noqa: F401
+    make_batches,
+    next_pow2,
+    order_indices,
+)
+from repro_torch.data.synthetic import (  # noqa: F401
+    BOS,
+    EOS,
+    PAD,
+    Sentence,
+    make_corpus,
+    pad_batch,
+)

@@ -1,0 +1,85 @@
+"""s8·s8→s32 matmul with the dequantize epilogue fused (K3), on the card.
+
+Port of ``repro/kernels/int8_matmul.py:int8_matmul_pallas``.  The kernel is
+in ``csrc/int8_matmul.cu``; this wrapper checks its inputs, computes the
+zero-point column sums (as the reference's wrapper does, outside the kernel,
+and only for asymmetric activations), allocates the output, launches on the
+current stream and counts the launch.  The plain version is
+``ref.ref_int8_matmul``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.kernels import build
+
+OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"int8_matmul: {name} is on {t.device}, not {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"int8_matmul: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"int8_matmul: {name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"int8_matmul: {name} must be contiguous")
+
+
+def int8_matmul_cuda(
+    a_q: torch.Tensor,                      # (M, K) int8
+    a_scale: Union[torch.Tensor, float],    # (M, 1) / (1, 1) f32, or a float
+    b_q: torch.Tensor,                      # (K, N) int8
+    b_scale: torch.Tensor,                  # (1, N) f32
+    a_zero_point: Optional[float] = None,   # q-space offset
+    bias: Optional[torch.Tensor] = None,    # (N,) f32
+    *,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    if not a_q.is_cuda:
+        raise ValueError(f"int8_matmul: needs CUDA tensors, got {a_q.device}")
+    if a_q.dim() != 2 or b_q.dim() != 2 or a_q.shape[1] != b_q.shape[0]:
+        raise ValueError(f"int8_matmul: shapes {tuple(a_q.shape)} x "
+                         f"{tuple(b_q.shape)} do not multiply")
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"int8_matmul: out_dtype must be float32 or bfloat16, "
+                        f"got {out_dtype}")
+    M, K = a_q.shape
+    N = b_q.shape[1]
+    dev = a_q.device
+    _check(a_q, "a_q", torch.int8, (M, K), dev)
+    _check(b_q, "b_q", torch.int8, (K, N), dev)
+    _check(b_scale, "b_scale", torch.float32, (1, N), dev)
+    a_scale_ptr, a_scale_value, per_row = None, 0.0, 0
+    if isinstance(a_scale, torch.Tensor):
+        per_row = int(a_scale.numel() != 1)
+        _check(a_scale, "a_scale", torch.float32, (M, 1) if per_row else (1, 1),
+               dev)
+        a_scale_ptr = a_scale.data_ptr()
+    else:
+        a_scale_value = float(a_scale)
+    colsum_ptr, zp = None, 0.0
+    if a_zero_point is not None:
+        zp = float(a_zero_point)
+        colsum = b_q.to(torch.int32).sum(dim=0).to(torch.float32)
+        colsum_ptr = colsum.data_ptr()
+    if bias is not None:
+        _check(bias, "bias", torch.float32, (N,), dev)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    if out.numel():
+        err = build.lib().repro_int8_matmul(
+            a_q.data_ptr(), b_q.data_ptr(), a_scale_ptr, a_scale_value,
+            per_row, b_scale.data_ptr(), colsum_ptr, zp,
+            int(a_zero_point is not None),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            M, N, K, OUT_DTYPES[out_dtype], dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(err, "int8_matmul")
+        build.LAUNCHES["int8_matmul"] += 1
+    return out

@@ -1,0 +1,169 @@
+"""Public wrappers around the port's kernels (mirrors ``repro/kernels/ops.py``).
+
+Every op dispatches on ``impl``:
+
+* ``"cuda"``  — the hand-written kernel; the tensors must be on a CUDA
+                device, or the op raises;
+* ``"torch"`` — the plain PyTorch version (``kernels/ref.py``), on any
+                device;
+* ``"auto"``  — the kernel for CUDA tensors, the plain version for CPU
+                tensors (and only for those).
+
+The wrappers are QTensor-aware and flatten leading batch dimensions, so
+model code stays shape-agnostic.  ``launch_counts()`` reports how many times
+each kernel was launched since ``reset_launch_counts()``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.qtensor import QTensor
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.int8_matmul import int8_matmul_cuda
+from repro_torch.kernels.quantize import (
+    quantize_rowwise_cuda,
+    quantize_static_cuda,
+)
+
+IMPLS = ("auto", "cuda", "torch")
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(build.LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in build.LAUNCHES:
+        build.LAUNCHES[name] = 0
+
+
+def use_kernel(impl: str, x: torch.Tensor) -> bool:
+    """True → launch the CUDA kernel, False → run the plain version."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "torch":
+        return False
+    if x.is_cuda:
+        return True
+    if impl == "cuda" or x.device.type != "cpu":
+        raise ValueError(f"impl={impl!r} has no kernel for a tensor on "
+                         f"{x.device}; the CUDA kernels need CUDA tensors")
+    return False
+
+
+# ---------------------------------------------------------------------------
+# int8 matmul
+# ---------------------------------------------------------------------------
+
+def _row_scale(scale, M: int):
+    """Normalize an activation scale to a float, (1, 1) or (M, 1) f32."""
+    if not isinstance(scale, torch.Tensor):
+        return float(scale)
+    scale = scale.to(torch.float32)
+    return scale.reshape(1, 1) if scale.numel() == 1 else scale.reshape(M, 1)
+
+
+def _fold_zero_point(zero_point) -> Optional[float]:
+    """Symmetric activations have zp == 0: fold to the no-zp path."""
+    if isinstance(zero_point, torch.Tensor):
+        if zero_point.numel() != 1:
+            raise ValueError("int8_matmul: activation zero point must be a "
+                             f"scalar, got shape {tuple(zero_point.shape)}")
+        zero_point = zero_point.item()
+    return None if float(zero_point) == 0.0 else float(zero_point)
+
+
+def int8_matmul(
+    a: QTensor,
+    b: QTensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    out_dtype: torch.dtype = torch.float32,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """``dequant(a) @ dequant(b) + bias`` computed in int8.
+
+    ``a``: activations (..., K), scale per row (..., 1) or scalar;
+    ``b``: weights (K, N), symmetric per-column scale (1, N) or scalar.
+    """
+    batch_shape = a.data.shape[:-1]
+    K = a.data.shape[-1]
+    N = b.data.shape[-1]
+    a2 = a.data.reshape(-1, K)
+    M = a2.shape[0]
+    a_scale = _row_scale(a.scale, M)
+    b_scale = torch.as_tensor(b.scale, dtype=torch.float32,
+                              device=b.data.device)
+    b_scale = (b_scale.reshape(1, 1).expand(1, N) if b_scale.numel() == 1
+               else b_scale.reshape(1, N))
+    zp = _fold_zero_point(a.zero_point)
+    if use_kernel(impl, a2):
+        out = int8_matmul_cuda(
+            a2.contiguous(), a_scale, b.data.contiguous(),
+            b_scale.contiguous(), zp, bias, out_dtype=out_dtype)
+    else:
+        out = ref.ref_int8_matmul(a2, a_scale, b.data, b_scale, zp, bias,
+                                  out_dtype=out_dtype)
+    return out.reshape(*batch_shape, N)
+
+
+# ---------------------------------------------------------------------------
+# quantize
+# ---------------------------------------------------------------------------
+
+def quantize_rowwise(x: torch.Tensor, *, impl: str = "auto") -> QTensor:
+    """Dynamic symmetric per-row quantization of (..., K) activations."""
+    batch_shape = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if use_kernel(impl, x2):
+        q, scale = quantize_rowwise_cuda(x2.contiguous())
+    else:
+        q, scale = ref.ref_quantize_rowwise(x2)
+    return QTensor(data=q.reshape(x.shape), scale=scale.reshape(*batch_shape, 1),
+                   zero_point=0.0, axis=None)
+
+
+def quantize_static(x: torch.Tensor, amax: float, *,
+                    impl: str = "auto") -> QTensor:
+    """Calibrated symmetric quantization with a constant threshold.
+
+    The returned scale is ``float32(amax) / 127`` without the kernel's eps
+    clamp, exactly as the reference's ``ops.quantize_static`` returns it.
+    """
+    x2 = x.reshape(-1, x.shape[-1])
+    if use_kernel(impl, x2):
+        q = quantize_static_cuda(x2.contiguous(), amax)
+    else:
+        q = ref.ref_quantize_static(x2, float(np.float32(amax)))
+    scale = float(np.float32(amax) / np.float32(127.0))
+    return QTensor(data=q.reshape(x.shape), scale=scale, zero_point=0.0,
+                   axis=None)
+
+
+# ---------------------------------------------------------------------------
+# decode attention over an int8 KV cache
+# ---------------------------------------------------------------------------
+
+def decode_attention(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    sm_scale: float,
+    impl: str = "auto",
+) -> torch.Tensor:
+    if use_kernel(impl, q):
+        return decode_attention_cuda(
+            q.contiguous(), k_q.contiguous(), k_scale.contiguous(),
+            v_q.contiguous(), v_scale.contiguous(),
+            lengths.to(torch.int32).contiguous(), sm_scale=sm_scale)
+    return ref.ref_decode_attention(q, k_q, k_scale, v_q, v_scale, lengths,
+                                    sm_scale)

@@ -1,0 +1,95 @@
+"""Plain PyTorch versions of the port's four kernels.
+
+Each ``ref_*`` function computes its kernel's result with plain torch ops at
+full (exact integer / float32) precision, mirroring
+``repro/kernels/ref.py``.  Every division by a scale is an IEEE division on
+every device (``div_exact``; see ``core/qtensor.py``).  The CPU path of
+:mod:`repro_torch.kernels.ops` runs these, the tests hold them against the
+JAX package, and ``chip_smoke.py`` holds each CUDA kernel against them on
+the card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+from repro_torch.core.qtensor import div_exact
+
+INT8_MAX = 127.0
+_EPS = 1e-12
+
+Scale = Union[torch.Tensor, float]
+
+
+def ref_int8_matmul(
+    a_q: torch.Tensor,             # (M, K) int8
+    a_scale: Scale,                # (M, 1) / (1, 1) f32 or a float
+    b_q: torch.Tensor,             # (K, N) int8
+    b_scale: torch.Tensor,         # (1, N) f32
+    a_zero_point: Optional[Scale] = None,   # scalar (q-space offset)
+    bias: Optional[torch.Tensor] = None,    # (N,) f32
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Exact integer accumulation, then the affine epilogue.
+
+    The s32 accumulator is formed in float64, where every partial sum of
+    int8 products (< 2^25 here, < 2^53 in general) is an exact integer, so it
+    equals the s32 sum on any device; rounding it to f32 is the reference's
+    int32 -> f32 conversion.
+    """
+    acc = torch.matmul(a_q.to(torch.float64), b_q.to(torch.float64))
+    acc = acc.to(torch.float32)
+    if a_zero_point is not None:
+        colsum = b_q.to(torch.int32).sum(dim=0, keepdim=True).to(torch.float32)
+        acc = acc - torch.as_tensor(a_zero_point, dtype=torch.float32) * colsum
+    out = acc * a_scale * b_scale
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.to(out_dtype)
+
+
+def ref_quantize_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic symmetric row-wise quantization: (int8, (M, 1) f32 scales)."""
+    xf = x.to(torch.float32)
+    amax = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), _EPS)
+    scale = div_exact(amax, INT8_MAX)
+    q = torch.clamp(torch.round(xf / scale), -INT8_MAX, INT8_MAX)
+    return q.to(torch.int8), scale
+
+
+def ref_quantize_static(x: torch.Tensor, amax: Scale) -> torch.Tensor:
+    """Static-scale symmetric quantization (calibrated threshold)."""
+    amax = (amax.to(device=x.device, dtype=torch.float32)
+            if isinstance(amax, torch.Tensor)
+            else torch.full((), float(amax), device=x.device))
+    scale = div_exact(torch.clamp_min(amax, _EPS), INT8_MAX)
+    q = torch.clamp(torch.round(x.to(torch.float32) / scale),
+                    -INT8_MAX, INT8_MAX)
+    return q.to(torch.int8)
+
+
+def ref_decode_attention(
+    q: torch.Tensor,          # (B, H, dh) f32/bf16
+    k_q: torch.Tensor,        # (B, S, HKV, dh) int8
+    k_scale: torch.Tensor,    # (B, S, HKV) f32
+    v_q: torch.Tensor,        # (B, S, HKV, dh) int8
+    v_scale: torch.Tensor,    # (B, S, HKV) f32
+    lengths: torch.Tensor,    # (B,) int32 valid cache length per sequence
+    sm_scale: float,
+) -> torch.Tensor:
+    """Masked attention of one query token against a dequantized KV cache."""
+    B, S, HKV, dh = k_q.shape
+    H = q.shape[1]
+    G = H // HKV
+    k = k_q.to(torch.float32) * k_scale[..., None]
+    v = v_q.to(torch.float32) * v_scale[..., None]
+    qf = q.to(torch.float32).reshape(B, HKV, G, dh)
+    scores = torch.einsum("bhgd,bshd->bhgs", qf, k) * sm_scale
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < lengths.to(q.device)[:, None])                   # (B, S)
+    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", probs, v)
+    return out.reshape(B, H, dh).to(q.dtype)

@@ -1,0 +1,281 @@
+"""Encoder-decoder transformer: the paper's Transformer NMT model.
+
+Port of ``repro/models/encdec.py`` (``init``, ``encode``, ``forward``,
+``encode_cross_kv``, ``prefill``, ``decode_step(_multi)`` and a contiguous
+``init_decode_state``; staged encode and ``splice_prefill`` are not ported
+yet).  The layers run in an eager Python loop over unstacked parameters
+(``enc_blocks.{i}`` / ``dec_blocks.{i}``), so each layer keeps its own site
+names; ``checkpoint/bridge.py`` unstacks a scan-stacked reference tree.
+
+Cross-attention K/V are computed once from the encoder memory and kept in
+the decode state.  Inputs: ``src_tokens`` (B, S_enc) with optional
+``src_lengths``; ``tgt_tokens`` (B, S_dec) for teacher forcing.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core.calibration import Taps
+from repro_torch.core.ptq import FP_CONTEXT, QuantContext
+from repro_torch.models import kv_cache as kvc
+from repro_torch.models.attention import attention, attention_init
+from repro_torch.models.ffn import ffn, ffn_init
+from repro_torch.models.layers import (
+    dense,
+    embed,
+    embedding_init,
+    norm,
+    norm_init,
+    unembed,
+)
+
+
+@functools.lru_cache(maxsize=16)
+def _sinusoid_table(S: int, D: int) -> torch.Tensor:
+    """Float32 table computed on the host, so every device gets its values."""
+    pos = torch.arange(S, dtype=torch.float32)[:, None]
+    dim = torch.arange(0, D, 2, dtype=torch.float32)[None, :]
+    angle = pos / torch.pow(10000.0, dim / D)
+    pe = torch.zeros((S, D), dtype=torch.float32)
+    pe[:, 0::2] = torch.sin(angle)          # even columns: sin
+    pe[:, 1::2] = torch.cos(angle)          # odd columns: cos
+    return pe
+
+
+@functools.lru_cache(maxsize=16)
+def _sinusoid_on(S: int, D: int, dtype: torch.dtype,
+                 device: str) -> torch.Tensor:
+    return _sinusoid_table(S, D).to(device=device, dtype=dtype)
+
+
+def sinusoidal_positions(S: int, D: int, dtype,
+                         device=None) -> torch.Tensor:
+    return _sinusoid_on(S, D, dtype, str(torch.device(device or "cpu")))
+
+
+class EncDecLM:
+    """The model's functions over a parameter dict (the reference's layout).
+
+    ``device`` is where :meth:`init` puts the weights and where the decode
+    state lives: ``"cuda"`` unless the caller asks for the CPU.
+    """
+
+    def __init__(self, cfg, *, device: str = "cuda"):
+        if not cfg.enc_dec:
+            raise ValueError(f"{cfg.name} is not an encoder-decoder config")
+        self.cfg = cfg
+        self.device = torch.device(device)
+
+    # ------------------------------------------------------------------ init
+    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+        """Random weights from ``gen`` (a generator on ``self.device``)."""
+        cfg = self.cfg
+        kw = dict(dtype=cfg.parameter_dtype, device=self.device)
+        params: Dict[str, Any] = {
+            "embed": embedding_init(gen, cfg.vocab, cfg.d_model, **kw),
+            "enc_final_norm": norm_init(cfg.d_model, cfg.norm, **kw),
+            "dec_final_norm": norm_init(cfg.d_model, cfg.norm, **kw),
+        }
+        for i in range(cfg.n_enc_layers):
+            params[f"enc_blocks.{i}"] = {
+                "attn_norm": norm_init(cfg.d_model, cfg.norm, **kw),
+                "attn": attention_init(gen, cfg, **kw),
+                "ffn_norm": norm_init(cfg.d_model, cfg.norm, **kw),
+                "ffn": ffn_init(gen, cfg, **kw),
+            }
+        for i in range(cfg.n_layers):
+            params[f"dec_blocks.{i}"] = {
+                "self_norm": norm_init(cfg.d_model, cfg.norm, **kw),
+                "self_attn": attention_init(gen, cfg, **kw),
+                "cross_norm": norm_init(cfg.d_model, cfg.norm, **kw),
+                "cross_attn": attention_init(gen, cfg, **kw),
+                "ffn_norm": norm_init(cfg.d_model, cfg.norm, **kw),
+                "ffn": ffn_init(gen, cfg, **kw),
+            }
+        return params
+
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embedding scaled by √d in the activation dtype: as in JAX,
+        the Python scalar √d is first rounded to that dtype."""
+        cfg = self.cfg
+        dt = cfg.activation_dtype
+        x = embed(params["embed"], tokens, dt)
+        return x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=dt))
+
+    # ---------------------------------------------------------------- encode
+    def encode(self, params, batch, *, quant: QuantContext = FP_CONTEXT,
+               taps: Optional[Taps] = None) -> torch.Tensor:
+        cfg = self.cfg
+        x = self._embed(params, batch["src_tokens"])
+        _, S, D = x.shape
+        x = x + sinusoidal_positions(S, D, x.dtype, x.device)[None]
+        lengths = batch.get("src_lengths")
+        for i in range(cfg.n_enc_layers):
+            bp, site = params[f"enc_blocks.{i}"], f"enc_blocks.{i}"
+            h = norm(bp["attn_norm"], x, cfg.norm)
+            a, _ = attention(bp["attn"], h, cfg=cfg, site=f"{site}/attn",
+                             quant=quant, taps=taps, causal=False,
+                             kv_lengths=lengths)
+            x = x + a
+            h = norm(bp["ffn_norm"], x, cfg.norm)
+            x = x + ffn(bp["ffn"], h, cfg=cfg, site=f"{site}/ffn",
+                        quant=quant, taps=taps)
+        return norm(params["enc_final_norm"], x, cfg.norm)
+
+    # ---------------------------------------------------------------- decode
+    def _dec_block(self, bparams, x, memory, *, site, quant, taps, positions,
+                   kv_lengths, memory_lengths, cache_view=None):
+        cfg = self.cfg
+        h = norm(bparams["self_norm"], x, cfg.norm)
+        a, entries = attention(
+            bparams["self_attn"], h, cfg=cfg, site=f"{site}/self_attn",
+            quant=quant, taps=taps, positions=positions,
+            kv_lengths=kv_lengths, cache=cache_view)
+        x = x + a
+        h = norm(bparams["cross_norm"], x, cfg.norm)
+        c, _ = attention(
+            bparams["cross_attn"], h, cfg=cfg, site=f"{site}/cross_attn",
+            quant=quant, taps=taps, memory=memory,
+            memory_lengths=memory_lengths,
+            per_query=cache_view is not None)
+        x = x + c
+        h = norm(bparams["ffn_norm"], x, cfg.norm)
+        f = ffn(bparams["ffn"], h, cfg=cfg, site=f"{site}/ffn", quant=quant,
+                taps=taps)
+        return x + f, entries
+
+    def _cross_kv(self, bparams, memory, *, site, quant, taps):
+        """Project encoder memory to this layer's cross K/V (done once)."""
+        cfg = self.cfg
+        B, S, _ = memory.shape
+        k = dense(bparams["cross_attn"]["k_proj"], memory,
+                  site=f"{site}/cross_attn/k_proj", quant=quant,
+                  taps=taps).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+        v = dense(bparams["cross_attn"]["v_proj"], memory,
+                  site=f"{site}/cross_attn/v_proj", quant=quant,
+                  taps=taps).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+        return k, v
+
+    def forward(self, params, batch, *, quant: QuantContext = FP_CONTEXT,
+                taps: Optional[Taps] = None) -> Tuple[torch.Tensor, Dict]:
+        """Teacher-forced forward: returns decoder logits (B, S_dec, V)."""
+        cfg = self.cfg
+        memory = self.encode(params, batch, quant=quant, taps=taps)
+        mem_lengths = batch.get("src_lengths")
+        x = self._embed(params, batch["tgt_tokens"])
+        B, S, D = x.shape
+        x = x + sinusoidal_positions(S, D, x.dtype, x.device)[None]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+        tgt_lengths = batch.get("tgt_lengths")
+        for i in range(cfg.n_layers):
+            bp, site = params[f"dec_blocks.{i}"], f"dec_blocks.{i}"
+            kv = self._cross_kv(bp, memory, site=site, quant=quant, taps=taps)
+            x, _ = self._dec_block(bp, x, kv, site=site, quant=quant,
+                                   taps=taps, positions=positions,
+                                   kv_lengths=tgt_lengths,
+                                   memory_lengths=mem_lengths)
+        x = norm(params["dec_final_norm"], x, cfg.norm)
+        return unembed(params["embed"], x), {}
+
+    # ------------------------------------------------------- serving states
+    def init_decode_state(self, batch: int, max_len: int, *, quantized: bool,
+                          paged: bool = False) -> Dict[str, Any]:
+        """An empty contiguous decode state on ``self.device``."""
+        if paged:
+            raise NotImplementedError("the paged KV cache is not ported yet")
+        cfg = self.cfg
+        cache = kvc.init_cache(cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+                               cfg.hd, quantized=quantized,
+                               dtype=cfg.activation_dtype, device=self.device)
+        return {"cache": cache, "cross_k": None, "cross_v": None,
+                "src_lengths": None}
+
+    def encode_cross_kv(self, params, batch, *,
+                        quant: QuantContext = FP_CONTEXT
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Run the encoder and project every decoder layer's cross K/V.
+
+        Returns ``(cross_k, cross_v, src_lengths)`` with cross K/V
+        layer-major ``(L, B, S_enc, HKV, dh)``.
+        """
+        cfg = self.cfg
+        memory = self.encode(params, batch, quant=quant)
+        B, S = memory.shape[0], memory.shape[1]
+        src_lengths = batch.get("src_lengths")
+        if src_lengths is None:
+            src_lengths = torch.full((B,), S, dtype=torch.int32,
+                                     device=memory.device)
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            k, v = self._cross_kv(params[f"dec_blocks.{i}"], memory,
+                                  site=f"dec_blocks.{i}", quant=quant,
+                                  taps=None)
+            ks.append(k)
+            vs.append(v)
+        return torch.stack(ks), torch.stack(vs), src_lengths
+
+    def prefill(self, params, batch, state, *,
+                quant: QuantContext = FP_CONTEXT) -> Tuple[torch.Tensor, Dict]:
+        """Encode the source, keep its cross K/V, emit the BOS-step logits."""
+        ck, cv, src_lengths = self.encode_cross_kv(params, batch, quant=quant)
+        state = dict(state)
+        state["cross_k"], state["cross_v"] = ck, cv
+        state["src_lengths"] = src_lengths
+        bos = torch.zeros((ck.shape[1],), dtype=torch.int32, device=ck.device)
+        return self.decode_step(params, bos, state, quant=quant)
+
+    def decode_step(self, params, tokens, state, *,
+                    quant: QuantContext = FP_CONTEXT) -> Tuple[torch.Tensor, Dict]:
+        """Single-token decode: ``tokens`` (B,) → (logits (B, V), state)."""
+        logits, state = self.decode_step_multi(params, tokens[:, None], state,
+                                               quant=quant)
+        return logits[:, 0], state
+
+    def decode_step_multi(self, params, tokens, state, *,
+                          quant: QuantContext = FP_CONTEXT
+                          ) -> Tuple[torch.Tensor, Dict]:
+        """Decode ``T`` consecutive positions per row in one pass.
+
+        ``tokens``: (B, T); position t of row b is embedded at cursor
+        ``lengths[b] + t`` and causally masked to its own prefix.  The cache
+        is written in place and the returned state's cursors advance by T.
+        """
+        cfg = self.cfg
+        cache = state["cache"]
+        T = tokens.shape[1]
+        x = self._embed(params, tokens)
+        pe = sinusoidal_positions(cache.capacity, cfg.d_model, x.dtype,
+                                  x.device)
+        # rows stepping past their cursor (finished, still in the batch)
+        # read the last position instead of out of bounds
+        pos = torch.clamp(cache.lengths[:, None]
+                          + torch.arange(T, dtype=torch.int32,
+                                         device=x.device)[None, :],
+                          max=cache.capacity - 1)
+        x = x + pe[pos.long()]
+        for i in range(cfg.n_layers):
+            q = cache.quantized
+            view = kvc.LayerCacheView(
+                k=cache.k[i], v=cache.v[i],
+                k_scale=cache.k_scale[i] if q else None,
+                v_scale=cache.v_scale[i] if q else None,
+                lengths=cache.lengths)
+            x, _ = self._dec_block(
+                params[f"dec_blocks.{i}"], x,
+                (state["cross_k"][i], state["cross_v"][i]),
+                site=f"dec_blocks.{i}", quant=quant, taps=None,
+                positions=None, kv_lengths=None,
+                memory_lengths=state["src_lengths"], cache_view=view)
+        state = dict(state)
+        state["cache"] = kvc.KVCache(k=cache.k, v=cache.v,
+                                     k_scale=cache.k_scale,
+                                     v_scale=cache.v_scale,
+                                     lengths=cache.lengths + T)
+        x = norm(params["dec_final_norm"], x, cfg.norm)
+        return unembed(params["embed"], x), state

@@ -44,3 +44,8 @@ def trained_nmt():
         (params, opt_state), m = step(params, opt_state, batch)
         loss = float(m["loss"])
     return cfg, model, params, corpus, loss
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skipped without them")
