@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's INT8 translation path on one NVIDIA GPU.
+"""Drive the PyTorch port's INT8 translation and serving paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,10 +8,12 @@ Phases (any failure raises, and the script exits non-zero without the
 final line):
 
 1. card   — name and power limit from ``nvidia-smi``; no CUDA → exit 1;
-2. build  — compile the four CUDA kernels from ``src/repro_torch/csrc``;
-3. kernels vs plain — each kernel at the main path's shapes against its
-   plain PyTorch version on the card, with its time, the plain version's,
-   a library call's where one computes the same function, and its bound;
+2. build  — compile the CUDA kernels from ``src/repro_torch/csrc``;
+3. kernels vs plain — each of the five kernels at its path's shapes against
+   its plain PyTorch version on the card, with its time, the plain
+   version's, a library call's where one computes the same function, and
+   its bound; K5 (paged decode attention) also against K4 on the
+   linearized cache, bit for bit;
 4. end to end — transformer-base at full width (bf16 activations, float32
    weights from ``torch.Generator`` seed 0): after a two-token warm-up,
    KL-calibrate, quantize to INT8, greedy ``generate`` and beam-4
@@ -18,8 +21,16 @@ final line):
    ``generate`` with dynamic scales; then the first decode steps' logits
    against the same run with ``impl="torch"``, and a profiled greedy run
    (device busy time and its largest kernels);
-5. launch counts of the main path, and one JSON line describing each kernel;
-6. last line: ``{"ok": true, "device": {...}}``.
+5. continuous serving — 48 requests with budgets of 4–48 tokens through
+   ``ServingEngine.serve`` on 16 slots (INT8, static scales): contiguous
+   cache, paged cache (default pool and a tight 32-page pool) with fused
+   admission, and paged with unfused admission.  Paged and contiguous
+   tokens must be identical, every page returned, K5 launched on the paged
+   runs only and its plain version never; then a profiled paged serve;
+6. the serving driver ``python -m repro_torch.launch.serve`` once per mode
+   (continuous paged, static), each a subprocess that must exit 0;
+7. launch counts of each path, and one JSON line describing each kernel;
+8. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package.
 """
@@ -28,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -47,9 +59,22 @@ N_CALIB = 32
 BEAM = 4
 LOGIT_ATOL = 0.05              # kernel path vs plain path, see phase 4
 
+SERVE_REQUESTS = 48            # phase 5: continuous serving
+SERVE_SLOTS = 16
+SERVE_BURST = 8
+PAGE = 16                      # tokens per KV page (max_len 64: 4 pages/row)
+TIGHT_PAGES = 32               # half of the contiguous-equivalent 64
+
+
+T_START = time.perf_counter()
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(name: str) -> None:
+    log(f"== {name} (at {time.perf_counter() - T_START:.1f} s)")
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -58,14 +83,18 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     The timed launches queue up behind a sleeping kernel, so the GPU runs
     them back to back and the host's launch overhead stays outside the
     window between the two events.  The sleep is lengthened until it
-    outlasts the host's enqueueing.
+    outlasts the host's enqueueing, at most three times: a function that
+    launches more kernels than the launch queue holds (the plain paged
+    version, about 30 per call) blocks the host until the sleep ends, however
+    long it is.  Such a function is timed without the sleep, its launch gaps
+    included, and the log says so.
     """
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     cycles = 20_000_000
-    while True:
+    for _ in range(4):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         sleep_end = torch.cuda.Event(enable_timing=True)
@@ -83,6 +112,16 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
         if host_ms < 0.8 * sleep_start.elapsed_time(sleep_end):
             return start.elapsed_time(end) / iters
         cycles *= 4
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    log("  (timed without the sleep: the host could not run ahead of the "
+        "card, so launch gaps are included)")
+    return start.elapsed_time(end) / iters
 
 
 def bound(bytes_moved: float, ops: float, ops_per_s: float):
@@ -98,10 +137,12 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float):
 def check_kernels(s_enc: int):
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_paged_cuda)
     from repro_torch.kernels.int8_matmul import int8_matmul_cuda
     from repro_torch.kernels.quantize import (quantize_rowwise_cuda,
                                               quantize_static_cuda)
+    from repro_torch.models.kv_cache import linearize_pages
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -231,6 +272,71 @@ def check_kernels(s_enc: int):
             time_ms(lambda: ref.ref_decode_attention(q, kq, ks, vq, vs,
                                                      lengths, sm)),
             b, o, None))
+
+    # K5: paged flash decode vs the plain version, and vs K4 on the
+    # linearized cache (bit for bit), at the serve shapes: page size 16,
+    # 4 pages a row, a pool of B·4 pages handed out shuffled, sentinels
+    # past each row's reservation
+    maxP = MAX_LEN // PAGE
+    for B, HKV_ in ((SERVE_SLOTS, HKV), (SERVE_SLOTS * 4, HKV),
+                    (SERVE_SLOTS, 4)):
+        P = B * maxP
+        cpu = torch.Generator().manual_seed(B + HKV_)
+        perm = torch.randperm(P, generator=cpu).int()
+        reserve = torch.randint(1, maxP + 1, (B,), generator=cpu)
+        reserve[1] = maxP                  # row 1 holds the full capacity
+        tables = torch.full((B, maxP), P, dtype=torch.int32)
+        for i in range(B):
+            n = int(reserve[i])
+            tables[i, :n] = perm[i * maxP:i * maxP + n]
+        lengths = torch.minimum(torch.randint(1, MAX_LEN + 1, (B,),
+                                              generator=cpu), reserve * PAGE)
+        lengths[0], lengths[1] = 1, MAX_LEN
+        tables, lengths = tables.to(dev), lengths.to(torch.int32).to(dev)
+        kq = torch.randint(-127, 128, (P, PAGE, HKV_, dh), generator=gen,
+                           device=dev, dtype=torch.int8)
+        vq = torch.randint(-127, 128, (P, PAGE, HKV_, dh), generator=gen,
+                           device=dev, dtype=torch.int8)
+        ks = torch.rand((P, PAGE, HKV_), generator=gen, device=dev) * 0.02
+        vs = torch.rand((P, PAGE, HKV_), generator=gen, device=dev) * 0.02
+        qf = torch.randn((B, H, dh), generator=gen, device=dev)
+        sm = 1.0 / dh ** 0.5
+        lin = lambda a: linearize_pages(a, tables).contiguous()
+        errs = []
+        for q in (qf, qf.to(torch.bfloat16)):
+            run = lambda: decode_attention_paged_cuda(q, kq, ks, vq, vs,
+                                                      tables, lengths,
+                                                      sm_scale=sm)
+            out = run()
+            out_ref = ref.ref_decode_attention_paged(q, kq, ks, vq, vs,
+                                                     tables, lengths, sm)
+            err = float((out.float() - out_ref.float()).abs().max())
+            # f32: 1e-5; bf16 output: one bf16 ulp (2^-8 relative) either way
+            rtol = 1e-5 if q.dtype == torch.float32 else 2.0 ** -7
+            if not torch.allclose(out.float(), out_ref.float(), atol=1e-5,
+                                  rtol=rtol):
+                raise AssertionError(f"decode_attention_paged {q.dtype} err "
+                                     f"{err} at B={B}, HKV={HKV_}")
+            k4 = decode_attention_cuda(q, lin(kq), lin(ks), lin(vq), lin(vs),
+                                       lengths, sm_scale=sm)
+            d4 = float((out.float() - k4.float()).abs().max())
+            if not torch.equal(out, k4):
+                raise AssertionError(f"decode_attention_paged differs from "
+                                     f"K4 on the linearized cache by {d4} "
+                                     f"({q.dtype}, B={B}, HKV={HKV_})")
+            errs.append(err)
+        log(f"kernel decode_attention_paged B={B} HKV={HKV_}: "
+            f"max |K5 - K4 on the linearized cache| = 0 (f32 and bf16)")
+        tokens = int(lengths.sum())
+        b, o = bound(tokens * HKV_ * (2 * dh + 8) + B * maxP * 4
+                     + 2 * B * H * dh * 2, 4 * tokens * H * dh,
+                     F32_FLOPS_PER_S)
+        results.setdefault("decode_attention_paged", []).append(row(
+            "decode_attention_paged", [B, P, PAGE, HKV_, dh], max(errs),
+            time_ms(run),
+            time_ms(lambda: ref.ref_decode_attention_paged(
+                q, kq, ks, vq, vs, tables, lengths, sm)),
+            b, o, None))
     return results
 
 
@@ -335,18 +441,16 @@ def check_against_plain(model, qparams, qctx, batch, steps: int = 3) -> float:
     return worst
 
 
-def profile_greedy(model, qparams, qctx, batch) -> None:
-    """Device busy time of one greedy generate, from torch.profiler."""
+def profile(label: str, fn) -> None:
+    """Device busy time of one call of ``fn``, from torch.profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serving import ServingEngine
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
-    engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = engine.generate(batch, max_new_tokens=MAX_NEW)
+        steps = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (operator rows repeat their kernels' time);
@@ -362,11 +466,182 @@ def profile_greedy(model, qparams, qctx, batch) -> None:
     busy_ms = sum(r[0] for r in rows)
     if busy_ms <= 0:
         raise AssertionError("the profiler saw no device time")
-    log(f"profile greedy_static (profiled): wall_ms={wall_ms:.1f} "
+    log(f"profile {label} (profiled): wall_ms={wall_ms:.1f} "
         f"device_busy_ms={busy_ms:.2f} idle_share={1 - busy_ms / wall_ms:.3f} "
-        f"steps={res.steps}")
+        f"steps={steps}")
     for ms, key, count in rows[:8]:
         log(f"  device {ms:8.3f} ms  x{count:<5d} {key[:70]}")
+
+
+def profile_greedy(model, qparams, qctx, batch) -> None:
+    from repro_torch.serving import ServingEngine
+    engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN)
+    profile("greedy_static", lambda: engine.generate(
+        batch, max_new_tokens=MAX_NEW).steps)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: continuous serving over the contiguous and the paged cache
+# ---------------------------------------------------------------------------
+
+SERVE_RUNS = (          # name, engine options, fused admission
+    ("contiguous", dict(paged=False), True),
+    ("paged", dict(paged=True, page_size=PAGE), True),
+    ("paged_tight", dict(paged=True, page_size=PAGE, n_pages=TIGHT_PAGES),
+     True),
+    ("paged_unfused", dict(paged=True, page_size=PAGE), False),
+)
+
+
+def serve_requests(vocab: int):
+    import numpy as np
+    from repro_torch.data import make_corpus
+    corpus = make_corpus(SERVE_REQUESTS, vocab, seed=11)
+    budgets = np.random.default_rng(12).integers(4, 49, SERVE_REQUESTS)
+    return corpus, [int(b) for b in budgets]
+
+
+def run_serving(model, qparams, qctx):
+    """Serve the requests once per run of ``SERVE_RUNS``; each run's launch
+    counts are read from zero.  Returns (launch counts per run, results)."""
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving import ServingEngine
+
+    corpus, budgets = serve_requests(model.cfg.vocab)
+    # warm-up: library handles and caches for the serve shapes (uncounted)
+    for kw in (dict(paged=False), dict(paged=True, page_size=PAGE)):
+        ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN,
+                      burst_len=SERVE_BURST, **kw).serve(
+            corpus[:SERVE_SLOTS + 2], n_slots=SERVE_SLOTS, max_new_tokens=2)
+
+    # count the plain paged version's calls: on the card it must run 0 times
+    plain_paged = ref.ref_decode_attention_paged
+    plain_calls = []
+
+    def counted(*args, **kwargs):
+        plain_calls.append(1)
+        return plain_paged(*args, **kwargs)
+
+    ref.ref_decode_attention_paged = counted
+    counts, results = {}, {}
+    for name, kw, fused in SERVE_RUNS:
+        engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN,
+                               burst_len=SERVE_BURST, **kw)
+        del plain_calls[:]
+        ops.reset_launch_counts()
+        res = engine.serve(corpus, n_slots=SERVE_SLOTS,
+                           max_new_tokens=budgets, fused_admission=fused)
+        counts[name] = ops.launch_counts()
+        results[name] = res
+        m = res.metrics()
+        n_pages = kw.get("n_pages", SERVE_SLOTS * MAX_LEN // PAGE)
+        log(f"serve {name}: tokens={res.n_tokens} "
+            f"tokens_per_s={res.tokens_per_s:.1f} "
+            f"decode_steps={res.decode_steps} host_syncs={res.host_syncs} "
+            f"utilization={res.utilization:.3f} "
+            f"admission_rounds={res.prefill_rounds} "
+            f"prefill_dispatches={res.prefill_dispatches} "
+            f"first_token_mean_s={m['first_token_latency_mean_s']:.4f} "
+            f"first_token_p95_s={m['first_token_latency_p95_s']:.4f} "
+            f"total_mean_s={m['total_latency_mean_s']:.4f} "
+            f"total_p95_s={m['total_latency_p95_s']:.4f} "
+            f"peak_running={res.peak_running} page_hwm={res.page_hwm}"
+            + (f"/{n_pages}" if res.paged else ""))
+        log(f"  launches: {json.dumps(counts[name])}; plain paged version "
+            f"calls: {len(plain_calls)}")
+        if len(res.requests) != SERVE_REQUESTS or any(
+                r.status != "finished" for r in res.requests):
+            raise AssertionError(f"serve {name}: not every request finished")
+        for r, b in zip(res.requests, budgets):
+            t = np.asarray(r.tokens)
+            if len(t) > b or (len(t) and not (
+                    0 <= t.min() and t.max() < model.cfg.vocab)):
+                raise AssertionError(f"serve {name}: bad output {t}")
+        paged_launches = counts[name]["decode_attention_paged"]
+        if res.paged:
+            if res.pages_in_use != 0 or not 0 < res.page_hwm <= n_pages:
+                raise AssertionError(
+                    f"serve {name}: pages_in_use={res.pages_in_use}, "
+                    f"page_hwm={res.page_hwm} of {n_pages}")
+            if paged_launches <= 0 or plain_calls:
+                raise AssertionError(
+                    f"serve {name}: K5 launched {paged_launches} times, its "
+                    f"plain version {len(plain_calls)} times")
+        elif paged_launches or counts[name]["decode_attention"] <= 0:
+            raise AssertionError(f"serve {name}: launches {counts[name]}")
+    ref.ref_decode_attention_paged = plain_paged
+
+    toks = {name: [list(r.tokens) for r in res.requests]
+            for name, res in results.items()}
+    if toks["paged"] != toks["contiguous"]:
+        bad = sum(a != b for a, b in zip(toks["paged"], toks["contiguous"]))
+        raise AssertionError(f"paged and contiguous serving differ on {bad} "
+                             f"of {SERVE_REQUESTS} requests")
+    agree = lambda a, b: sum(x == y for x, y in zip(toks[a], toks[b]))
+    log(f"serve agreement (of {SERVE_REQUESTS} requests): paged == "
+        f"contiguous {agree('paged', 'contiguous')}, tight pool == "
+        f"contiguous {agree('paged_tight', 'contiguous')}, fused == unfused "
+        f"{agree('paged', 'paged_unfused')}")
+    return counts, results, toks
+
+
+def serve_vs_generate(model, qparams, qctx, toks) -> None:
+    """Per-request ``generate`` of every served request (batch width 1
+    against the serve grid's 16 rows)."""
+    from repro_torch.data import pad_batch
+    from repro_torch.serving import ServingEngine
+    corpus, budgets = serve_requests(model.cfg.vocab)
+    engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN,
+                           burst_len=SERVE_BURST)
+    same = 0
+    for s, b, served in zip(corpus, budgets, toks["contiguous"]):
+        src, lens = pad_batch([s.src])
+        res = engine.generate({"src_tokens": src, "src_lengths": lens},
+                              max_new_tokens=b)
+        same += list(res.tokens[0]) == served
+    log(f"serve agreement: serve == per-request generate {same} of "
+        f"{SERVE_REQUESTS}")
+
+
+def profile_paged_serve(model, qparams, qctx) -> None:
+    """The first half of the requests through a profiled paged serve (the
+    profiler's own cost grows with the number of events)."""
+    from repro_torch.serving import ServingEngine
+    corpus, budgets = serve_requests(model.cfg.vocab)
+    half = SERVE_REQUESTS // 2
+    engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN,
+                           burst_len=SERVE_BURST, paged=True, page_size=PAGE)
+    profile(f"serve_paged {half} requests", lambda: engine.serve(
+        corpus[:half], n_slots=SERVE_SLOTS,
+        max_new_tokens=budgets[:half]).decode_steps)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the serving driver, once per mode
+# ---------------------------------------------------------------------------
+
+DRIVER_RUNS = (
+    ["--mode", "continuous", "--paged", "--requests", "16", "--slots", "4",
+     "--max-new-tokens", "8"],
+    ["--mode", "static", "--streams", "2", "--requests", "16",
+     "--max-new-tokens", "8"],
+)
+
+
+def run_driver() -> None:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for argv in DRIVER_RUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *argv]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        log(f"driver {' '.join(argv[:2])} exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for line in proc.stdout.strip().splitlines():
+            log(f"  | {line}")
+        if proc.returncode:
+            raise AssertionError(f"{' '.join(cmd)} failed:\n{proc.stderr}")
 
 
 def main() -> int:
@@ -390,6 +665,7 @@ def main() -> int:
     log(card)
 
     # 2. build
+    phase("build")
     secs = build.build_seconds()
     log(f"build: {secs:.2f} s ({build.library_path().name})")
     for name, out in build.build_log.items():
@@ -404,9 +680,11 @@ def main() -> int:
         f"max_len={MAX_LEN}, max_new_tokens={MAX_NEW}")
 
     # 3. kernels vs plain
+    phase("kernels vs plain")
     results = check_kernels(s_enc)
 
     # 4. end to end
+    phase("end to end")
     model = EncDecLM(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     warm_up(model, params, corpus)
@@ -417,38 +695,63 @@ def main() -> int:
     check_against_plain(model, qparams, qctx, batch)
     profile_greedy(model, qparams, qctx, batch)
 
-    # 5. launch counts and the kernel table
+    # 5. continuous serving, contiguous and paged
+    phase("continuous serving")
+    serve_counts, _, toks = run_serving(model, qparams, qctx)
+    phase("serve vs per-request generate")
+    serve_vs_generate(model, qparams, qctx, toks)
+    phase("profiled paged serve")
+    profile_paged_serve(model, qparams, qctx)
+
+    # 6. the serving driver
+    phase("serving driver")
+    run_driver()
+
+    # 7. launch counts and the kernel table
+    phase("kernel table")
+    maxP = MAX_LEN // PAGE
     headline = {"quantize_static": [N_REQUESTS * s_enc, 512],
                 "quantize_rowwise": [N_REQUESTS * s_enc, 512],
                 "int8_matmul": [N_REQUESTS * BEAM, 512, 512],
-                "decode_attention": [N_REQUESTS * BEAM, MAX_LEN, 8, 64]}
+                "decode_attention": [N_REQUESTS * BEAM, MAX_LEN, 8, 64],
+                "decode_attention_paged": [SERVE_SLOTS, SERVE_SLOTS * maxP,
+                                           PAGE, 8, 64]}
     replaces = {
         "quantize_static": "src/repro/kernels/quantize.py:79",
         "quantize_rowwise": "src/repro/kernels/quantize.py:38",
         "int8_matmul": "src/repro/kernels/int8_matmul.py:145",
-        "decode_attention": "src/repro/kernels/decode_attention.py:80"}
+        "decode_attention": "src/repro/kernels/decode_attention.py:80",
+        "decode_attention_paged": "src/repro/kernels/decode_attention.py:250"}
     sources = {
         "quantize_static": "src/repro_torch/csrc/quantize.cu",
         "quantize_rowwise": "src/repro_torch/csrc/quantize.cu",
         "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
-        "decode_attention": "src/repro_torch/csrc/decode_attention.cu"}
+        "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+        "decode_attention_paged": "src/repro_torch/csrc/decode_attention.cu"}
+    # each kernel's launches on the path it was ported for
+    paths = {name: ("generate (greedy + beam-4 static, greedy dynamic)",
+                    counts[name]) for name in replaces}
+    paths["decode_attention_paged"] = (
+        "serve paged (fused, default pool)",
+        serve_counts["paged"]["decode_attention_paged"])
     kernels = []
     for name in replaces:
         r = next(x for x in results[name] if x["shape"] == headline[name])
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
-            "replaces": replaces[name], "launches": counts[name],
+            "replaces": replaces[name], "launches": paths[name][1],
             "max_abs_err": max(x["max_abs_err"] for x in results[name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "path": paths[name][0]})
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on their path: "
                              f"{missing}")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 6. last line
+    # 8. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,10 +1,13 @@
-"""Data substrate: synthetic corpus, ordering (paper §5.4), BLEU."""
+"""Data substrate: synthetic corpus, ordering and bin packing (paper §5.4),
+BLEU."""
 
 from repro_torch.data.metrics import corpus_bleu  # noqa: F401
 from repro_torch.data.sorting import (  # noqa: F401
     make_batches,
     next_pow2,
     order_indices,
+    pack_batches_token_budget,
+    padding_stats,
 )
 from repro_torch.data.synthetic import (  # noqa: F401
     BOS,

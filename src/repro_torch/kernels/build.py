@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"quantize_static": 0, "quantize_rowwise": 0,
-                            "int8_matmul": 0, "decode_attention": 0}
+                            "int8_matmul": 0, "decode_attention": 0,
+                            "decode_attention_paged": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +47,9 @@ _SIGNATURES = {
     "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _F, _I, _I, _P],
     "repro_decode_attention_smem_bytes": [_I, _I],
+    "repro_decode_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "repro_decode_attention_paged_smem_bytes": [_I, _I, _I],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,10 +1,12 @@
-"""Flash-decode attention over a contiguous INT8 KV cache (K4), on the card.
+"""Flash-decode attention over an INT8 KV cache on the card: contiguous
+(K4) and paged (K5).
 
-Port of ``repro/kernels/decode_attention.py:decode_attention_pallas`` (the
-contiguous kernel; the paged one is not ported yet).  The kernel is in
-``csrc/decode_attention.cu``; this wrapper checks its inputs, allocates the
+Port of ``repro/kernels/decode_attention.py:decode_attention_pallas`` and
+``decode_attention_paged_pallas``.  Both kernels are in
+``csrc/decode_attention.cu``; each wrapper checks its inputs, allocates the
 output, launches on the current stream and counts the launch.  The plain
-version is ``ref.ref_decode_attention``.
+versions are ``ref.ref_decode_attention`` and
+``ref.ref_decode_attention_paged``.
 """
 
 from __future__ import annotations
@@ -76,4 +78,60 @@ def decode_attention_cuda(
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, "decode_attention")
         build.LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def decode_attention_paged_cuda(
+    q: torch.Tensor,             # (B, H, dh) f32/bf16
+    k_pages: torch.Tensor,       # (P, ps, HKV, dh) int8 page pool
+    k_scale: torch.Tensor,       # (P, ps, HKV) f32
+    v_pages: torch.Tensor,       # (P, ps, HKV, dh) int8
+    v_scale: torch.Tensor,       # (P, ps, HKV) f32
+    block_tables: torch.Tensor,  # (B, maxP) int32; sentinel P = unreserved
+    lengths: torch.Tensor,       # (B,) int32
+    *,
+    sm_scale: float,
+) -> torch.Tensor:
+    if not q.is_cuda:
+        raise ValueError(f"decode_attention_paged: needs CUDA tensors, got "
+                         f"{q.device}")
+    if q.dtype not in Q_DTYPES:
+        raise TypeError(f"decode_attention_paged: q must be float32 or "
+                        f"bfloat16, got {q.dtype}")
+    if q.dim() != 3 or k_pages.dim() != 4 or block_tables.dim() != 2:
+        raise ValueError(f"decode_attention_paged: q must be (B, H, dh), "
+                         f"k_pages (P, ps, HKV, dh) and block_tables "
+                         f"(B, maxP), got {tuple(q.shape)}, "
+                         f"{tuple(k_pages.shape)}, "
+                         f"{tuple(block_tables.shape)}")
+    B, H, dh = q.shape
+    P, ps, HKV, _ = k_pages.shape
+    maxP = block_tables.shape[1]
+    if H % HKV:
+        raise ValueError(f"decode_attention_paged: {H} heads over {HKV} kv "
+                         f"heads")
+    G = H // HKV
+    dev = q.device
+    _check(q, "q", q.dtype, (B, H, dh), dev)
+    _check(k_pages, "k_pages", torch.int8, (P, ps, HKV, dh), dev)
+    _check(v_pages, "v_pages", torch.int8, (P, ps, HKV, dh), dev)
+    _check(k_scale, "k_scale", torch.float32, (P, ps, HKV), dev)
+    _check(v_scale, "v_scale", torch.float32, (P, ps, HKV), dev)
+    _check(block_tables, "block_tables", torch.int32, (B, maxP), dev)
+    _check(lengths, "lengths", torch.int32, (B,), dev)
+    lib = build.lib()
+    if lib.repro_decode_attention_paged_smem_bytes(G, dh, maxP) > _SMEM_LIMIT:
+        raise ValueError(f"decode_attention_paged: G={G}, dh={dh}, "
+                         f"maxP={maxP} needs more than {_SMEM_LIMIT} bytes "
+                         f"of shared memory")
+    out = torch.empty((B, H, dh), dtype=q.dtype, device=dev)
+    if out.numel():
+        err = lib.repro_decode_attention_paged(
+            q.data_ptr(), k_pages.data_ptr(), k_scale.data_ptr(),
+            v_pages.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), B, P, ps, maxP, HKV, G, dh,
+            float(sm_scale), Q_DTYPES[q.dtype], dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(err, "decode_attention_paged")
+        build.LAUNCHES["decode_attention_paged"] += 1
     return out

@@ -23,7 +23,10 @@ import torch
 
 from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.decode_attention import (
+    decode_attention_cuda,
+    decode_attention_paged_cuda,
+)
 from repro_torch.kernels.int8_matmul import int8_matmul_cuda
 from repro_torch.kernels.quantize import (
     quantize_rowwise_cuda,
@@ -167,3 +170,29 @@ def decode_attention(
             lengths.to(torch.int32).contiguous(), sm_scale=sm_scale)
     return ref.ref_decode_attention(q, k_q, k_scale, v_q, v_scale, lengths,
                                     sm_scale)
+
+
+def decode_attention_paged(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_pages: torch.Tensor,
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    sm_scale: float,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Decode attention over a paged INT8 cache: the kernel walks each
+    row's block table in place; the plain version linearizes the table and
+    reuses the contiguous one."""
+    if use_kernel(impl, q):
+        return decode_attention_paged_cuda(
+            q.contiguous(), k_pages.contiguous(), k_scale.contiguous(),
+            v_pages.contiguous(), v_scale.contiguous(),
+            block_tables.to(torch.int32).contiguous(),
+            lengths.to(torch.int32).contiguous(), sm_scale=sm_scale)
+    return ref.ref_decode_attention_paged(q, k_pages, k_scale, v_pages,
+                                          v_scale, block_tables, lengths,
+                                          sm_scale)

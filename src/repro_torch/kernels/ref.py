@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's four kernels.
+"""Plain PyTorch versions of the port's five kernels.
 
 Each ``ref_*`` function computes its kernel's result with plain torch ops at
 full (exact integer / float32) precision, mirroring
@@ -93,3 +93,28 @@ def ref_decode_attention(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", probs, v)
     return out.reshape(B, H, dh).to(q.dtype)
+
+
+def ref_decode_attention_paged(
+    q: torch.Tensor,              # (B, H, dh) f32/bf16
+    k_pages: torch.Tensor,        # (P, ps, HKV, dh) int8 page pool
+    k_scale: torch.Tensor,        # (P, ps, HKV) f32
+    v_pages: torch.Tensor,        # (P, ps, HKV, dh) int8
+    v_scale: torch.Tensor,        # (P, ps, HKV) f32
+    block_tables: torch.Tensor,   # (B, maxP) int32 (sentinel = P, clamped)
+    lengths: torch.Tensor,        # (B,) int32
+    sm_scale: float,
+) -> torch.Tensor:
+    """Paged version: linearize each row's pages through its clamped block
+    table, then run :func:`ref_decode_attention`.  Sentinel entries clamp
+    into the pool and are masked by ``lengths``."""
+    P = k_pages.shape[0]
+    B, maxP = block_tables.shape
+    tab = block_tables.long().clamp(0, P - 1)
+
+    def lin(pool):
+        got = pool[tab]                           # (B, maxP, ps, …)
+        return got.reshape((B, maxP * pool.shape[1]) + tuple(pool.shape[2:]))
+
+    return ref_decode_attention(q, lin(k_pages), lin(k_scale), lin(v_pages),
+                                lin(v_scale), lengths, sm_scale)

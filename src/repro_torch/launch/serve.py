@@ -1,0 +1,267 @@
+"""Serving driver: the paper's inference stack on a reduced model.
+
+    python -m repro_torch.launch.serve --arch transformer-base --requests 64 \
+        --quant symmetric --streams 2
+
+Port of ``repro/launch/serve.py``.  ``--mode static`` (the paper's):
+synthetic requests → token-sorted scheduler → (optional calibrated INT8
+PTQ) → parallel stream workers, each running ``generate`` (or
+``generate_beam`` with ``--beam B``) → throughput report.
+
+``--mode continuous`` serves the same requests through
+``ServingEngine.serve``: admission order from the first-fit-decreasing
+token-budget bin-packer, a slot-refill decode loop over ``--slots`` rows,
+per-request first-token / total latency and decode-grid utilization.
+``--paged`` backs the KV cache with pages and block tables, and admission
+is paced by the page pool (``--n-pages``).  Admissions ride the burst by
+default; ``--unfused-admission`` runs them as separate prefills.
+
+The model runs on ``--device`` (``cuda`` unless the caller asks for the
+CPU), with random weights from ``torch.Generator`` seed 0.  Flags of
+features the port does not have yet exit with a message naming their
+ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import (
+    FP_CONTEXT,
+    Calibrator,
+    QuantMode,
+    QuantPolicy,
+    Taps,
+    quantize_model,
+)
+from repro_torch.data import make_corpus, pack_batches_token_budget
+from repro_torch.models import EncDecLM
+from repro_torch.serving import (
+    ParallelStreams,
+    Request,
+    ServingEngine,
+    TokenSortedScheduler,
+)
+
+MAX_LEN = 96            # the reference driver's engine KV capacity
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.serve",
+        description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="transformer-base")
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--batch-size", type=int, default=16)
+    ap.add_argument("--quant", default="symmetric",
+                    choices=["none", "naive", "symmetric", "independent",
+                             "conjugate"])
+    ap.add_argument("--streams", type=int, default=2)
+    ap.add_argument("--beam", type=int, default=1,
+                    help="beam width (1 = greedy; --mode static only)")
+    ap.add_argument("--max-new-tokens", type=int, default=24)
+    ap.add_argument("--sort", default="tokens",
+                    choices=["none", "words", "tokens"])
+    ap.add_argument("--mode", default="static",
+                    choices=["static", "continuous"])
+    ap.add_argument("--slots", type=int, default=8,
+                    help="decode slots for --mode continuous")
+    ap.add_argument("--token-budget", type=int, default=256,
+                    help="FFD bin budget (padded tokens) for admission "
+                         "order in --mode continuous")
+    ap.add_argument("--burst-len", default="8",
+                    help="decode steps per host round trip (1 = per-step "
+                         "loop)")
+    ap.add_argument("--unfused-admission", action="store_true",
+                    help="serve admissions as separate prefills instead of "
+                         "folding them into the burst")
+    ap.add_argument("--paged", action="store_true",
+                    help="back the decode KV cache with fixed-size pages + "
+                         "block tables; admission is paced by a page "
+                         "budget (--mode continuous only)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (--paged; must divide the "
+                         "engine max_len)")
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="page-pool size (--paged; default: contiguous-"
+                         "equivalent capacity)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline on the serve clock (--mode "
+                         "continuous): the wait queue runs EDF-with-aging "
+                         "and unmeetable requests are shed")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the model and the engine")
+    # flags of features that are not ported yet (they exit with a message)
+    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--prefix-pages", type=int, default=None)
+    ap.add_argument("--overcommit", type=float, default=1.0)
+    ap.add_argument("--prefill-chunk", type=int, default=None)
+    ap.add_argument("--chaos-seed", type=int, default=None)
+    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--weight-bits", type=int, default=8, choices=(8, 4))
+    ap.add_argument("--weight-group-size", type=int, default=None)
+    return ap
+
+
+def _refuse_unported(args) -> None:
+    """Exit with the ROADMAP item of the first unported feature asked for."""
+    unported = [
+        (args.mode == "continuous" and args.beam > 1,
+         "--beam with --mode continuous: beam serving", "Queue 1, item 7"),
+        (args.burst_len == "auto", "--burst-len auto: the adaptive burst "
+         "controller", "Queue 1, item 7"),
+        (args.prefix_cache or args.prefix_pages is not None,
+         "--prefix-cache: the prefix cache", "Queue 1, item 8"),
+        (args.overcommit != 1.0, "--overcommit: preempt-by-page-spill",
+         "Queue 1, item 8"),
+        (args.prefill_chunk is not None, "--prefill-chunk: chunked prefill",
+         "Queue 1, item 8"),
+        (args.chaos_seed is not None, "--chaos-seed: the chaos harness",
+         "Queue 1, item 8"),
+        (args.mesh is not None, "--mesh: tensor-parallel serving",
+         "Queue 1, item 10"),
+        (args.replicas > 1, "--replicas: the replica router",
+         "Queue 1, item 10"),
+        (args.weight_bits == 4 or args.weight_group_size is not None,
+         "--weight-bits 4: INT4 weights", "Queue 1, item 9"),
+    ]
+    for asked, what, item in unported:
+        if asked:
+            raise SystemExit(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _calibrate(model, params, sentences, mode: str, device):
+    """KL-calibrate the activation thresholds on ``sentences`` and quantize
+    (INT8 weights, static activation scales)."""
+    cal = Calibrator()
+    for s in sentences:
+        taps = Taps()
+        tgt = np.concatenate([[1], s.tgt, [2]])[None, :]
+        model.forward(params, {
+            "src_tokens": torch.as_tensor(s.src[None, :], device=device),
+            "tgt_tokens": torch.as_tensor(tgt, device=device)}, taps=taps)
+        cal.observe_taps(taps)
+    recs = cal.compute(mode)
+    params, qctx = quantize_model(
+        params, recs, QuantPolicy(mode=QuantMode(mode), act_quant="static"),
+        device=str(device))
+    print(f"quantized with mode={mode}: "
+          f"{sum(r.quantize for r in recs.values())}/{len(recs)} "
+          "calibrated sites quantizable")
+    return params, qctx
+
+
+def _serve_continuous(args, model, params, qctx, requests) -> None:
+    engine = ServingEngine(model, params, quant=qctx, max_len=MAX_LEN,
+                           burst_len=int(args.burst_len), paged=args.paged,
+                           page_size=args.page_size, n_pages=args.n_pages,
+                           device=args.device)
+    bins = pack_batches_token_budget(requests, args.token_budget)
+    order = [i for b in bins for i in b]         # FFD admission order
+    reqs = [requests[i] for i in order]
+    if args.deadline_ms is not None:
+        reqs = [Request(req_id=k, src=np.asarray(s.src, np.int32),
+                        max_new_tokens=args.max_new_tokens,
+                        deadline_s=args.deadline_ms / 1e3)
+                for k, s in enumerate(reqs)]
+    t0 = time.perf_counter()
+    res = engine.serve(reqs, n_slots=args.slots,
+                       max_new_tokens=args.max_new_tokens,
+                       fused_admission=not args.unfused_admission)
+    dt = time.perf_counter() - t0
+    met = res.metrics()
+    print(f"served {args.requests} requests in {dt:.2f}s "
+          f"({res.tokens_per_s:.1f} tok/s, "
+          f"slot utilization {res.utilization:.2f}, "
+          f"{res.prefill_rounds} admission rounds)")
+    print(f"burst_len={res.burst_len}: {res.host_syncs} host syncs for "
+          f"{res.decode_steps} decode steps "
+          f"({res.decode_steps_per_s:.0f} steps/s)")
+    print(("fused admission" if res.fused_admission
+           else "UNFUSED admission")
+          + f": {res.prefill_dispatches} prefill dispatches, "
+          f"{res.encoder_tokens} encoder row-tokens")
+    if res.paged:
+        print(f"paged KV: page_size={res.page_size}, "
+              f"peak {res.page_hwm} pages "
+              f"({res.page_hwm * res.page_size} tokens), "
+              f"{res.pages_in_use} leaked")
+    if args.deadline_ms is not None:
+        print(f"deadlines: {res.rejected} shed, "
+              f"{res.deadline_misses} deadline misses")
+    print(f"latency: first-token mean "
+          f"{met['first_token_latency_mean_s']:.3f}s "
+          f"p95 {met['first_token_latency_p95_s']:.3f}s; total mean "
+          f"{met['total_latency_mean_s']:.3f}s "
+          f"p95 {met['total_latency_p95_s']:.3f}s")
+
+
+def _serve_static(args, model, params, qctx, requests) -> None:
+    engines = [ServingEngine(model, params, quant=qctx, max_len=MAX_LEN,
+                             device=args.device)
+               for _ in range(args.streams)]
+    sched = TokenSortedScheduler(batch_size=args.batch_size,
+                                 sort_mode=args.sort)
+    items = sched.plan(requests)
+    print(f"{len(items)} batches; padding stats: {sched.stats(requests)}")
+
+    def run_batch(sid: int, item) -> int:
+        eng = engines[sid]
+        if args.beam > 1:
+            res = eng.generate_beam(item.batch, beam=args.beam,
+                                    max_new_tokens=args.max_new_tokens)
+        else:
+            res = eng.generate(item.batch,
+                               max_new_tokens=args.max_new_tokens)
+        return res.n_tokens
+
+    streams = ParallelStreams(run_batch, n_streams=args.streams)
+    t0 = time.perf_counter()
+    out = streams.run(items)
+    dt = time.perf_counter() - t0
+    print(f"served {args.requests} requests in {dt:.2f}s "
+          f"({args.requests / dt:.2f} sentences/s, "
+          f"{out['throughput_tok_s']:.1f} tok/s, "
+          f"stream utilization {out['utilization']:.2f})")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = _parser().parse_args(argv)
+    if args.burst_len != "auto":
+        args.burst_len = str(int(args.burst_len))
+    _refuse_unported(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run on the "
+                         "CPU")
+
+    cfg = get_config(args.arch).reduced()
+    if not cfg.enc_dec:
+        raise SystemExit("serve driver expects an enc-dec (NMT) arch")
+    model = EncDecLM(cfg, device=args.device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    corpus = make_corpus(args.requests + 64, cfg.vocab, seed=11)
+    requests = corpus[:args.requests]
+
+    qctx = FP_CONTEXT
+    if args.quant != "none":
+        params, qctx = _calibrate(
+            model, params, corpus[args.requests:args.requests + 32],
+            args.quant, device)
+
+    if args.mode == "continuous":
+        _serve_continuous(args, model, params, qctx, requests)
+    else:
+        _serve_static(args, model, params, qctx, requests)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,10 +1,11 @@
 """Multi-head / grouped-query attention with prefill + decode paths.
 
-Port of ``repro/models/attention.py`` (no rotary embeddings and no paged
-cache yet).  Prefill and training use a chunked attention written out in
-plain torch — matmul, mask, float32 softmax — over query chunks.  Decode
-appends the step's K/V to the cache and then, for an INT8 cache, reads it
-through ``kernels.ops.decode_attention`` (K4).
+Port of ``repro/models/attention.py`` (no rotary embeddings yet).
+Prefill and training use a chunked attention written out in plain torch —
+matmul, mask, float32 softmax — over query chunks.  Decode appends the
+step's K/V to the cache and then, for an INT8 cache, reads it through
+``kernels.ops.decode_attention`` (K4, contiguous) or
+``kernels.ops.decode_attention_paged`` (K5, paged).
 """
 
 from __future__ import annotations
@@ -141,19 +142,39 @@ def attention(
               taps=taps).reshape(B, S, HKV, dh)
 
     if cache is not None:
-        append = kvc.append_token if S == 1 else kvc.append_tokens
-        k_c, v_c, ks_c, vs_c = append(cache.k, cache.v, cache.k_scale,
-                                      cache.v_scale, k, v, cache.lengths)
+        tables = cache.block_tables
+        if tables is not None:
+            k_c, v_c, ks_c, vs_c = kvc.append_tokens_paged(
+                cache.k, cache.v, cache.k_scale, cache.v_scale, tables, k, v,
+                cache.lengths)
+            # reads see the pool without its sink page
+            pool = lambda a: None if a is None else a[:-1]
+            k_r, v_r, ks_r, vs_r = pool(k_c), pool(v_c), pool(ks_c), \
+                pool(vs_c)
+            if ks_c is None:
+                # FP paged: linearize the pool through the table and reuse
+                # the contiguous math, as the reference does (no kernel)
+                k_r = kvc.linearize_pages(k_r, tables)
+                v_r = kvc.linearize_pages(v_r, tables)
+        else:
+            k_c, v_c, ks_c, vs_c = kvc.append_tokens(
+                cache.k, cache.v, cache.k_scale, cache.v_scale, k, v,
+                cache.lengths)
+            k_r, v_r, ks_r, vs_r = k_c, v_c, ks_c, vs_c
         sm_scale = 1.0 / math.sqrt(dh)
         outs = []
         for j in range(S):
             q1 = q[:, j].reshape(B, H, dh)
             lengths = cache.lengths + (j + 1)
-            if ks_c is not None:
-                o = ops.decode_attention(q1, k_c, ks_c, v_c, vs_c, lengths,
+            if ks_c is not None and tables is not None:
+                o = ops.decode_attention_paged(
+                    q1, k_r, ks_r, v_r, vs_r, tables, lengths,
+                    sm_scale=sm_scale, impl=quant.impl)
+            elif ks_c is not None:
+                o = ops.decode_attention(q1, k_r, ks_r, v_r, vs_r, lengths,
                                          sm_scale=sm_scale, impl=quant.impl)
             else:
-                o = _fp_decode_attention(q1, k_c, v_c, lengths, sm_scale)
+                o = _fp_decode_attention(q1, k_r, v_r, lengths, sm_scale)
             outs.append(o)
         out = torch.stack(outs, dim=1).reshape(B, S, H * dh)
         y = dense(params["o_proj"], out, site=f"{site}/o_proj", quant=quant,

@@ -1,11 +1,12 @@
 """Encoder-decoder transformer: the paper's Transformer NMT model.
 
 Port of ``repro/models/encdec.py`` (``init``, ``encode``, ``forward``,
-``encode_cross_kv``, ``prefill``, ``decode_step(_multi)`` and a contiguous
-``init_decode_state``; staged encode and ``splice_prefill`` are not ported
-yet).  The layers run in an eager Python loop over unstacked parameters
-(``enc_blocks.{i}`` / ``dec_blocks.{i}``), so each layer keeps its own site
-names; ``checkpoint/bridge.py`` unstacks a scan-stacked reference tree.
+``init_decode_state`` over a contiguous or paged cache, ``encode_cross_kv``,
+``splice_prefill``, ``prefill``, ``decode_step(_multi)``; the staged encode
+of chunked prefill is not ported yet).  The layers run in an eager Python
+loop over unstacked parameters (``enc_blocks.{i}`` / ``dec_blocks.{i}``), so
+each layer keeps its own site names; ``checkpoint/bridge.py`` unstacks a
+scan-stacked reference tree.
 
 Cross-attention K/V are computed once from the encoder memory and kept in
 the decode state.  Inputs: ``src_tokens`` (B, S_enc) with optional
@@ -185,16 +186,42 @@ class EncDecLM:
 
     # ------------------------------------------------------- serving states
     def init_decode_state(self, batch: int, max_len: int, *, quantized: bool,
-                          paged: bool = False) -> Dict[str, Any]:
-        """An empty contiguous decode state on ``self.device``."""
-        if paged:
-            raise NotImplementedError("the paged KV cache is not ported yet")
+                          enc_len: Optional[int] = None, paged: bool = False,
+                          page_size: int = 16,
+                          n_pages: Optional[int] = None) -> Dict[str, Any]:
+        """An empty decode state on ``self.device``.
+
+        ``enc_len``: allocate cross K/V buffers of that length (continuous
+        serving splices admitted rows into them).  ``paged=True`` backs the
+        self-attention cache with a page pool and block tables
+        (``kv_cache.PagedKVCache``); rows own no pages until
+        :meth:`splice_prefill` assigns a reservation.  ``n_pages`` bounds
+        the pool (default: contiguous-equivalent capacity).
+        """
         cfg = self.cfg
-        cache = kvc.init_cache(cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-                               cfg.hd, quantized=quantized,
-                               dtype=cfg.activation_dtype, device=self.device)
-        return {"cache": cache, "cross_k": None, "cross_v": None,
-                "src_lengths": None}
+        dt = cfg.activation_dtype
+        if paged:
+            cache = kvc.init_paged_cache(
+                cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd,
+                page_size=page_size, n_pages=n_pages, quantized=quantized,
+                dtype=dt, device=self.device)
+        else:
+            cache = kvc.init_cache(cfg.n_layers, batch, max_len,
+                                   cfg.n_kv_heads, cfg.hd,
+                                   quantized=quantized, dtype=dt,
+                                   device=self.device)
+        state: Dict[str, Any] = {"cache": cache, "cross_k": None,
+                                 "cross_v": None, "src_lengths": None}
+        if enc_len is not None:
+            shape = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.hd)
+            state["cross_k"] = torch.zeros(shape, dtype=dt,
+                                           device=self.device)
+            state["cross_v"] = torch.zeros(shape, dtype=dt,
+                                           device=self.device)
+            state["src_lengths"] = torch.full((batch,), enc_len,
+                                              dtype=torch.int32,
+                                              device=self.device)
+        return state
 
     def encode_cross_kv(self, params, batch, *,
                         quant: QuantContext = FP_CONTEXT
@@ -219,6 +246,42 @@ class EncDecLM:
             ks.append(k)
             vs.append(v)
         return torch.stack(ks), torch.stack(vs), src_lengths
+
+    def splice_prefill(self, state: Dict[str, Any], cross_k: torch.Tensor,
+                       cross_v: torch.Tensor, src_lengths: torch.Tensor,
+                       base_rows, *, group: int = 1,
+                       pages=None) -> Dict[str, Any]:
+        """Splice an :meth:`encode_cross_kv` result into decode-state rows.
+
+        ``base_rows``: (B_sub,) host destination rows, one per encoded
+        source; with ``group > 1`` each source goes to the ``group`` rows
+        ``[base, base + group)``.  Out-of-range bases are padding and are
+        dropped.  The cross K/V are written in place.  The self-attention
+        rows are not copied: their cursors reset to 0, which masks every
+        stale position, so the next decode step on a spliced row equals a
+        step on a fresh side batch.  Paged cache: ``pages`` (host,
+        (len(rows), maxP)) carries each row's page reservation
+        (``kv_cache.assign_pages``).
+        """
+        rows = kvc.group_rows(base_rows, group)
+        ck, cv, sl = state["cross_k"], state["cross_v"], state["src_lengths"]
+        keep, dst = kvc.in_range_rows(rows, sl.shape[0])
+        src = torch.as_tensor(keep // group, device=ck.device)
+        dst = torch.as_tensor(dst, device=ck.device)
+        ck[:, dst] = cross_k[:, src].to(ck.dtype)
+        cv[:, dst] = cross_v[:, src].to(cv.dtype)
+        out = dict(state)
+        out["src_lengths"] = sl.index_put((dst,),
+                                          src_lengths[src].to(torch.int32))
+        cache = state["cache"]
+        if isinstance(cache, kvc.PagedKVCache):
+            if pages is None:
+                raise ValueError("paged splice_prefill needs the spliced "
+                                 "rows' page reservations")
+            out["cache"] = kvc.assign_pages(cache, rows, pages)
+        else:
+            out["cache"] = kvc.free_slots(cache, rows)
+        return out
 
     def prefill(self, params, batch, state, *,
                 quant: QuantContext = FP_CONTEXT) -> Tuple[torch.Tensor, Dict]:
@@ -259,13 +322,18 @@ class EncDecLM:
                                          device=x.device)[None, :],
                           max=cache.capacity - 1)
         x = x + pe[pos.long()]
+        paged = isinstance(cache, kvc.PagedKVCache)
+        # a paged view holds the layer's whole store, sink page included
+        k, v, ks, vs = ((cache.k_store, cache.v_store, cache.ks_store,
+                         cache.vs_store) if paged else
+                        (cache.k, cache.v, cache.k_scale, cache.v_scale))
         for i in range(cfg.n_layers):
-            q = cache.quantized
             view = kvc.LayerCacheView(
-                k=cache.k[i], v=cache.v[i],
-                k_scale=cache.k_scale[i] if q else None,
-                v_scale=cache.v_scale[i] if q else None,
-                lengths=cache.lengths)
+                k=k[i], v=v[i],
+                k_scale=None if ks is None else ks[i],
+                v_scale=None if vs is None else vs[i],
+                lengths=cache.lengths,
+                block_tables=cache.block_tables if paged else None)
             x, _ = self._dec_block(
                 params[f"dec_blocks.{i}"], x,
                 (state["cross_k"][i], state["cross_v"][i]),
@@ -273,9 +341,6 @@ class EncDecLM:
                 positions=None, kv_lengths=None,
                 memory_lengths=state["src_lengths"], cache_view=view)
         state = dict(state)
-        state["cache"] = kvc.KVCache(k=cache.k, v=cache.v,
-                                     k_scale=cache.k_scale,
-                                     v_scale=cache.v_scale,
-                                     lengths=cache.lengths + T)
+        state["cache"] = kvc.with_lengths(cache, cache.lengths + T)
         x = norm(params["dec_final_norm"], x, cfg.norm)
         return unembed(params["embed"], x), state

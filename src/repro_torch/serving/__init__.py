@@ -1,4 +1,18 @@
-"""Static translation serving (port of the ``generate`` half of
-``repro/serving``)."""
+"""Serving (port of ``repro/serving``): static translation, continuous
+greedy serving, the schedulers and the parallel streams."""
 
-from repro_torch.serving.engine import GenerationResult, ServingEngine  # noqa: F401
+from repro_torch.serving.engine import (  # noqa: F401
+    GenerationResult,
+    ServeResult,
+    ServingEngine,
+)
+from repro_torch.serving.scheduler import (  # noqa: F401
+    AdmissionPlan,
+    BatchQueue,
+    ContinuousScheduler,
+    Request,
+    TokenSortedScheduler,
+    WorkItem,
+    pad_rows_pow2,
+)
+from repro_torch.serving.streams import ParallelStreams, StreamRecord  # noqa: F401

@@ -1,11 +1,13 @@
-"""Serving engine: prefill + auto-regressive decode (greedy and beam).
+"""Serving engine: prefill + auto-regressive decode (greedy, beam, and
+continuous greedy serving).
 
-Port of the static half of ``repro/serving/engine.py``: ``generate`` and
-``generate_beam`` over a contiguous KV cache (continuous ``serve``, paging
-and speculation are not ported yet).  This is the paper's workload: batched
-NMT inference with a decoder loop, where beam search reorders the KV cache
-every step (``kv_cache.gather_beams``, the GatherNd the paper quantized in
-§5.3); with an INT8 cache the reorder moves 4× fewer bytes.
+Port of ``repro/serving/engine.py``: ``generate`` and ``generate_beam``
+over a contiguous KV cache, and greedy continuous batching (``serve``) over
+a contiguous or paged KV cache with fused or unfused admission.  This is
+the paper's workload: batched NMT inference with a decoder loop, where beam
+search reorders the KV cache every step (``kv_cache.gather_beams``, the
+GatherNd the paper quantized in §5.3); with an INT8 cache the reorder moves
+4× fewer bytes.
 
 Decode runs in bursts of up to ``burst_len`` steps: the token of each step
 goes into a ``(rows, burst_len)`` ring buffer on the device, and the host
@@ -13,22 +15,44 @@ drains the buffer once per burst.  PyTorch runs eagerly, so the loop itself
 is on the host: before each step after the first of a burst it reads one
 device flag (is any row still active?), which is how a burst stops early
 once every row has finished, as the reference's ``lax.while_loop`` does.
-``GenerationResult.host_syncs`` counts every device→host read: the drains
-and those flags.
+``host_syncs`` counts every device→host read: the drains and those flags
+(so it is not the reference's count, which has no per-step flag).
+
+``serve`` keeps ``n_slots`` decode rows busy: a finished request's row is
+refilled from the waiting queue at the next burst edge.  With fused
+admission (the default) a round's admitted sources are encoded, spliced
+into their rows (``encdec.splice_prefill``) and seeded with BOS just before
+the burst, whose first step is then their BOS step; unfused admission runs
+a separate prefill on a power-of-two side batch and splices its rows in.
+On the paged cache admission is paced by a page budget (``PageAllocator``)
+and INT8 decode reads the pages in place through K5.  Not ported yet
+(``NotImplementedError`` naming the ROADMAP item): beam serving, the prefix
+cache, overcommit, chunked prefill, chaos, speculation, ``burst_len="auto"``
+and meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.ptq import FP_CONTEXT, QuantContext
-from repro_torch.data.synthetic import EOS
+from repro_torch.data.sorting import next_pow2
+from repro_torch.data.synthetic import EOS, pad_batch
 from repro_torch.models import kv_cache as kvc
+from repro_torch.serving.scheduler import (
+    ContinuousScheduler,
+    Request,
+    pad_rows_pow2,
+)
+
+# ROADMAP items of the parts of ``serve`` this port does not have yet
+_BEAM_SERVE = "beam serving (ROADMAP Queue 1, item 7)"
+_OVERLOAD = "overload handling (ROADMAP Queue 1, item 8)"
 
 
 @dataclasses.dataclass
@@ -57,6 +81,87 @@ class GenerationResult:
         return max(self.steps - 1, 0) / max(self.decode_s, 1e-9)
 
 
+@dataclasses.dataclass
+class ServeResult:
+    """Outcome of one continuous-batching serve (greedy: one row per
+    request)."""
+
+    requests: List[Request]           # submission order, lifecycle filled in
+    n_slots: int
+    decode_steps: int
+    busy_slot_steps: int              # Σ over steps of occupied rows
+    prefill_rounds: int               # admission rounds (fused or not)
+    wall_s: float
+    host_syncs: int = 0               # device→host reads (drains + flags)
+    burst_len: int = 1
+    prefill_dispatches: int = 0       # separate prefill runs (0 when fused)
+    encoder_tokens: int = 0           # encoder row-tokens of admissions
+    fused_admission: bool = True
+    paged: bool = False               # KV cache was paged (block tables)
+    page_size: int = 0
+    pages_in_use: int = 0             # allocator pages still held at the end
+    page_hwm: int = 0                 # peak concurrent pages over the serve
+    peak_running: int = 0             # max concurrent running requests
+    rejected: int = 0                 # requests shed (deadline unmeetable)
+    deadline_misses: int = 0          # shed + finished past their deadline
+
+    @property
+    def n_tokens(self) -> int:
+        return int(sum(len(r.tokens) for r in self.requests))
+
+    @property
+    def utilization(self) -> float:
+        """Occupied-row fraction of the decode grid actually computed."""
+        return self.busy_slot_steps / max(self.n_slots * self.decode_steps, 1)
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.n_tokens / max(self.wall_s, 1e-9)
+
+    @property
+    def decode_steps_per_s(self) -> float:
+        return self.decode_steps / max(self.wall_s, 1e-9)
+
+    def tokens_for(self, req_id: int) -> np.ndarray:
+        """Generated ids for one request."""
+        for r in self.requests:
+            if r.req_id == req_id:
+                return np.asarray(r.tokens, np.int32)
+        raise KeyError(req_id)
+
+    def metrics(self) -> Dict[str, float]:
+        first = [r.first_token_latency_s for r in self.requests
+                 if r.first_token_latency_s is not None]
+        total = [r.total_latency_s for r in self.requests
+                 if r.total_latency_s is not None]
+        pct = lambda xs, q: float(np.percentile(xs, q)) if xs else 0.0
+        return {
+            "n_requests": float(len(self.requests)),
+            "n_tokens": float(self.n_tokens),
+            "wall_s": self.wall_s,
+            "tokens_per_s": self.tokens_per_s,
+            "utilization": self.utilization,
+            "decode_steps": float(self.decode_steps),
+            "decode_steps_per_s": self.decode_steps_per_s,
+            "host_syncs": float(self.host_syncs),
+            "burst_len": float(self.burst_len),
+            "prefill_rounds": float(self.prefill_rounds),
+            "prefill_dispatches": float(self.prefill_dispatches),
+            "encoder_tokens": float(self.encoder_tokens),
+            "paged": float(self.paged),
+            "pages_in_use": float(self.pages_in_use),
+            "page_hwm": float(self.page_hwm),
+            "peak_running": float(self.peak_running),
+            "rejected": float(self.rejected),
+            "deadline_misses": float(self.deadline_misses),
+            "first_token_latency_mean_s":
+                float(np.mean(first)) if first else 0.0,
+            "first_token_latency_p95_s": pct(first, 95),
+            "total_latency_mean_s": float(np.mean(total)) if total else 0.0,
+            "total_latency_p95_s": pct(total, 95),
+        }
+
+
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``jax.lax.top_k`` semantics: the k largest along the last axis,
     descending, ties broken toward the lower index.  ``torch.topk`` promises
@@ -67,22 +172,46 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 class ServingEngine:
     def __init__(self, model, params, *, quant: QuantContext = FP_CONTEXT,
-                 max_len: int = 256, eos_id: int = EOS, burst_len: int = 8,
-                 device: str = "cuda"):
+                 max_len: int = 256, eos_id: int = EOS,
+                 burst_len: int = 8, paged: bool = False,
+                 page_size: int = 16, n_pages: Optional[int] = None,
+                 mesh=None, device: str = "cuda"):
+        """``paged``/``page_size``/``n_pages`` choose ``serve``'s KV cache
+        (``generate`` always uses the contiguous one); ``max_len`` must
+        then be a page multiple, so the paged logical view has exactly the
+        contiguous shape."""
         self.device = torch.device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "tensor-parallel serving on a mesh is not ported yet "
+                "(ROADMAP Queue 1, item 10)")
         self.model = model
         self.params = params
         self.quant = quant
         self.max_len = max_len
         self.eos_id = eos_id
         self.burst_len = self._check_burst(burst_len)
+        self.paged = bool(paged)
+        self.page_size = int(page_size)
+        self.n_pages = n_pages
+        if self.paged and max_len % self.page_size:
+            raise ValueError(f"paged cache needs max_len % page_size == 0, "
+                             f"got {max_len} % {self.page_size}")
+        self._enc_bucket_hwm = 0
 
     # ------------------------------------------------------------------ util
     @staticmethod
     def _check_burst(k) -> int:
+        if isinstance(k, str):
+            if k == "auto":
+                raise NotImplementedError(
+                    "burst_len='auto' (the adaptive burst controller) is "
+                    "not ported yet (ROADMAP Queue 1, item 7)")
+            raise ValueError(f"burst_len must be an int ≥ 1 or 'auto', "
+                             f"got {k!r}")
         k = int(k)
         if k < 1:
             raise ValueError(f"burst_len must be ≥ 1, got {k}")
@@ -311,3 +440,351 @@ class ServingEngine:
                 for b in range(B)]
         return GenerationResult(tokens=seqs, steps=len(seq), prefill_s=t1 - t0,
                                 decode_s=t2 - t1, host_syncs=host_syncs)
+
+    # ------------------------------------------------------------ continuous
+    def _as_requests(self, requests: Sequence[Any],
+                     max_new_tokens: Union[int, Sequence[int]]
+                     ) -> List[Request]:
+        per_req = (list(max_new_tokens)
+                   if isinstance(max_new_tokens, (list, tuple, np.ndarray))
+                   else [int(max_new_tokens)] * len(requests))
+        if len(per_req) != len(requests):
+            raise ValueError("max_new_tokens sequence length "
+                             f"{len(per_req)} != {len(requests)} requests")
+        out = []
+        for i, (r, m) in enumerate(zip(requests, per_req)):
+            if isinstance(r, Request):
+                out.append(r)
+                continue
+            src = r.src if hasattr(r, "src") else np.asarray(r, np.int32)
+            out.append(Request(req_id=i, src=np.asarray(src, np.int32),
+                               max_new_tokens=int(m)))
+        ids = [r.req_id for r in out]
+        if len(set(ids)) != len(ids):
+            raise ValueError("duplicate req_ids in serve() input (raw "
+                             "requests are numbered by position; supplied "
+                             "Request ids must not collide)")
+        return out
+
+    def _enc_bucket(self, reqs: Sequence[Request]) -> int:
+        """Admission ``enc_len``: the serve's longest source rounded up to a
+        multiple of 8, then to a power of two held monotone across serves
+        on this engine (the reference's default bucketing; padding is
+        masked)."""
+        enc_len = max(r.n_src_tokens for r in reqs)
+        enc_len = ((enc_len + 7) // 8) * 8
+        self._enc_bucket_hwm = max(self._enc_bucket_hwm, next_pow2(enc_len))
+        return self._enc_bucket_hwm
+
+    @property
+    def _max_pages(self) -> int:
+        return self.max_len // self.page_size
+
+    def _make_allocator(self, n_rows: int) -> kvc.PageAllocator:
+        """Page pool for one serve: ``n_pages`` from the constructor, or
+        contiguous-equivalent capacity when unset."""
+        n_pages = self.n_pages or n_rows * self._max_pages
+        return kvc.PageAllocator(n_pages, self.page_size)
+
+    def _pages_per_request(self, req: Request) -> int:
+        """Worst-case reservation: the request's full decode budget."""
+        return kvc.pages_per_row(min(req.max_new_tokens, self.max_len),
+                                 self.page_size)
+
+    def _page_rows(self, reqs: Sequence[Request], n_rows: int,
+                   sentinel: int) -> np.ndarray:
+        """Admitted requests' page reservations as a host (n_rows, maxP)
+        int32 matrix, sentinel-padded (padding rows and each row's tail past
+        its reservation)."""
+        out = np.full((n_rows, self._max_pages), sentinel, np.int32)
+        for i, r in enumerate(reqs):
+            out[i, :len(r.pages)] = r.pages
+        return out
+
+    def _in_range_rows(self, rows: np.ndarray, n: int):
+        """``kv_cache.in_range_rows`` as device index tensors."""
+        keep, rows = kvc.in_range_rows(rows, n)
+        return (torch.as_tensor(keep, device=self.device),
+                torch.as_tensor(rows, device=self.device))
+
+    def _splice_cross(self, state, sub, tokens, sub_tokens, slots):
+        """The non-cache half of a side-batch splice: cross K/V (in place),
+        source lengths and current tokens of ``slots``."""
+        keep, rows = self._in_range_rows(slots, tokens.shape[0])
+        out = dict(state)
+        out["cross_k"][:, rows] = sub["cross_k"][:, keep].to(
+            out["cross_k"].dtype)
+        out["cross_v"][:, rows] = sub["cross_v"][:, keep].to(
+            out["cross_v"].dtype)
+        out["src_lengths"] = state["src_lengths"].index_put(
+            (rows,), sub["src_lengths"][keep].to(torch.int32))
+        return out, tokens.index_put((rows,), sub_tokens[keep])
+
+    def _insert_rows(self, state, sub, tokens, sub_tokens, slots):
+        """Splice a prefilled side batch into the running decode state;
+        ``slots`` entries ≥ n_slots are padding and dropped."""
+        out, tokens = self._splice_cross(state, sub, tokens, sub_tokens,
+                                         slots)
+        out["cache"] = kvc.insert_at_slots(state["cache"], sub["cache"],
+                                           slots)
+        return out, tokens
+
+    def _insert_rows_paged(self, state, sub, tokens, sub_tokens, slots,
+                           pages):
+        """Paged ``_insert_rows``: the contiguous side-batch rows are cut
+        into the destination rows' page reservations (``pages``,
+        sentinel-padded) and the block tables installed alongside."""
+        out, tokens = self._splice_cross(state, sub, tokens, sub_tokens,
+                                         slots)
+        out["cache"] = kvc.insert_rows_paged(state["cache"], sub["cache"],
+                                             slots, pages)
+        return out, tokens
+
+    def _prefill_padded(self, src_rows: np.ndarray, len_rows: np.ndarray):
+        """Prefill a side batch padded to a power-of-two width (padding rows
+        replay row 0 and are dropped by the splice).  Returns
+        ``(logits, sub_state, width)``."""
+        src_rows, len_rows, width = pad_rows_pow2(src_rows, len_rows)
+        sub = self.model.init_decode_state(width, self.max_len,
+                                           quantized=self.quant.quantize_kv)
+        logits, sub = self.model.prefill(
+            self.params, self._device_batch({"src_tokens": src_rows,
+                                             "src_lengths": len_rows}),
+            sub, quant=self.quant)
+        return logits, sub, width
+
+    def _splice_rows(self, state, tokens, sub, sub_tokens, rows: np.ndarray,
+                     width: int, pages: Optional[np.ndarray] = None):
+        """Splice the first ``len(rows)`` rows of a prefilled side batch at
+        ``rows``; its padding rows get the out-of-range destination
+        ``n_slots``.  ``pages`` (paged cache): (width, maxP) reservations."""
+        slots = np.full((width,), tokens.shape[0], np.int32)
+        slots[:len(rows)] = rows
+        if pages is not None:
+            return self._insert_rows_paged(state, sub, tokens, sub_tokens,
+                                           slots, pages)
+        return self._insert_rows(state, sub, tokens, sub_tokens, slots)
+
+    def _admission_prologue(self, state, tokens, live, adm_src, adm_lens,
+                            adm_rows, pages):
+        """Fused admission, run just before the round's burst:
+
+        1. reset dead rows (cursor only on the contiguous cache; cursor and
+           sentinel tables on the paged one, as their pages may be handed
+           to the rows this splice admits);
+        2. encode the admitted sources, splice their cross K/V into their
+           rows (paged: install their page reservations ``pages``) and seed
+           BOS, so the burst's first step is their BOS step.
+
+        ``adm_rows`` entries ≥ n_slots are padding and are dropped.
+        """
+        state = dict(state)
+        free = kvc.free_inactive_paged if self.paged else kvc.free_inactive
+        state["cache"] = free(state["cache"], live)
+        ck, cv, slens = self.model.encode_cross_kv(
+            self.params, self._device_batch({"src_tokens": adm_src,
+                                             "src_lengths": adm_lens}),
+            quant=self.quant)
+        state = self.model.splice_prefill(state, ck, cv, slens, adm_rows,
+                                          pages=pages)
+        _, rows = self._in_range_rows(adm_rows, tokens.shape[0])
+        tokens = tokens.index_put((rows,), torch.zeros_like(tokens[rows]))
+        return state, tokens
+
+    def serve(self, requests: Sequence[Any], *, n_slots: int = 8,
+              max_new_tokens: Union[int, Sequence[int]] = 64,
+              burst_len: Optional[int] = None,
+              beam: Optional[Union[int, Sequence[int]]] = None,
+              fused_admission: bool = True,
+              prefix_cache: Optional[bool] = None,
+              overcommit: float = 1.0,
+              prefill_chunk: Optional[int] = None,
+              chaos: Any = None,
+              speculative_k: Optional[int] = None) -> ServeResult:
+        """Greedy continuous batching over a request stream.
+
+        ``requests`` may be ``Sentence``s, raw token arrays or ``Request``
+        objects (which carry their own ``max_new_tokens``); submission
+        order is arrival order.  All ``n_slots`` rows share one decode
+        burst of up to ``burst_len`` steps; at each burst edge finished
+        rows are released and refilled, in queue order, from the waiting
+        requests.  Greedy
+        decode is token-identical to per-request :meth:`generate` for every
+        ``burst_len``, fused or unfused, contiguous or paged (on the CPU;
+        on the card see ROADMAP Queue 3).
+
+        ``fused_admission=False`` runs each admission round as a separate
+        prefill plus a first-token drain (``prefill_dispatches`` counts
+        them); the token streams are the same.
+
+        ``beam``, ``prefix_cache``, ``overcommit > 1``, ``prefill_chunk``,
+        ``chaos`` and ``speculative_k`` raise ``NotImplementedError``: they
+        are not ported yet.
+        """
+        if beam is not None:
+            raise NotImplementedError(f"serve(beam=...): {_BEAM_SERVE} is "
+                                      "not ported yet")
+        if prefix_cache:
+            raise NotImplementedError(
+                "serve(prefix_cache=True): the prefix cache (ROADMAP Queue "
+                "1, item 8) is not ported yet")
+        if overcommit < 1.0:
+            raise ValueError(f"overcommit must be >= 1.0, got {overcommit}")
+        for name, value in (("overcommit", overcommit > 1.0),
+                            ("prefill_chunk", prefill_chunk is not None),
+                            ("chaos", chaos is not None),
+                            ("speculative_k", bool(speculative_k))):
+            if value:
+                what = (_OVERLOAD if name != "speculative_k" else
+                        "speculative decoding (ROADMAP Queue 1, item 8)")
+                raise NotImplementedError(f"serve({name}=...): {what} is "
+                                          "not ported yet")
+        K = self._check_burst(self.burst_len if burst_len is None
+                              else burst_len)
+        reqs = self._as_requests(requests, max_new_tokens)
+        if not reqs:
+            return ServeResult(requests=[], n_slots=n_slots, decode_steps=0,
+                               busy_slot_steps=0, prefill_rounds=0,
+                               wall_s=0.0, burst_len=K,
+                               fused_admission=fused_admission,
+                               paged=self.paged, page_size=self.page_size)
+        if max(r.max_new_tokens for r in reqs) > self.max_len:
+            raise ValueError("a request's max_new_tokens exceeds the "
+                             f"engine KV capacity {self.max_len}")
+        enc_len = self._enc_bucket(reqs)
+        allocator = None
+        if self.paged:
+            allocator = self._make_allocator(n_slots)
+            for r in reqs:
+                need = self._pages_per_request(r)
+                if need > allocator.n_pages:
+                    raise ValueError(
+                        f"request {r.req_id} needs {need} pages but the "
+                        f"pool holds {allocator.n_pages}")
+        sched = ContinuousScheduler(
+            n_slots, allocator=allocator,
+            pages_per_request=self._pages_per_request if allocator else None)
+        sched.submit_many(reqs)
+        state = self.model.init_decode_state(
+            n_slots, self.max_len, quantized=self.quant.quantize_kv,
+            enc_len=enc_len, paged=self.paged, page_size=self.page_size,
+            n_pages=allocator.n_pages if allocator else None)
+        tokens = torch.zeros((n_slots,), dtype=torch.int32,
+                             device=self.device)
+
+        t0 = time.perf_counter()
+        now = lambda: time.perf_counter() - t0
+        decode_steps = busy_slot_steps = prefill_rounds = host_syncs = 0
+        prefill_dispatches = encoder_tokens = peak_running = 0
+
+        def prefill_into_slots(admitted, state, tokens):
+            """Unfused admission: prefill a side batch, splice it in, and
+            drain its first tokens."""
+            src_pad, lens = pad_batch([r.src for r in admitted],
+                                      length=enc_len)
+            logits, sub, width = self._prefill_padded(src_pad, lens)
+            first = torch.argmax(logits, dim=-1).to(torch.int32)
+            pages = (self._page_rows(admitted, width, allocator.n_pages)
+                     if allocator else None)
+            state, tokens = self._splice_rows(
+                state, tokens, sub, first,
+                np.asarray([r.slot for r in admitted], np.int32), width,
+                pages=pages)
+            first_host = first.cpu().numpy()[:len(admitted)]
+            t = now()
+            for r, tok in zip(admitted, first_host):
+                r.first_token_s = t
+                tok = int(tok)
+                if r.max_new_tokens <= 0 or tok == self.eos_id:
+                    sched.release(r, t, step=decode_steps)
+                else:
+                    r.tokens.append(tok)
+                    if r.max_new_tokens <= 1:
+                        sched.release(r, t, step=decode_steps)
+            return state, tokens
+
+        while not sched.all_done:
+            plan = None
+            want_admit = sched.n_waiting and sched.n_free
+            if want_admit and fused_admission:
+                plan = sched.plan_admission(now(), step=decode_steps,
+                                            enc_len=enc_len, oob_row=n_slots)
+                if plan.n_admitted:
+                    prefill_rounds += 1
+                encoder_tokens += len(plan.requests) * enc_len
+            elif want_admit:
+                admitted = sched.admit(now(), step=decode_steps)
+                if admitted:
+                    prefill_rounds += 1
+                    prefill_dispatches += 1
+                    host_syncs += 1           # the first-token drain
+                    encoder_tokens += len(admitted) * enc_len
+                    state, tokens = prefill_into_slots(admitted, state,
+                                                       tokens)
+            peak_running = max(peak_running, sched.n_running)
+            if not sched.slot_map:
+                continue        # every admitted request finished on token 1
+
+            # every occupied slot has ≥ 1 token left to emit
+            remaining = np.zeros((n_slots,), np.int32)
+            for slot, req in sched.slot_map.items():
+                remaining[slot] = req.max_new_tokens - len(req.tokens)
+            remaining_dev = torch.as_tensor(remaining, device=self.device)
+            if plan is not None and plan.width:
+                pages = (self._page_rows(plan.requests, plan.width,
+                                         allocator.n_pages)
+                         if allocator else None)
+                state, tokens = self._admission_prologue(
+                    state, tokens, remaining_dev > 0, plan.src_tokens,
+                    plan.src_lengths, plan.base_rows, pages)
+            tokens, _, state, buf, steps, reads = self._greedy_burst(
+                tokens, remaining_dev, K, state)
+            buf_host = buf[:, :steps].cpu().numpy()   # one drain per burst
+            host_syncs += 1 + reads
+            step_base = decode_steps
+            decode_steps += steps
+
+            # release at EOS / budget exhaustion; latencies are observed at
+            # the burst edge, finish steps exactly
+            t = now()
+            freed = []
+            for slot, req in list(sched.slot_map.items()):
+                if req.first_token_s is None:
+                    req.first_token_s = t   # fused: emitted by this burst
+                used = steps
+                for s in range(steps):
+                    tok = int(buf_host[slot, s])
+                    if tok == self.eos_id:
+                        used = s + 1
+                        freed.append(sched.release(req, t,
+                                                   step=step_base + s + 1))
+                        break
+                    req.tokens.append(tok)
+                    if len(req.tokens) >= req.max_new_tokens:
+                        used = s + 1
+                        freed.append(sched.release(req, t,
+                                                   step=step_base + s + 1))
+                        break
+                busy_slot_steps += used
+            if freed and not fused_admission:
+                # fused rounds reset dead rows in the next prologue instead
+                state = dict(state)
+                free = kvc.free_slots_paged if self.paged else kvc.free_slots
+                state["cache"] = free(state["cache"],
+                                      np.asarray(freed, np.int32))
+
+        misses = len(sched.rejected) + sum(
+            1 for r in reqs
+            if (r.status == "finished" and r.deadline_s is not None
+                and r.finish_s is not None and r.finish_s > r.deadline_s))
+        return ServeResult(
+            requests=reqs, n_slots=n_slots, decode_steps=decode_steps,
+            busy_slot_steps=busy_slot_steps, prefill_rounds=prefill_rounds,
+            wall_s=now(), host_syncs=host_syncs, burst_len=K,
+            prefill_dispatches=prefill_dispatches,
+            encoder_tokens=encoder_tokens, fused_admission=fused_admission,
+            paged=self.paged, page_size=self.page_size,
+            pages_in_use=allocator.in_use if allocator else 0,
+            page_hwm=allocator.hwm if allocator else 0,
+            peak_running=peak_running, rejected=len(sched.rejected),
+            deadline_misses=misses)

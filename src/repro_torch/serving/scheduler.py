@@ -1,0 +1,413 @@
+"""Serving-side batch composition (paper §5.4 + §5.6 front half).
+
+Port of ``repro/serving/scheduler.py`` (host-side numpy; no torch):
+
+* ``TokenSortedScheduler`` — the paper's static composer: orders requests by
+  **token** count (descending), composes fixed-size batches padded to
+  bucketed lengths, and hands them to the parallel streams
+  (``streams.py``) through a thread-safe ``BatchQueue``.
+
+* ``ContinuousScheduler`` — the request lifecycle behind
+  ``ServingEngine.serve``: requests flow *waiting → running → finished*
+  through a fixed pool of decode **slots**.  Admission is FIFO (EDF with
+  aging once a request carries a deadline or a priority) with an optional
+  per-round prefill token budget and, on the paged cache, a page budget
+  against a ``PageAllocator``; a slot freed by a finished sequence is
+  refilled mid-decode.  Per-request arrival / first-token / finish times
+  feed the latency metrics.
+
+Not ported yet: the prefix-cache routing, preemption and chunked-prefill
+staging of the reference's ``ContinuousScheduler`` (ROADMAP Queue 1, item 8).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import queue
+import threading
+from typing import Callable, Deque, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.data.sorting import make_batches, next_pow2, padding_stats
+from repro_torch.data.synthetic import Sentence, pad_batch
+
+
+@dataclasses.dataclass
+class WorkItem:
+    batch_id: int
+    indices: List[int]                 # request ids in this batch
+    batch: Dict[str, np.ndarray]
+    n_real_tokens: int
+    n_padded_tokens: int
+
+
+class TokenSortedScheduler:
+    """Requests → ordered, padded batches (+ padding accounting)."""
+
+    def __init__(self, batch_size: int, *, sort_mode: str = "tokens",
+                 pad_to_multiple: int = 8):
+        self.batch_size = batch_size
+        self.sort_mode = sort_mode
+        self.pad_to_multiple = pad_to_multiple
+
+    def _round(self, n: int) -> int:
+        m = self.pad_to_multiple
+        return ((n + m - 1) // m) * m
+
+    def plan(self, requests: Sequence[Sentence]) -> List[WorkItem]:
+        batches = make_batches(requests, self.batch_size, self.sort_mode)
+        items = []
+        for bid, idx in enumerate(batches):
+            sents = [requests[i] for i in idx]
+            L = self._round(max(s.n_tokens for s in sents))
+            src, lens = pad_batch([s.src for s in sents], length=L)
+            items.append(WorkItem(
+                batch_id=bid,
+                indices=list(idx),
+                batch={"src_tokens": src, "src_lengths": lens},
+                n_real_tokens=int(lens.sum()),
+                n_padded_tokens=int(L * len(sents)),
+            ))
+        return items
+
+    def stats(self, requests: Sequence[Sentence]) -> dict:
+        batches = make_batches(requests, self.batch_size, self.sort_mode)
+        return padding_stats(requests, batches)
+
+
+@dataclasses.dataclass
+class Request:
+    """One serving request and its measured lifecycle."""
+
+    req_id: int
+    src: np.ndarray                     # (S,) int32 source tokens
+    max_new_tokens: int = 64
+    arrival_s: float = 0.0
+    # SLO knobs: absolute deadline on the serve clock (None = best-effort)
+    # and a priority boost, both feeding the EDF-with-aging queue order
+    deadline_s: Optional[float] = None
+    priority: float = 0.0
+
+    # lifecycle (scheduler/engine-maintained)
+    status: str = "waiting"             # waiting | running | finished | rejected
+    slot: Optional[int] = None          # decode row of the request
+    admitted_s: Optional[float] = None
+    first_token_s: Optional[float] = None
+    finish_s: Optional[float] = None
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    # decode-step attribution: wall-clock latencies are observed at burst
+    # edges, the step counters carry the exact position
+    admitted_step: Optional[int] = None
+    finish_step: Optional[int] = None
+    # paged KV cache: flat page ids reserved for this request
+    pages: Optional[List[int]] = None
+    reject_reason: Optional[str] = None
+    wait_rounds: int = 0                # admission rounds waited (aging)
+    reserved_pages: int = 0             # worst-case page reservation
+
+    @property
+    def n_src_tokens(self) -> int:
+        return int(len(self.src))
+
+    @property
+    def first_token_latency_s(self) -> Optional[float]:
+        if self.first_token_s is None:
+            return None
+        return self.first_token_s - self.arrival_s
+
+    @property
+    def total_latency_s(self) -> Optional[float]:
+        if self.finish_s is None:
+            return None
+        return self.finish_s - self.arrival_s
+
+
+def pad_rows_pow2(src: np.ndarray, lens: np.ndarray
+                  ) -> "tuple[np.ndarray, np.ndarray, int]":
+    """Pad an admission batch to the next power-of-two row count.
+
+    Padding rows replay row 0; their results are discarded downstream (their
+    destinations are out of range).  The one padding contract shared by the
+    fused (``ContinuousScheduler.plan_admission``) and unfused
+    (``ServingEngine._prefill_padded``) admission paths, so both run the
+    same shapes.  Returns ``(src, lens, width)``.
+    """
+    n = src.shape[0]
+    width = next_pow2(n)
+    if width > n:
+        src = np.concatenate(
+            [src, np.broadcast_to(src[0], (width - n,) + src.shape[1:])],
+            axis=0)
+        lens = np.concatenate(
+            [lens, np.broadcast_to(lens[0], (width - n,))])
+    return src, lens, width
+
+
+def _empty_i32() -> np.ndarray:
+    return np.zeros((0,), np.int32)
+
+
+@dataclasses.dataclass
+class AdmissionPlan:
+    """One admission round, shaped for the fused decode burst.
+
+    Sources are right-padded to ``enc_len`` columns and the batch to a
+    power-of-two ``width`` (padding rows replay row 0; their ``base_rows``
+    entry is the out-of-range ``oob_row``, so every scatter drops them).
+    Zero-budget requests never reach the device: they are finished at
+    admission and reported in ``released``.  The array fields default to
+    fresh empty arrays (``default_factory``): an ndarray class default is
+    what stops the reference's module from importing on Python 3.12.
+    """
+
+    requests: List[Request]            # admitted, budget > 0, slot order
+    released: List[Request]            # zero-budget: finished at admission
+    src_tokens: np.ndarray = dataclasses.field(default_factory=_empty_i32)
+    src_lengths: np.ndarray = dataclasses.field(default_factory=_empty_i32)
+    base_rows: np.ndarray = dataclasses.field(default_factory=_empty_i32)
+    width: int = 0                     # pow2 batch width (0 = no device work)
+
+    @property
+    def n_admitted(self) -> int:
+        return len(self.requests) + len(self.released)
+
+
+class ContinuousScheduler:
+    """Admission control + slot lifecycle for continuous batching.
+
+    ``n_slots`` decode rows exist for the whole serve; a request occupies
+    one row from admission to finish (greedy serving; the reference's beam
+    groups of several rows are not ported yet).  ``admit`` hands out free
+    rows to waiting requests in queue order, bounded per round by
+    ``prefill_token_budget`` (source tokens prefilled in one round) and by
+    the page pool; the head of the queue is always admitted when a row and
+    its pages are free, so no request starves.
+
+    Paged cache: ``allocator`` and ``pages_per_request`` go together; a
+    request's full-budget worst case is reserved and physically allocated
+    at admission, so decode never runs out of pages.
+    """
+
+    _NO_DEADLINE = 1e6                 # best-effort = very late deadline
+
+    def __init__(self, n_slots: int, *,
+                 prefill_token_budget: Optional[int] = None,
+                 allocator=None,
+                 pages_per_request: Optional[Callable[[Request], int]] = None,
+                 starvation_aging: float = 0.5):
+        if n_slots < 1:
+            raise ValueError(f"need at least one slot, got {n_slots}")
+        if (allocator is None) != (pages_per_request is None):
+            raise ValueError("allocator and pages_per_request go together")
+        if starvation_aging < 0:
+            raise ValueError(f"starvation_aging must be >= 0, "
+                             f"got {starvation_aging}")
+        self.n_slots = n_slots
+        self.prefill_token_budget = prefill_token_budget
+        self.allocator = allocator
+        self.pages_per_request = pages_per_request
+        self.starvation_aging = float(starvation_aging)
+        self._waiting: Deque[Request] = collections.deque()
+        self._free: List[int] = list(range(n_slots))
+        self.slot_map: Dict[int, Request] = {}
+        self.finished: List[Request] = []
+        self.rejected: List[Request] = []
+
+    # ------------------------------------------------------------- lifecycle
+    def submit(self, req: Request) -> None:
+        # reset the whole lifecycle so a Request object can be re-served
+        req.status = "waiting"
+        req.slot = None
+        req.admitted_s = None
+        req.first_token_s = None
+        req.finish_s = None
+        req.tokens = []
+        req.admitted_step = None
+        req.finish_step = None
+        req.pages = None
+        req.reject_reason = None
+        req.wait_rounds = 0
+        req.reserved_pages = 0
+        self._waiting.append(req)
+
+    def submit_many(self, reqs: Sequence[Request]) -> None:
+        for r in reqs:
+            self.submit(r)
+
+    def urgency_key(self, req: Request) -> float:
+        """Scalar wait-queue key, smaller = more urgent: earliest deadline
+        first, nudged by ``priority`` and by starvation aging (every round
+        spent waiting makes a request ``starvation_aging`` virtual seconds
+        more urgent)."""
+        d = req.deadline_s if req.deadline_s is not None else self._NO_DEADLINE
+        return d - req.priority - self.starvation_aging * req.wait_rounds
+
+    def _sort_waiting(self) -> None:
+        """EDF-with-aging order.  Skipped when nothing in the queue carries
+        a deadline, a priority or aging credit: the default stays strict
+        submission-order FIFO."""
+        if len(self._waiting) < 2:
+            return
+        if not any(r.deadline_s is not None or r.priority or r.wait_rounds
+                   for r in self._waiting):
+            return
+        self._waiting = collections.deque(sorted(self._waiting,
+                                                 key=self.urgency_key))
+
+    def _shed(self, now: float) -> List[Request]:
+        """Reject waiting requests whose deadline has already passed (no
+        admission order can meet it)."""
+        shed: List[Request] = []
+        keep: Deque[Request] = collections.deque()
+        for req in self._waiting:
+            if req.deadline_s is not None and now > req.deadline_s:
+                req.status = "rejected"
+                req.reject_reason = (
+                    f"deadline {req.deadline_s:.3f}s already passed at "
+                    f"admission (now={now:.3f}s)")
+                req.finish_s = now
+                self.rejected.append(req)
+                shed.append(req)
+            else:
+                keep.append(req)
+        self._waiting = keep
+        return shed
+
+    def admit(self, now: float = 0.0, *,
+              step: Optional[int] = None) -> List[Request]:
+        """Move waiting requests into free slots (one prefill round).
+
+        ``step`` records the global decode-step count at this burst edge.
+        Order: shed provably-late requests, sort by urgency (a no-op for
+        deadline-free traffic), then admit while slots, the prefill budget
+        and the page pool allow.
+        """
+        self._shed(now)
+        self._sort_waiting()
+        admitted: List[Request] = []
+        budget = self.prefill_token_budget
+        used = 0
+        while self._waiting and self._free:
+            req = self._waiting[0]
+            cost = req.n_src_tokens
+            if admitted and budget is not None and used + cost > budget:
+                break                    # next round; queue order preserved
+            pages = None
+            worst = 0
+            if self.allocator is not None:
+                worst = self.pages_per_request(req)
+                if not self.allocator.can_reserve(worst):
+                    break
+                pages = self.allocator.alloc(worst)
+                if pages is None:
+                    break                # pool short: the head waits
+                self.allocator.reserve(worst)
+            self._waiting.popleft()
+            slot = self._free.pop(0)
+            req.status = "running"
+            req.slot = slot
+            req.pages = pages
+            req.reserved_pages = worst
+            req.admitted_s = now
+            req.admitted_step = step
+            self.slot_map[slot] = req
+            used += cost
+            admitted.append(req)
+        for req in self._waiting:
+            req.wait_rounds += 1         # starvation aging
+        return admitted
+
+    def plan_admission(self, now: float = 0.0, *, step: Optional[int] = None,
+                       enc_len: int, oob_row: int) -> AdmissionPlan:
+        """Admit one round and shape it for the fused burst: runs
+        :meth:`admit`, finishes zero-budget requests on the spot, and pads
+        the rest (sources to ``enc_len``, rows to a power of two with row-0
+        replays, destinations with ``oob_row``)."""
+        live: List[Request] = []
+        released: List[Request] = []
+        for req in self.admit(now, step=step):
+            if req.max_new_tokens <= 0:
+                req.first_token_s = now          # observed: empty output
+                self.release(req, now, step=step)
+                released.append(req)
+            else:
+                live.append(req)
+        if not live:
+            return AdmissionPlan(
+                requests=[], released=released,
+                src_tokens=np.zeros((0, enc_len), np.int32))
+        src, lens = pad_batch([r.src for r in live], length=enc_len)
+        src, lens, width = pad_rows_pow2(src, lens)
+        base = np.full((width,), oob_row, np.int32)
+        base[:len(live)] = [r.slot for r in live]
+        return AdmissionPlan(requests=live, released=released,
+                             src_tokens=np.ascontiguousarray(src),
+                             src_lengths=np.ascontiguousarray(lens),
+                             base_rows=base, width=width)
+
+    def release(self, req: Request, now: float = 0.0, *,
+                step: Optional[int] = None) -> int:
+        """Finish a running request and return its freed slot; its pages go back to the pool.  ``step``: the exact global decode
+        step the request finished at."""
+        if req.status != "running" or req.slot is None:
+            raise ValueError(f"request {req.req_id} is not running "
+                             f"(status={req.status})")
+        slot = req.slot
+        req.status = "finished"
+        req.finish_s = now
+        req.finish_step = step
+        req.slot = None
+        if req.pages is not None:
+            self.allocator.release(req.pages)
+            req.pages = None
+        if req.reserved_pages:
+            self.allocator.unreserve(req.reserved_pages)
+            req.reserved_pages = 0
+        del self.slot_map[slot]
+        self._free.append(slot)
+        self._free.sort()
+        self.finished.append(req)
+        return slot
+
+    # ------------------------------------------------------------ inspection
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_running(self) -> int:
+        return len(self.slot_map)
+
+    @property
+    def n_waiting(self) -> int:
+        return len(self._waiting)
+
+    @property
+    def all_done(self) -> bool:
+        return not self._waiting and not self.slot_map
+
+
+class BatchQueue:
+    """Thread-safe queue feeding the worker streams (paper Fig. 6)."""
+
+    def __init__(self, items: Optional[Sequence[WorkItem]] = None):
+        self._q: queue.Queue = queue.Queue()
+        self._lock = threading.Lock()
+        self.enqueued = 0
+        if items:
+            for item in items:
+                self.put(item)
+
+    def put(self, item: WorkItem) -> None:
+        with self._lock:
+            self.enqueued += 1
+        self._q.put(item)
+
+    def close(self, n_consumers: int) -> None:
+        for _ in range(n_consumers):
+            self._q.put(None)
+
+    def get(self) -> Optional[WorkItem]:
+        return self._q.get()

@@ -16,13 +16,17 @@ from repro_torch.configs import get_config
 from repro_torch.core import Calibrator, QuantPolicy, Taps, quantize_model
 from repro_torch.data import make_corpus, pad_batch
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.decode_attention import (
+    decode_attention_cuda,
+    decode_attention_paged_cuda,
+)
 from repro_torch.kernels.int8_matmul import int8_matmul_cuda
 from repro_torch.kernels.quantize import (
     quantize_rowwise_cuda,
     quantize_static_cuda,
 )
 from repro_torch.models import EncDecLM
+from repro_torch.models.kv_cache import linearize_pages
 from repro_torch.serving import ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -82,6 +86,64 @@ def test_decode_attention_close(gen, H, HKV):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
+def _paged_inputs(gen, B, H, HKV, ps, maxP, dh=64):
+    """A pool of B·maxP pages handed out in a shuffled order, sentinel
+    entries past each row's reservation, lengths from 1 to capacity."""
+    P = B * maxP
+    cpu = torch.Generator().manual_seed(B * 100 + ps)
+    perm = torch.randperm(P, generator=cpu).int()
+    reserve = torch.randint(1, maxP + 1, (B,), generator=cpu)
+    tables = torch.full((B, maxP), P, dtype=torch.int32)
+    for b in range(B):
+        tables[b, :int(reserve[b])] = perm[b * maxP:b * maxP + int(reserve[b])]
+    lengths = torch.minimum(
+        torch.randint(1, maxP * ps + 1, (B,), generator=cpu), reserve * ps)
+    lengths[0] = int(reserve[0]) * ps                # a full reservation
+    kq = torch.randint(-127, 128, (P, ps, HKV, dh), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    vq = torch.randint(-127, 128, (P, ps, HKV, dh), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    ks = torch.rand((P, ps, HKV), generator=gen, device="cuda") * 0.02
+    vs = torch.rand((P, ps, HKV), generator=gen, device="cuda") * 0.02
+    q = torch.randn((B, H, dh), generator=gen, device="cuda")
+    return (q, kq, ks, vq, vs, tables.cuda(),
+            lengths.to(torch.int32).cuda())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps,maxP", [(4, 9), (16, 4)])
+@pytest.mark.parametrize("H,HKV", [(8, 8), (8, 4)])
+def test_decode_attention_paged_close(gen, dtype, ps, maxP, H, HKV):
+    """K5 against its plain version: f32 within 1e-5, bf16 within one bf16
+    ulp."""
+    q, kq, ks, vq, vs, tables, lengths = _paged_inputs(gen, 7, H, HKV, ps,
+                                                       maxP)
+    q = q.to(dtype)
+    got = decode_attention_paged_cuda(q, kq, ks, vq, vs, tables, lengths,
+                                      sm_scale=0.125).float()
+    want = ref.ref_decode_attention_paged(q, kq, ks, vq, vs, tables, lengths,
+                                          0.125).float()
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps,maxP", [(4, 9), (16, 4)])
+def test_decode_attention_paged_equals_contiguous_kernel(gen, dtype, ps,
+                                                         maxP):
+    """K5 on the pages equals K4 on the linearized cache bit for bit: the
+    same chunks, summed in the same order."""
+    q, kq, ks, vq, vs, tables, lengths = _paged_inputs(gen, 9, 8, 4, ps,
+                                                       maxP)
+    q = q.to(dtype)
+    got = decode_attention_paged_cuda(q, kq, ks, vq, vs, tables, lengths,
+                                      sm_scale=0.125)
+    lin = lambda a: linearize_pages(a, tables).contiguous()
+    want = decode_attention_cuda(q, lin(kq), lin(ks), lin(vq), lin(vs),
+                                 lengths, sm_scale=0.125)
+    assert torch.equal(got, want)
+
+
 def test_engine_runs_through_every_kernel(gen):
     cfg = get_config("transformer-base").reduced(vocab=512, d_model=128,
                                                   head_dim=32,
@@ -105,5 +167,7 @@ def test_engine_runs_through_every_kernel(gen):
                              QuantPolicy(act_quant="static"))
     ServingEngine(model, qp, quant=ctx, max_len=32).generate(
         batch, max_new_tokens=4)
+    ServingEngine(model, qp, quant=ctx, max_len=32, paged=True,
+                  page_size=8).serve(corpus, n_slots=2, max_new_tokens=4)
     assert all(n > 0 for n in ops.launch_counts().values()), \
         ops.launch_counts()

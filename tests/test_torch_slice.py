@@ -16,9 +16,6 @@ Every test that needs ``trained_nmt`` lives in this file: under
 ``--dist loadfile`` each file that uses the fixture trains it again.
 """
 
-import dataclasses
-import sys
-
 import numpy as np
 import pytest
 import torch
@@ -27,11 +24,8 @@ import jax.numpy as jnp
 
 from repro.checkpoint.checkpointer import _flatten_with_paths
 from repro.core import FP_CONTEXT as JFP_CONTEXT
-from repro.core import Calibrator as JCalibrator
 from repro.core import QuantPolicy as JQuantPolicy
-from repro.core import Taps as JTaps
 from repro.core import quantize_model as jquantize_model
-from repro.data import pad_batch as jpad_batch
 
 from repro_torch.checkpoint.bridge import (
     calibrations_from_reference,
@@ -43,6 +37,11 @@ from repro_torch.data import corpus_bleu, pad_batch
 from repro_torch.models import EncDecLM
 from repro_torch.serving import ServingEngine
 
+from _torch_reference import (
+    import_reference_serving as _import_reference_serving,
+    reference_calibration as _reference_calibration,
+)
+
 MAX_NEW = 16
 MAX_LEN = 64
 BEAM = 4
@@ -51,52 +50,6 @@ MODES = ("fp", "int8_static", "int8_dynamic")
 # trained_nmt's overrides (tests/conftest.py)
 NMT = dict(vocab=64, d_model=128, n_layers=2, n_enc_layers=2, d_ff=256,
            n_heads=4, n_kv_heads=4, head_dim=32)
-
-
-def _import_reference_serving():
-    """Import ``repro.serving`` despite its Python 3.12 dataclass fault.
-
-    ``serving/scheduler.py:AdmissionPlan`` gives ndarray class defaults to
-    dataclass fields, which Python 3.12 rejects.  For the duration of the
-    import only, ``dataclasses.dataclass`` turns such a default into
-    ``field(default_factory=...)``; the original is restored afterwards.
-    """
-    if "repro.serving" in sys.modules:
-        return sys.modules["repro.serving"]
-    original = dataclasses.dataclass
-
-    def patched(cls=None, /, **kwargs):
-        def wrap(c):
-            for name, value in list(vars(c).items()):
-                if isinstance(value, np.ndarray):
-                    setattr(c, name, dataclasses.field(
-                        default_factory=lambda v=value: v.copy()))
-            return original(c, **kwargs)
-        return wrap if cls is None else wrap(cls)
-
-    dataclasses.dataclass = patched
-    try:
-        import repro.serving as serving
-    finally:
-        dataclasses.dataclass = original
-    return serving
-
-
-def _reference_calibration(jmodel, jparams, corpus):
-    """The reference's KL calibration on 32 held-out sentences, taps
-    recorded in one padded teacher-forced forward."""
-    held_out = corpus[200:232]
-    src, src_len = jpad_batch([s.src for s in held_out])
-    tgt, tgt_len = jpad_batch([s.tgt for s in held_out], add_bos=True,
-                              add_eos=True)
-    taps = JTaps()
-    jmodel.forward(jparams, {"src_tokens": jnp.asarray(src),
-                             "src_lengths": jnp.asarray(src_len),
-                             "tgt_tokens": jnp.asarray(tgt),
-                             "tgt_lengths": jnp.asarray(tgt_len)}, taps=taps)
-    cal = JCalibrator()
-    cal.observe_taps(taps)
-    return cal.compute("symmetric")
 
 
 @pytest.fixture(scope="module")
