@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's INT8 translation and serving paths on one
-NVIDIA GPU.
+"""Drive the PyTorch port's INT8 and INT4-weight translation and serving
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,11 +9,12 @@ final line):
 
 1. card   — name and power limit from ``nvidia-smi``; no CUDA → exit 1;
 2. build  — compile the CUDA kernels from ``src/repro_torch/csrc``;
-3. kernels vs plain — each of the five kernels at its path's shapes against
+3. kernels vs plain — each of the six kernels at its path's shapes against
    its plain PyTorch version on the card, with its time, the plain
    version's, a library call's where one computes the same function, and
    its bound; K5 (paged decode attention) also against K4 on the
-   linearized cache, bit for bit;
+   linearized cache, bit for bit; K6 (the INT4-weight matmul) beside K3's
+   time at the same shape;
 4. end to end — transformer-base at full width (bf16 activations, float32
    weights from ``torch.Generator`` seed 0): after a two-token warm-up,
    KL-calibrate, quantize to INT8, greedy ``generate`` and beam-4
@@ -27,10 +28,17 @@ final line):
    admission, and paged with unfused admission.  Paged and contiguous
    tokens must be identical, every page returned, K5 launched on the paged
    runs only and its plain version never; then a profiled paged serve;
-6. the serving driver ``python -m repro_torch.launch.serve`` once per mode
-   (continuous paged, static), each a subprocess that must exit 0;
-7. launch counts of each path, and one JSON line describing each kernel;
-8. last line: ``{"ok": true, "device": {...}}``.
+6. INT4 weights — the same model quantized with ``weight_bits=4`` (decoder
+   FFN and attention output projections block-wise INT4, group 128, f16
+   scales; static activation scales): greedy and beam-4 ``generate`` and one
+   paged ``serve`` of the 48 requests; K6 must launch and its plain version
+   run 0 times, and the first decode steps' logits with the kernels must
+   match those with ``impl="torch"``;
+7. the serving driver ``python -m repro_torch.launch.serve`` once per mode
+   (continuous paged, static, continuous paged with ``--weight-bits 4``),
+   each a subprocess that must exit 0;
+8. launch counts of each path, and one JSON line describing each kernel;
+9. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package.
 """
@@ -64,6 +72,7 @@ SERVE_SLOTS = 16
 SERVE_BURST = 8
 PAGE = 16                      # tokens per KV page (max_len 64: 4 pages/row)
 TIGHT_PAGES = 32               # half of the contiguous-equivalent 64
+INT4_GROUP = 128               # rows per INT4 scale/min block
 
 
 T_START = time.perf_counter()
@@ -139,6 +148,8 @@ def check_kernels(s_enc: int):
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import (
         decode_attention_cuda, decode_attention_paged_cuda)
+    from repro_torch.core import quantize_block
+    from repro_torch.kernels.int4_matmul import int4_matmul_cuda
     from repro_torch.kernels.int8_matmul import int8_matmul_cuda
     from repro_torch.kernels.quantize import (quantize_rowwise_cuda,
                                               quantize_static_cuda)
@@ -233,6 +244,46 @@ def check_kernels(s_enc: int):
                 time_ms(lambda: ref.ref_int8_matmul(
                     a, a_scale, w, b_scale, None, bias,
                     out_dtype=torch.bfloat16)), b, o, lib_ms))
+
+    # K6: the INT4-weight matmul at the decode shapes of the INT4 sites;
+    # f32 out must equal the plain version, bf16 within one bf16 ulp.  No
+    # PyTorch call takes s8 activation codes with INT4 weights
+    # (``torch._weight_int4pack_mm`` takes bf16 activations): library null.
+    k3_ms = {tuple(r["shape"]): r["ms"] for r in results["int8_matmul"]}
+    for M in (N_REQUESTS, N_REQUESTS * BEAM):
+        for K, N in ((512, 512), (512, 2048), (2048, 512)):
+            a = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
+                              dtype=torch.int8)
+            w = torch.randn((K, N), generator=gen, device=dev) * 0.05
+            bq = quantize_block(w, INT4_GROUP)
+            a_scale = torch.rand((M, 1), generator=gen, device=dev) * 0.02
+            bias = torch.randn((N,), generator=gen, device=dev)
+            args = (a, a_scale, bq.data, bq.scale, bq.vmin, None, bias)
+            f32 = int4_matmul_cuda(*args, group_size=INT4_GROUP)
+            f32_ref = ref.ref_int4_matmul(*args, group_size=INT4_GROUP)
+            if not torch.equal(f32, f32_ref):
+                raise AssertionError(
+                    f"int4_matmul f32 differs at {(M, K, N)} by "
+                    f"{float((f32 - f32_ref).abs().max())}")
+            run = lambda: int4_matmul_cuda(*args, group_size=INT4_GROUP,
+                                           out_dtype=torch.bfloat16)
+            out = run().float()
+            out_ref = ref.ref_int4_matmul(*args, group_size=INT4_GROUP,
+                                          out_dtype=torch.bfloat16).float()
+            err = float((out - out_ref).abs().max())
+            if not torch.allclose(out, out_ref, atol=0, rtol=2.0 ** -7):
+                raise AssertionError(f"int4_matmul bf16 output differs at "
+                                     f"{(M, K, N)}: {err}")
+            n_g = K // INT4_GROUP
+            b, o = bound(M * K + K * N // 2 + 2 * n_g * N * 2 + M * 4 + N * 4
+                         + M * N * 2, 2 * M * N * K, INT8_OPS_PER_S)
+            r = row("int4_matmul", [M, K, N], err, time_ms(run),
+                    time_ms(lambda: ref.ref_int4_matmul(
+                        *args, group_size=INT4_GROUP,
+                        out_dtype=torch.bfloat16)), b, o, None)
+            r["k3_ms"] = k3_ms[(M, K, N)]
+            log(f"  K3 at the same shape: {r['k3_ms']:.4f} ms")
+            results.setdefault("int4_matmul", []).append(r)
 
     # K4: flash decode vs masked softmax over the dequantized cache
     H = HKV = 8
@@ -391,7 +442,7 @@ def run_main_path(model, params, corpus):
             if len(t) > MAX_NEW or (len(t) and not (
                     0 <= t.min() and t.max() < model.cfg.vocab)):
                 raise AssertionError(f"{name}: bad output {t}")
-    return batch, qparams, qctx
+    return batch, qparams, qctx, recs, runs
 
 
 def warm_up(model, params, corpus) -> None:
@@ -618,7 +669,91 @@ def profile_paged_serve(model, qparams, qctx) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the serving driver, once per mode
+# phase 6: INT4 weights through generate and serve
+# ---------------------------------------------------------------------------
+
+def run_int4(model, params, recs, batch, int8_greedy):
+    """The INT4-weight path with the launch counts read from zero; the plain
+    INT4 matmul must not run.  Returns (launch counts, quantized params and
+    context)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import QuantPolicy, count_quantized, quantize_model
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    qparams, qctx = quantize_model(params, recs,
+                                   QuantPolicy(act_quant="static"),
+                                   weight_bits=4, weight_group_size=INT4_GROUP)
+    torch.cuda.synchronize()
+    stats = count_quantized(qparams)
+    log(f"quantize (weight_bits=4): {time.perf_counter() - t0:.3f} s, "
+        f"INT4 weights: {stats['int4_linears']} decoder linears, "
+        f"{stats['int4_bytes']} bytes (group_size={INT4_GROUP}); "
+        f"INT8 elsewhere: {stats['int8_bytes']} bytes")
+    if stats["int4_linears"] != 4 * model.cfg.n_layers:
+        raise AssertionError(f"INT4 linears: {stats}")
+
+    plain = ref.ref_int4_matmul
+    plain_calls = []
+
+    def counted(*args, **kwargs):
+        plain_calls.append(1)
+        return plain(*args, **kwargs)
+
+    ref.ref_int4_matmul = counted
+    corpus, budgets = serve_requests(model.cfg.vocab)
+    try:
+        ops.reset_launch_counts()
+        engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN)
+        runs = {"int4_greedy_static": engine.generate(
+                    batch, max_new_tokens=MAX_NEW),
+                "int4_beam4_static": engine.generate_beam(
+                    batch, beam=BEAM, max_new_tokens=MAX_NEW)}
+        served = ServingEngine(
+            model, qparams, quant=qctx, max_len=MAX_LEN,
+            burst_len=SERVE_BURST, paged=True, page_size=PAGE).serve(
+            corpus, n_slots=SERVE_SLOTS, max_new_tokens=budgets)
+        counts = ops.launch_counts()
+    finally:
+        ref.ref_int4_matmul = plain
+    for name, r in runs.items():
+        log(f"e2e {name}: tokens={r.n_tokens} steps={r.steps} "
+            f"tokens_per_s={r.tokens_per_s:.1f} prefill_s={r.prefill_s:.4f} "
+            f"decode_s={r.decode_s:.4f} host_syncs={r.host_syncs}")
+        if len(r.tokens) != N_REQUESTS or any(
+                len(t) > MAX_NEW for t in r.tokens):
+            raise AssertionError(f"{name}: bad outputs")
+    m = served.metrics()
+    log(f"serve int4_paged: tokens={served.n_tokens} "
+        f"tokens_per_s={served.tokens_per_s:.1f} "
+        f"decode_steps={served.decode_steps} "
+        f"host_syncs={served.host_syncs} "
+        f"utilization={served.utilization:.3f} "
+        f"first_token_mean_s={m['first_token_latency_mean_s']:.4f} "
+        f"total_mean_s={m['total_latency_mean_s']:.4f} "
+        f"page_hwm={served.page_hwm}")
+    ratio = runs["int4_greedy_static"].tokens_per_s / int8_greedy.tokens_per_s
+    log(f"INT4 / INT8 greedy static tokens/s: {ratio:.3f}")
+    log(f"  launches: {json.dumps(counts)}; plain INT4 matmul calls: "
+        f"{len(plain_calls)}")
+    if counts["int4_matmul"] <= 0 or plain_calls:
+        raise AssertionError(f"K6 launched {counts['int4_matmul']} times, "
+                             f"its plain version {len(plain_calls)} times")
+    if served.pages_in_use or any(r.status != "finished"
+                                  for r in served.requests):
+        raise AssertionError("INT4 serve: unfinished requests or pages held")
+    for r, b in zip(served.requests, budgets):
+        t = np.asarray(r.tokens)
+        if len(t) > b or (len(t) and not (0 <= t.min()
+                                          and t.max() < model.cfg.vocab)):
+            raise AssertionError(f"INT4 serve: bad output {t}")
+    return counts, qparams, qctx
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the serving driver, once per mode
 # ---------------------------------------------------------------------------
 
 DRIVER_RUNS = (
@@ -626,6 +761,8 @@ DRIVER_RUNS = (
      "--max-new-tokens", "8"],
     ["--mode", "static", "--streams", "2", "--requests", "16",
      "--max-new-tokens", "8"],
+    ["--weight-bits", "4", "--mode", "continuous", "--paged", "--requests",
+     "16", "--slots", "4", "--max-new-tokens", "8"],
 )
 
 
@@ -636,7 +773,7 @@ def run_driver() -> None:
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                               text=True, timeout=600)
-        log(f"driver {' '.join(argv[:2])} exit {proc.returncode} in "
+        log(f"driver {' '.join(argv[:4])} exit {proc.returncode} in "
             f"{time.perf_counter() - t0:.1f} s")
         for line in proc.stdout.strip().splitlines():
             log(f"  | {line}")
@@ -689,7 +826,7 @@ def main() -> int:
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     warm_up(model, params, corpus)
     ops.reset_launch_counts()
-    batch, qparams, qctx = run_main_path(model, params, corpus)
+    batch, qparams, qctx, recs, runs = run_main_path(model, params, corpus)
     counts = ops.launch_counts()
     log(f"launches on the main path: {json.dumps(counts)}")
     check_against_plain(model, qparams, qctx, batch)
@@ -703,16 +840,23 @@ def main() -> int:
     phase("profiled paged serve")
     profile_paged_serve(model, qparams, qctx)
 
-    # 6. the serving driver
+    # 6. INT4 weights
+    phase("INT4 weights")
+    int4_counts, q4params, q4ctx = run_int4(model, params, recs, batch,
+                                            runs["greedy_static"])
+    check_against_plain(model, q4params, q4ctx, batch)
+
+    # 7. the serving driver
     phase("serving driver")
     run_driver()
 
-    # 7. launch counts and the kernel table
+    # 8. launch counts and the kernel table
     phase("kernel table")
     maxP = MAX_LEN // PAGE
     headline = {"quantize_static": [N_REQUESTS * s_enc, 512],
                 "quantize_rowwise": [N_REQUESTS * s_enc, 512],
                 "int8_matmul": [N_REQUESTS * BEAM, 512, 512],
+                "int4_matmul": [N_REQUESTS * BEAM, 512, 512],
                 "decode_attention": [N_REQUESTS * BEAM, MAX_LEN, 8, 64],
                 "decode_attention_paged": [SERVE_SLOTS, SERVE_SLOTS * maxP,
                                            PAGE, 8, 64]}
@@ -720,12 +864,14 @@ def main() -> int:
         "quantize_static": "src/repro/kernels/quantize.py:79",
         "quantize_rowwise": "src/repro/kernels/quantize.py:38",
         "int8_matmul": "src/repro/kernels/int8_matmul.py:145",
+        "int4_matmul": "src/repro/kernels/int4_matmul.py:104",
         "decode_attention": "src/repro/kernels/decode_attention.py:80",
         "decode_attention_paged": "src/repro/kernels/decode_attention.py:250"}
     sources = {
         "quantize_static": "src/repro_torch/csrc/quantize.cu",
         "quantize_rowwise": "src/repro_torch/csrc/quantize.cu",
         "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
+        "int4_matmul": "src/repro_torch/csrc/int4_matmul.cu",
         "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
         "decode_attention_paged": "src/repro_torch/csrc/decode_attention.cu"}
     # each kernel's launches on the path it was ported for
@@ -734,6 +880,9 @@ def main() -> int:
     paths["decode_attention_paged"] = (
         "serve paged (fused, default pool)",
         serve_counts["paged"]["decode_attention_paged"])
+    paths["int4_matmul"] = (
+        "INT4 weights: generate (greedy + beam-4 static) + paged serve",
+        int4_counts["int4_matmul"])
     kernels = []
     for name in replaces:
         r = next(x for x in results[name] if x["shape"] == headline[name])
@@ -744,14 +893,15 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
-            "path": paths[name][0]})
+            "path": paths[name][0],
+            **({"k3_ms": r["k3_ms"]} if "k3_ms" in r else {})})
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
                              f"{missing}")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 8. last line
+    # 9. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

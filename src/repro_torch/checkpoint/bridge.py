@@ -9,6 +9,15 @@ nested parameter dict on ``device``.  A scan-stacked tree (``enc_blocks``
 with a leading layer axis) is split into the port's per-layer
 ``enc_blocks.{i}`` nodes.
 
+A ``BlockQTensor`` (INT4) weight is flattened under the same three keys
+(packed nibbles, block scales, block minimums) without its ``group_size``
+and ``k_dim``; with one group its leaves even have a ``QTensor``'s shapes.
+So the caller names those sites in ``block_meta`` (``{site: (group_size,
+k_dim)}``, e.g. from :func:`block_meta_of` on the reference's tree), and a
+triple that is not named there and does not look like a symmetric
+``QTensor`` (f32 keepdims scale, zero point all zero) is refused rather
+than guessed.
+
 ``calibrations_from_reference`` copies a ``{site: SiteCalibration}`` dict
 (any objects with the reference's attributes) into the port's records, so
 both packages quantize activations with identical thresholds.
@@ -17,14 +26,14 @@ both packages quantize activations with identical thresholds.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.calibration import SiteCalibration
 from repro_torch.core.histogram import HistogramClass
-from repro_torch.core.qtensor import QTensor
+from repro_torch.core.qtensor import BlockQTensor, QTensor
 from repro_torch.core.quantize import Thresholds
 
 _STACKED = re.compile(r"^(enc_blocks|dec_blocks)$")
@@ -45,8 +54,60 @@ def _insert(tree: Dict[str, Any], path, value) -> None:
     node[path[-1]] = value
 
 
+def block_meta_of(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
+                  ) -> Dict[str, Tuple[int, int]]:
+    """``{site: (group_size, k_dim)}`` of every block-quantized weight in a
+    nested parameter tree (any leaf object with those two attributes)."""
+    out: Dict[str, Tuple[int, int]] = {}
+    for k, v in tree.items():
+        path = prefix + (str(k),)
+        if isinstance(v, Mapping):
+            out.update(block_meta_of(v, path))
+        elif hasattr(v, "group_size") and hasattr(v, "k_dim"):
+            out["/".join(prefix)] = (int(v.group_size), int(v.k_dim))
+    return out
+
+
+def _block_leaf(site: str, leaves, meta: Tuple[int, int],
+                device) -> BlockQTensor:
+    group_size, k_dim = meta
+    data, scale, vmin = (np.asarray(leaves[i]) for i in "012")
+    n_g = scale.shape[-2] if scale.ndim >= 2 else -1
+    if (data.dtype != np.int8 or scale.dtype not in (np.float16, np.float32)
+            or vmin.dtype != scale.dtype or vmin.shape != scale.shape
+            or n_g < 1 or 2 * data.shape[-2] != n_g * group_size
+            or not 0 < k_dim <= n_g * group_size):
+        raise ValueError(
+            f"{site}: leaves {data.dtype}{data.shape}, {scale.dtype}"
+            f"{scale.shape}, {vmin.dtype}{vmin.shape} are not a BlockQTensor "
+            f"of group_size={group_size}, k_dim={k_dim}")
+    return BlockQTensor(data=_tensor(data, device),
+                        scale=_tensor(scale, device),
+                        vmin=_tensor(vmin, device), group_size=group_size,
+                        k_dim=k_dim)
+
+
+def _int8_leaf(site: str, leaves, device) -> QTensor:
+    data, scale, zp = (np.asarray(leaves[i]) for i in "012")
+    if (data.dtype != np.int8 or scale.dtype != np.float32
+            or (scale.ndim and scale.shape[-2:] != (1, data.shape[-1]))
+            or np.any(zp != 0)):
+        raise ValueError(
+            f"{site}: leaves {data.dtype}{data.shape}, {scale.dtype}"
+            f"{scale.shape}, zero point {zp.dtype}{zp.shape} are not a "
+            "symmetric QTensor; if this is an INT4 weight, name it in "
+            "block_meta")
+    return QTensor(data=_tensor(data, device),
+                   scale=_tensor(scale, device).to(torch.float32),
+                   zero_point=_tensor(zp, device).to(torch.float32),
+                   axis=None)
+
+
 def params_from_flat(flat: Mapping[str, np.ndarray], *,
-                     device: str = "cuda") -> Dict[str, Any]:
+                     device: str = "cuda",
+                     block_meta: Optional[Mapping[str, Tuple[int, int]]]
+                     = None) -> Dict[str, Any]:
+    block_meta = dict(block_meta or {})
     # per-layer split of stacked roots: "enc_blocks/x/y" → "enc_blocks.{i}/x/y"
     entries = []
     for key, arr in flat.items():
@@ -67,14 +128,16 @@ def params_from_flat(flat: Mapping[str, np.ndarray], *,
             _insert(tree, parts, _tensor(arr, device))
     for path, leaves in qparts.items():
         if set(leaves) != {"0", "1", "2"}:
-            raise KeyError(f"QTensor leaf {'/'.join(path)} needs data, scale "
-                           f"and zero point (w/0, w/1, w/2), got "
-                           f"{sorted(leaves)}")
-        _insert(tree, list(path), QTensor(
-            data=_tensor(leaves["0"], device),
-            scale=_tensor(leaves["1"], device).to(torch.float32),
-            zero_point=_tensor(leaves["2"], device).to(torch.float32),
-            axis=None))
+            raise KeyError(f"quantized leaf {'/'.join(path)} needs three "
+                           f"arrays (w/0, w/1, w/2), got {sorted(leaves)}")
+        site = "/".join(path[:-1])
+        meta = block_meta.pop(site, None)
+        _insert(tree, list(path),
+                _block_leaf(site, leaves, meta, device) if meta is not None
+                else _int8_leaf(site, leaves, device))
+    if block_meta:
+        raise KeyError(f"block_meta names sites with no quantized weight: "
+                       f"{sorted(block_meta)}")
     return tree
 
 

@@ -1,4 +1,4 @@
-"""INT8 post-training quantization (port of ``repro/core``)."""
+"""INT8 post-training quantization and INT4 weights (port of ``repro/core``)."""
 
 from repro_torch.core.calibration import (  # noqa: F401
     Calibrator,
@@ -13,14 +13,20 @@ from repro_torch.core.policy import QuantPolicy  # noqa: F401
 from repro_torch.core.ptq import (  # noqa: F401
     FP_CONTEXT,
     QuantContext,
+    count_quantized,
     generic_site,
+    int4_eligible_site,
     quantize_model,
     quantize_weight,
+    quantize_weight_block,
+    weight_bytes_by_site,
 )
 from repro_torch.core.qtensor import (  # noqa: F401
+    BlockQTensor,
     QTensor,
     abs_max,
     quantize_affine,
+    quantize_block,
     quantize_symmetric,
 )
 from repro_torch.core.quantize import (  # noqa: F401

@@ -1,6 +1,6 @@
 """Post-training quantization: FP32/bf16 model → INT8 model (paper §4).
 
-Port of ``repro/core/ptq.py`` at ``weight_bits=8``:
+Port of ``repro/core/ptq.py``:
 
     calibrations = Calibrator(fwd).run(batches).compute(mode="symmetric")
     qparams, qctx = quantize_model(params, calibrations, policy)
@@ -8,7 +8,9 @@ Port of ``repro/core/ptq.py`` at ``weight_bits=8``:
 
 ``quantize_model`` walks the parameter tree, finds linear nodes (dicts with
 a ``"w"`` leaf of rank ≥ 2), and replaces approved weights with
-per-output-channel symmetric :class:`QTensor`.  ``QuantContext`` is the
+per-output-channel symmetric :class:`QTensor`; with ``weight_bits=4`` the
+decoder FFN and attention output projections become block-wise INT4
+:class:`BlockQTensor` instead.  ``QuantContext`` is the
 runtime companion the model consults for activation thresholds and the
 kernel implementation (``impl``: ``"auto"`` | ``"cuda"`` | ``"torch"``).
 
@@ -28,7 +30,13 @@ import torch
 from repro_torch.core.calibration import SiteCalibration
 from repro_torch.core.histogram import HistogramClass
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.core.qtensor import QTensor, div_exact, rdiv_exact
+from repro_torch.core.qtensor import (
+    BlockQTensor,
+    QTensor,
+    div_exact,
+    quantize_block,
+    rdiv_exact,
+)
 from repro_torch.core.quantize import QuantMode, Thresholds
 
 _LAYER_SEG = re.compile(r"blocks\.(\d+)")
@@ -129,14 +137,42 @@ def quantize_weight(w: torch.Tensor) -> QTensor:
                    zero_point=torch.zeros_like(amax), axis=None)
 
 
+def quantize_weight_block(w: torch.Tensor, group_size: int = 128,
+                          scale_dtype: torch.dtype = torch.float16
+                          ) -> BlockQTensor:
+    """Block-wise INT4 weight quantization (group scale/min along d_in)."""
+    return quantize_block(w, group_size=group_size, scale_dtype=scale_dtype)
+
+
+# Which sites may drop to INT4 (the paper's sensitivity result): decoder FFN
+# and attention *output* projections only.  q/k/v projections feed the
+# attention score path and the KV cache; those, all encoder weights, the
+# logits head and every activation stay INT8/FP.
+_INT4_FFN_LEAVES = ("in", "out", "gate", "up", "down")
+
+
+def int4_eligible_site(site: str) -> bool:
+    parts = site.split("/")
+    if not any(p == "dec_blocks" or p.startswith("dec_blocks.")
+               for p in parts):
+        return False
+    if parts[-1] == "o_proj":
+        return True
+    return (len(parts) >= 2 and parts[-2] == "ffn"
+            and parts[-1] in _INT4_FFN_LEAVES)
+
+
 def _to_device(node: Any, device: torch.device) -> Any:
     if isinstance(node, dict):
         return {k: _to_device(v, device) for k, v in node.items()}
+    move = lambda p: p.to(device) if isinstance(p, torch.Tensor) else p
     if isinstance(node, QTensor):
-        move = lambda p: p.to(device) if isinstance(p, torch.Tensor) else p
         return QTensor(move(node.data), move(node.scale),
                        move(node.zero_point), node.axis)
-    return node.to(device) if isinstance(node, torch.Tensor) else node
+    if isinstance(node, BlockQTensor):
+        return BlockQTensor(move(node.data), move(node.scale),
+                            move(node.vmin), node.group_size, node.k_dim)
+    return move(node)
 
 
 def quantize_model(
@@ -146,15 +182,19 @@ def quantize_model(
     impl: str = "auto",
     *,
     weight_bits: int = 8,
+    weight_group_size: int = 128,
+    weight_scale_dtype: torch.dtype = torch.float16,
     device: str = "cuda",
 ) -> Tuple[Dict[str, Any], QuantContext]:
     """PTQ transform: returns (quantized params on ``device``, QuantContext).
 
-    Only ``weight_bits=8`` is ported; block-wise INT4 weights are not yet.
+    ``weight_bits=4`` drops the INT4-eligible weights (decoder FFN and
+    attention output projections, :func:`int4_eligible_site`) to block-wise
+    INT4 with ``weight_group_size`` rows per scale/min block; every other
+    approved site keeps the paper's per-channel INT8.
     """
-    if weight_bits != 8:
-        raise ValueError(f"the port quantizes weights to 8 bits only, "
-                         f"got weight_bits={weight_bits}")
+    if weight_bits not in (8, 4):
+        raise ValueError(f"weight_bits must be 8 or 4, got {weight_bits}")
     policy = policy or QuantPolicy()
     ctx = QuantContext(policy=policy, calibrations=dict(calibrations or {}),
                        impl=impl)
@@ -166,10 +206,61 @@ def quantize_model(
             out = _to_device(dict(node), device)
             if policy.mode != QuantMode.NONE and policy.should_quantize(
                     site, ctx.lookup(site)):
-                out["w"] = quantize_weight(out["w"])
+                if weight_bits == 4 and int4_eligible_site(site):
+                    out["w"] = quantize_weight_block(
+                        out["w"], group_size=weight_group_size,
+                        scale_dtype=weight_scale_dtype)
+                else:
+                    out["w"] = quantize_weight(out["w"])
             return out
         if isinstance(node, dict):
             return {k: walk(v, path + (str(k),)) for k, v in node.items()}
         return _to_device(node, device)
 
     return walk(params, ()), ctx
+
+
+def count_quantized(params: Dict[str, Any]) -> Dict[str, int]:
+    """Linears and bytes by precision, as the reference counts them."""
+    stats = {"quantized_linears": 0, "fp_linears": 0, "int8_bytes": 0,
+             "fp_bytes": 0, "int4_linears": 0, "int4_bytes": 0}
+
+    def walk(node):
+        if isinstance(node, QTensor):
+            stats["quantized_linears"] += 1
+            stats["int8_bytes"] += node.nbytes()
+        elif isinstance(node, BlockQTensor):
+            stats["quantized_linears"] += 1
+            stats["int4_linears"] += 1
+            stats["int4_bytes"] += node.nbytes()
+        elif isinstance(node, dict):
+            if _is_linear_node(node):
+                stats["fp_linears"] += 1
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, torch.Tensor):
+            stats["fp_bytes"] += node.numel() * node.element_size()
+
+    walk(params)
+    return stats
+
+
+def weight_bytes_by_site(params: Dict[str, Any]) -> Dict[str, int]:
+    """Per-site weight footprint (bytes streamed per decode step): payload
+    plus scale metadata for quantized weights, raw bytes for FP linears."""
+    out: Dict[str, int] = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            if "w" in node and (_is_linear_node(node) or isinstance(
+                    node["w"], (QTensor, BlockQTensor))):
+                w = node["w"]
+                out["/".join(path)] = (w.nbytes() if isinstance(
+                    w, (QTensor, BlockQTensor))
+                    else w.numel() * w.element_size())
+                return
+            for k, v in node.items():
+                walk(v, path + (str(k),))
+
+    walk(params, ())
+    return out

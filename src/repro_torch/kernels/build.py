@@ -26,13 +26,15 @@ from typing import Dict, Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("quantize.cu", "int8_matmul.cu", "decode_attention.cu")
+SOURCES = ("quantize.cu", "int8_matmul.cu", "int4_matmul.cu",
+           "decode_attention.cu")
 # no --use_fast_math: the quantizers need IEEE division and rint
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"quantize_static": 0, "quantize_rowwise": 0,
-                            "int8_matmul": 0, "decode_attention": 0,
+                            "int8_matmul": 0, "int4_matmul": 0,
+                            "decode_attention": 0,
                             "decode_attention_paged": 0}
 
 _P = ctypes.c_void_p
@@ -44,6 +46,8 @@ _SIGNATURES = {
     "repro_quantize_rowwise": [_P, _P, _P, _L, _L, _I, _I, _P],
     "repro_int8_matmul": [_P, _P, _P, _F, _I, _P, _P, _F, _I, _P, _P, _I, _I,
                           _I, _I, _I, _P],
+    "repro_int4_matmul": [_P, _P, _P, _F, _I, _P, _P, _I, _P, _F, _I, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _P],
     "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _F, _I, _I, _P],
     "repro_decode_attention_smem_bytes": [_I, _I],

@@ -20,16 +20,16 @@ OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
-           device: torch.device) -> None:
+           device: torch.device, kernel: str = "int8_matmul") -> None:
     if t.device != device:
-        raise ValueError(f"int8_matmul: {name} is on {t.device}, not {device}")
+        raise ValueError(f"{kernel}: {name} is on {t.device}, not {device}")
     if t.dtype != dtype:
-        raise TypeError(f"int8_matmul: {name} must be {dtype}, got {t.dtype}")
+        raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"int8_matmul: {name} must have shape {tuple(shape)}, "
+        raise ValueError(f"{kernel}: {name} must have shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"int8_matmul: {name} must be contiguous")
+        raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def int8_matmul_cuda(

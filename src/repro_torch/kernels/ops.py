@@ -9,9 +9,10 @@ Every op dispatches on ``impl``:
 * ``"auto"``  — the kernel for CUDA tensors, the plain version for CPU
                 tensors (and only for those).
 
-The wrappers are QTensor-aware and flatten leading batch dimensions, so
-model code stays shape-agnostic.  ``launch_counts()`` reports how many times
-each kernel was launched since ``reset_launch_counts()``.
+The wrappers are QTensor/BlockQTensor-aware and flatten leading batch
+dimensions, so model code stays shape-agnostic.  ``launch_counts()``
+reports how many times each kernel was launched since
+``reset_launch_counts()``.
 """
 
 from __future__ import annotations
@@ -21,12 +22,13 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core.qtensor import QTensor
+from repro_torch.core.qtensor import BlockQTensor, QTensor
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.decode_attention import (
     decode_attention_cuda,
     decode_attention_paged_cuda,
 )
+from repro_torch.kernels.int4_matmul import int4_matmul_cuda
 from repro_torch.kernels.int8_matmul import int8_matmul_cuda
 from repro_torch.kernels.quantize import (
     quantize_rowwise_cuda,
@@ -111,6 +113,42 @@ def int8_matmul(
             b_scale.contiguous(), zp, bias, out_dtype=out_dtype)
     else:
         out = ref.ref_int8_matmul(a2, a_scale, b.data, b_scale, zp, bias,
+                                  out_dtype=out_dtype)
+    return out.reshape(*batch_shape, N)
+
+
+def int4_matmul(
+    a: QTensor,
+    b: BlockQTensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    out_dtype: torch.dtype = torch.float32,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """``dequant(a) @ block_dequant(b) + bias``, dequantized in the kernel.
+
+    ``a``: int8 activations (..., K), scale per row (..., 1) or scalar;
+    ``b``: block-quantized INT4 weights (packed nibbles + group scale/min).
+    """
+    batch_shape = a.data.shape[:-1]
+    K = a.data.shape[-1]
+    if b.data.dim() != 2:
+        raise ValueError(f"int4_matmul wants 2-D weights, got {b.shape}")
+    if K != b.k_dim:
+        raise ValueError(f"K mismatch: activations {K}, weights {b.k_dim}")
+    N = b.data.shape[-1]
+    a2 = a.data.reshape(-1, K)
+    M = a2.shape[0]
+    a_scale = _row_scale(a.scale, M)
+    zp = _fold_zero_point(a.zero_point)
+    if use_kernel(impl, a2):
+        out = int4_matmul_cuda(
+            a2.contiguous(), a_scale, b.data.contiguous(),
+            b.scale.contiguous(), b.vmin.contiguous(), zp, bias,
+            group_size=b.group_size, out_dtype=out_dtype)
+    else:
+        out = ref.ref_int4_matmul(a2, a_scale, b.data, b.scale, b.vmin, zp,
+                                  bias, group_size=b.group_size,
                                   out_dtype=out_dtype)
     return out.reshape(*batch_shape, N)
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's five kernels.
+"""Plain PyTorch versions of the port's six kernels.
 
 Each ``ref_*`` function computes its kernel's result with plain torch ops at
 full (exact integer / float32) precision, mirroring
@@ -15,7 +15,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.core.qtensor import div_exact
+from repro_torch.core.qtensor import div_exact, unpack_nibbles
 
 INT8_MAX = 127.0
 _EPS = 1e-12
@@ -45,6 +45,69 @@ def ref_int8_matmul(
         colsum = b_q.to(torch.int32).sum(dim=0, keepdim=True).to(torch.float32)
         acc = acc - torch.as_tensor(a_zero_point, dtype=torch.float32) * colsum
     out = acc * a_scale * b_scale
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.to(out_dtype)
+
+
+def int4_zp_colsum(b_packed: torch.Tensor, b_scale: torch.Tensor,
+                   b_min: torch.Tensor, *, group_size: int,
+                   k: int) -> torch.Tensor:
+    """(1, N) f32 column sums of the dequantized weights over the logical
+    ``k`` rows: the zero-point correction of asymmetric activations."""
+    nib = unpack_nibbles(b_packed).to(torch.float32)
+    deq = (nib * b_scale.to(torch.float32).repeat_interleave(group_size, 0)
+           + b_min.to(torch.float32).repeat_interleave(group_size, 0))
+    return deq[:k].sum(dim=0, keepdim=True)
+
+
+def ref_int4_matmul(
+    a_q: torch.Tensor,             # (M, K) int8 activations
+    a_scale: Scale,                # (M, 1) / (1, 1) f32 or a float
+    b_packed: torch.Tensor,        # (K_store//2, N) int8 packed nibbles
+    b_scale: torch.Tensor,         # (n_groups, N) f16/f32 block scales
+    b_min: torch.Tensor,           # (n_groups, N) f16/f32 block minimums
+    a_zero_point: Optional[Scale] = None,   # scalar (q-space offset)
+    bias: Optional[torch.Tensor] = None,    # (N,) f32
+    *,
+    group_size: int,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Group-wise INT4-weight matmul (``repro/kernels/ref.py:69``).
+
+        real(b)[k, n] = nib[k, n] * scale[k // G, n] + vmin[k // G, n]
+        a @ b = a_scale * [ Σ_g (scale_g · (a_q @ nib)_g + vmin_g · rowsum_g)
+                            - zp · colsum(real(b)) ] + bias
+
+    Each group's dot and row sum are exact (float64 holds every partial sum
+    of int8 × nibble products exactly); the f32 combination runs in
+    ascending groups with the reference's op sequence, one rounded op at a
+    time.  Activations past ``K`` (up to the stored ``n_groups · G`` rows)
+    count as zero, and the zero-point column sum runs over the logical
+    ``K`` rows of the dequantized weights only.
+    """
+    M, K = a_q.shape
+    n_g = b_scale.shape[0]
+    G = group_size
+    k_store = n_g * G
+    N = b_packed.shape[1]
+    nib = unpack_nibbles(b_packed)                          # (k_store, N)
+    a_p = torch.nn.functional.pad(a_q, (0, k_store - K)) if k_store > K \
+        else a_q
+    a_g = a_p.reshape(M, n_g, G)
+    d = torch.matmul(a_g.transpose(0, 1).to(torch.float64),
+                     nib.reshape(n_g, G, N).to(torch.float64))  # (n_g, M, N)
+    d = d.to(torch.float32)
+    rsum = a_g.to(torch.int32).sum(dim=-1).to(torch.float32)    # (M, n_g)
+    sc = b_scale.to(torch.float32)
+    mn = b_min.to(torch.float32)
+    acc = torch.zeros((M, N), dtype=torch.float32, device=a_q.device)
+    for g in range(n_g):
+        acc = acc + (d[g] * sc[g][None, :] + rsum[:, g:g + 1] * mn[g][None, :])
+    if a_zero_point is not None:
+        colsum = int4_zp_colsum(b_packed, b_scale, b_min, group_size=G, k=K)
+        acc = acc - torch.as_tensor(a_zero_point, dtype=torch.float32) * colsum
+    out = acc * a_scale
     if bias is not None:
         out = out + bias.to(torch.float32)
     return out.to(out_dtype)

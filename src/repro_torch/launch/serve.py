@@ -15,6 +15,9 @@ per-request first-token / total latency and decode-grid utilization.
 ``--paged`` backs the KV cache with pages and block tables, and admission
 is paced by the page pool (``--n-pages``).  Admissions ride the burst by
 default; ``--unfused-admission`` runs them as separate prefills.
+``--weight-bits 4`` drops the decoder FFN and attention output projections
+to block-wise INT4 weights (``--weight-group-size`` rows per scale/min
+block).
 
 The model runs on ``--device`` (``cuda`` unless the caller asks for the
 CPU), with random weights from ``torch.Generator`` seed 0.  Flags of
@@ -39,6 +42,7 @@ from repro_torch.core import (
     QuantMode,
     QuantPolicy,
     Taps,
+    count_quantized,
     quantize_model,
 )
 from repro_torch.data import make_corpus, pack_batches_token_budget
@@ -96,6 +100,16 @@ def _parser() -> argparse.ArgumentParser:
                     help="per-request deadline on the serve clock (--mode "
                          "continuous): the wait queue runs EDF-with-aging "
                          "and unmeetable requests are shed")
+    ap.add_argument("--weight-bits", type=int, default=8, choices=(8, 4),
+                    help="weight payload precision: 8 = the paper's "
+                         "per-channel INT8 everywhere; 4 = decoder FFN and "
+                         "attention output projections drop to block-wise "
+                         "INT4 (packed nibbles + group scale/min, dequantized "
+                         "in the matmul kernel) while activations, attention "
+                         "score paths and the KV cache stay INT8")
+    ap.add_argument("--weight-group-size", type=int, default=128,
+                    help="rows per INT4 scale/min block along d_in "
+                         "(--weight-bits 4)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the model and the engine")
     # flags of features that are not ported yet (they exit with a message)
@@ -106,8 +120,6 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--chaos-seed", type=int, default=None)
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--replicas", type=int, default=1)
-    ap.add_argument("--weight-bits", type=int, default=8, choices=(8, 4))
-    ap.add_argument("--weight-group-size", type=int, default=None)
     return ap
 
 
@@ -130,17 +142,16 @@ def _refuse_unported(args) -> None:
          "Queue 1, item 10"),
         (args.replicas > 1, "--replicas: the replica router",
          "Queue 1, item 10"),
-        (args.weight_bits == 4 or args.weight_group_size is not None,
-         "--weight-bits 4: INT4 weights", "Queue 1, item 9"),
     ]
     for asked, what, item in unported:
         if asked:
             raise SystemExit(f"{what} is not ported yet (ROADMAP {item})")
 
 
-def _calibrate(model, params, sentences, mode: str, device):
+def _calibrate(model, params, sentences, mode: str, device, weight_bits: int,
+               group_size: int):
     """KL-calibrate the activation thresholds on ``sentences`` and quantize
-    (INT8 weights, static activation scales)."""
+    (INT8 weights, or INT4 where eligible; static activation scales)."""
     cal = Calibrator()
     for s in sentences:
         taps = Taps()
@@ -152,10 +163,16 @@ def _calibrate(model, params, sentences, mode: str, device):
     recs = cal.compute(mode)
     params, qctx = quantize_model(
         params, recs, QuantPolicy(mode=QuantMode(mode), act_quant="static"),
+        weight_bits=weight_bits, weight_group_size=group_size,
         device=str(device))
     print(f"quantized with mode={mode}: "
           f"{sum(r.quantize for r in recs.values())}/{len(recs)} "
           "calibrated sites quantizable")
+    if weight_bits == 4:
+        stats = count_quantized(params)
+        print(f"INT4 weights: {stats['int4_linears']} decoder linears, "
+              f"{stats['int4_bytes']} bytes (group_size={group_size}); "
+              f"INT8 elsewhere: {stats['int8_bytes']} bytes")
     return params, qctx
 
 
@@ -255,7 +272,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.quant != "none":
         params, qctx = _calibrate(
             model, params, corpus[args.requests:args.requests + 32],
-            args.quant, device)
+            args.quant, device, args.weight_bits, args.weight_group_size)
 
     if args.mode == "continuous":
         _serve_continuous(args, model, params, qctx, requests)

@@ -1,12 +1,12 @@
 """Shared model layers.  ``dense`` is the quantization integration point.
 
-Port of ``repro/models/layers.py`` (the INT8 path and layernorm; INT4
-weights, RMSNorm and rotary embeddings are not ported yet).  Conventions
+Port of ``repro/models/layers.py`` (the INT8 and INT4-weight paths and
+layernorm; RMSNorm and rotary embeddings are not ported yet).  Conventions
 are the reference's:
 
 * every linear is a dict node ``{"w": (d_in, d_out)[, "b": (d_out,)]}``;
 * quantized weights are :class:`QTensor` with keepdims per-output-channel
-  scales ``(1, d_out)``;
+  scales ``(1, d_out)``, or block-wise INT4 :class:`BlockQTensor`;
 * each linear has a *site* name (its parameter path); calibration taps
   record the matmul input under that name and the QuantContext resolves
   activation thresholds and policy by it.
@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.core.calibration import Taps, record
 from repro_torch.core.ptq import FP_CONTEXT, QuantContext
-from repro_torch.core.qtensor import QTensor
+from repro_torch.core.qtensor import BlockQTensor, QTensor
 from repro_torch.core.quantize import quantize_with_thresholds
 from repro_torch.kernels import ops
 
@@ -67,17 +67,19 @@ def dense(
     taps: Optional[Taps] = None,
 ) -> torch.Tensor:
     """Linear layer: a float matmul, or the paper's INT8 path when ``w`` is a
-    QTensor.
+    QTensor or a BlockQTensor.
 
     INT8 path: the activation is quantized with the calibrated static
     threshold (K1) or dynamically per row (K2), then the matmul runs
-    s8·s8→s32 with the dequantize epilogue fused (K3).
+    s8·s8→s32 with the dequantize epilogue fused (K3).  A BlockQTensor
+    weight keeps the INT8 activation and runs the INT4-weight matmul with
+    the nibbles dequantized in the kernel (K6).
     """
     w = node["w"]
     b = node.get("b")
     record(taps, site, x)
 
-    if isinstance(w, QTensor):
+    if isinstance(w, (QTensor, BlockQTensor)):
         thr = quant.activation_thresholds(site)
         if thr is None:
             xq = ops.quantize_rowwise(x, impl=quant.impl)
@@ -88,6 +90,9 @@ def dense(
             # zero-point correction folds into the matmul epilogue
             xq = quantize_with_thresholds(x, thr)
         bias = None if b is None else b.to(torch.float32)
+        if isinstance(w, BlockQTensor):
+            return ops.int4_matmul(xq, w, bias, out_dtype=x.dtype,
+                                   impl=quant.impl)
         N = w.data.shape[-1]
         w2 = QTensor(w.data, w.scale.reshape(1, N), 0.0, None)
         return ops.int8_matmul(xq, w2, bias, out_dtype=x.dtype,

@@ -12,11 +12,14 @@ GatherNd the paper quantized in §5.3); with an INT8 cache the reorder moves
 Decode runs in bursts of up to ``burst_len`` steps: the token of each step
 goes into a ``(rows, burst_len)`` ring buffer on the device, and the host
 drains the buffer once per burst.  PyTorch runs eagerly, so the loop itself
-is on the host: before each step after the first of a burst it reads one
-device flag (is any row still active?), which is how a burst stops early
-once every row has finished, as the reference's ``lax.while_loop`` does.
-``host_syncs`` counts every device→host read: the drains and those flags
-(so it is not the reference's count, which has no per-step flag).
+is on the host, and it reads nothing from the device inside a burst.  The
+reference's ``lax.while_loop`` stops once no row is active; here the burst
+runs all its steps (at most the largest budget left, which no row can
+outlive), rows that have finished only write EOS, and the device counts
+the steps at whose start a row was still active.  That count is drained
+with the buffer in the same transfer, so ``steps``/``decode_steps`` and
+``host_syncs`` (one device→host transfer per burst, plus the first tokens)
+equal the reference's.
 
 ``serve`` keeps ``n_slots`` decode rows busy: a finished request's row is
 refilled from the waiting queue at the next burst edge.  With fused
@@ -61,7 +64,7 @@ class GenerationResult:
     steps: int
     prefill_s: float
     decode_s: float
-    host_syncs: int = 0               # device→host reads (drains + flags)
+    host_syncs: int = 0               # device→host transfers (drains)
 
     @property
     def total_s(self) -> float:
@@ -92,7 +95,7 @@ class ServeResult:
     busy_slot_steps: int              # Σ over steps of occupied rows
     prefill_rounds: int               # admission rounds (fused or not)
     wall_s: float
-    host_syncs: int = 0               # device→host reads (drains + flags)
+    host_syncs: int = 0               # device→host transfers (drains)
     burst_len: int = 1
     prefill_dispatches: int = 0       # separate prefill runs (0 when fused)
     encoder_tokens: int = 0           # encoder row-tokens of admissions
@@ -259,34 +262,49 @@ class ServingEngine:
         return grid[best, :lengths[best]], float(final[best])
 
     # ---------------------------------------------------------------- bursts
+    @staticmethod
+    def _drain(*parts: torch.Tensor) -> List[np.ndarray]:
+        """Copy several device tensors to the host in one transfer.
+
+        Integer and bool tensors travel as int32, float32 ones by their bit
+        pattern; each comes back as a numpy array of its own shape (bool as
+        int32, float32 as float32).
+        """
+        flat = [p.reshape(-1).view(torch.int32) if p.dtype == torch.float32
+                else p.reshape(-1).to(torch.int32) for p in parts]
+        host = torch.cat(flat).cpu().numpy()
+        out, i = [], 0
+        for p in parts:
+            a = host[i:i + p.numel()].reshape(tuple(p.shape))
+            out.append(a.view(np.float32) if p.dtype == torch.float32 else a)
+            i += p.numel()
+        return out
+
     def _greedy_burst(self, tokens, remaining, steps_cap: int, state):
-        """Up to ``steps_cap`` greedy decode steps (``engine.py:1083-1125``).
+        """``steps_cap`` greedy decode steps (``engine.py:1083-1125``).
 
         A row is active while ``remaining > 0``; emitting EOS or exhausting
         the budget zeroes it.  Inactive rows keep stepping, their outputs
-        masked to EOS.  Returns ``(tokens, remaining, state, buf, steps,
-        flag_reads)``.
+        masked to EOS.  Returns ``(tokens, remaining, state, buf, live)``:
+        ``live`` (a device scalar) counts the steps at whose start a row
+        was active, the reference's ``while_loop`` trip count.
         """
         model, quant, eos = self.model, self.quant, self.eos_id
         buf = torch.full((tokens.shape[0], steps_cap), eos, dtype=torch.int32,
                          device=self.device)
-        step = reads = 0
-        while step < steps_cap:
-            if step:                      # step 0 runs: the host knows a row is live
-                reads += 1
-                if not bool((remaining > 0).any()):
-                    break
+        live = torch.zeros((), dtype=torch.int32, device=self.device)
+        for step in range(steps_cap):
+            active = remaining > 0
+            live = live + active.any()
             logits, state = model.decode_step(self.params, tokens, state,
                                               quant=quant)
-            active = remaining > 0
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             nxt = torch.where(active, nxt, eos)
             buf[:, step] = nxt
             remaining = torch.where(active & (nxt != eos), remaining - 1,
                                     torch.zeros_like(remaining))
             tokens = nxt
-            step += 1
-        return tokens, remaining, state, buf, step, reads
+        return tokens, remaining, state, buf, live
 
     def _beam_step(self, beam: int, tokens, scores, finished, comp, state,
                    buf, step: int):
@@ -320,27 +338,26 @@ class ServingEngine:
 
     def _beam_burst(self, beam: int, tokens, scores, finished, steps_cap: int,
                     state):
-        """Up to ``steps_cap`` beam steps (``engine.py:1363-1401``).
+        """``steps_cap`` beam steps (``engine.py:1363-1401``).
 
         Carries ``comp``, the composition of this burst's beam permutations,
         so the host reorders its token history once per burst; the ring
         buffer is reordered alongside the state, so at exit it is already in
-        final beam order.
+        final beam order.  Once every beam has finished a step changes
+        nothing the host reads: each beam extends with EOS at no cost and
+        top-k keeps the beams in place.  ``live`` (a device scalar) counts
+        the steps at whose start a beam was unfinished.
         """
         BB = tokens.shape[0]
         buf = torch.full((BB, steps_cap), self.eos_id, dtype=torch.int32,
                          device=self.device)
         comp = torch.arange(BB, device=self.device)
-        step = reads = 0
-        while step < steps_cap:
-            if step:
-                reads += 1
-                if bool(finished.all()):
-                    break
+        live = torch.zeros((), dtype=torch.int32, device=self.device)
+        for step in range(steps_cap):
+            live = live + (~finished).any()
             tokens, scores, finished, comp, state, buf = self._beam_step(
                 beam, tokens, scores, finished, comp, state, buf, step)
-            step += 1
-        return tokens, scores, finished, comp, state, buf, step, reads
+        return tokens, scores, finished, comp, state, buf, live
 
     # ---------------------------------------------------------------- greedy
     def generate(self, batch: Dict[str, np.ndarray], *,
@@ -359,7 +376,7 @@ class ServingEngine:
         t1 = time.perf_counter()
 
         tokens = torch.argmax(logits, dim=-1).to(torch.int32)
-        first = tokens.cpu().numpy()
+        first, = self._drain(tokens)
         host_syncs = 1
         cols = [first]
         remaining_np = np.where(first == self.eos_id, 0,
@@ -367,13 +384,12 @@ class ServingEngine:
         remaining = torch.as_tensor(remaining_np, device=self.device)
         steps = 1
         while remaining_np.any():
-            tokens, remaining, state, buf, s, reads = self._greedy_burst(
-                tokens, remaining, K, state)
-            buf_host = buf.cpu().numpy()           # one drain per burst
-            remaining_np = remaining.cpu().numpy()
-            host_syncs += 1 + reads
-            cols.extend(buf_host[:, i] for i in range(s))
-            steps += s
+            tokens, remaining, state, buf, live = self._greedy_burst(
+                tokens, remaining, min(K, int(remaining_np.max())), state)
+            buf_host, remaining_np, s = self._drain(buf, remaining, live)
+            host_syncs += 1                        # one drain per burst
+            cols.extend(buf_host[:, i] for i in range(int(s)))
+            steps += int(s)
         t2 = time.perf_counter()
 
         grid = np.stack(cols, axis=1)                       # (B, T)
@@ -411,26 +427,26 @@ class ServingEngine:
         scores, tok0 = top_k(first, beam)
         scores = scores.reshape(BB)
         tokens = tok0.reshape(BB).to(torch.int32)
-        seq = [tokens.cpu().numpy()]
+        first, scores_host = self._drain(tokens, scores)
+        seq = [first]
+        host_syncs = 1
         finished = tokens == self.eos_id
-        all_done = bool(finished.all())
-        host_syncs = 2
+        all_done = bool((first == self.eos_id).all())
 
         steps_left = max_new_tokens - 1
         while steps_left > 0 and not all_done:
-            tokens, scores, finished, comp, state, buf, s, reads = \
+            tokens, scores, finished, comp, state, buf, live = \
                 self._beam_burst(beam, tokens, scores, finished,
                                  min(K, steps_left), state)
-            comp_host = comp.cpu().numpy()
-            buf_host = buf.cpu().numpy()
-            all_done = bool(finished.all())
-            host_syncs += 3 + reads
+            comp_host, buf_host, fin_host, scores_host, s = self._drain(
+                comp, buf, finished, scores, live)
+            s = int(s)
+            all_done = bool(fin_host.all())
+            host_syncs += 1                        # one drain per burst
             # replay the burst's composed reorder over the host history
             seq = [c[comp_host] for c in seq]
             seq.extend(buf_host[:, i] for i in range(s))
             steps_left -= s
-        scores_host = scores.to(torch.float32).cpu().numpy()
-        host_syncs += 1
         t2 = time.perf_counter()
 
         grid = np.stack(seq, axis=1)                          # (BB, T)
@@ -737,10 +753,11 @@ class ServingEngine:
                 state, tokens = self._admission_prologue(
                     state, tokens, remaining_dev > 0, plan.src_tokens,
                     plan.src_lengths, plan.base_rows, pages)
-            tokens, _, state, buf, steps, reads = self._greedy_burst(
-                tokens, remaining_dev, K, state)
-            buf_host = buf[:, :steps].cpu().numpy()   # one drain per burst
-            host_syncs += 1 + reads
+            tokens, _, state, buf, live = self._greedy_burst(
+                tokens, remaining_dev, min(K, int(remaining.max())), state)
+            buf_host, steps = self._drain(buf, live)
+            steps = int(steps)
+            host_syncs += 1                           # one drain per burst
             step_base = decode_steps
             decode_steps += steps
 

@@ -20,6 +20,8 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_cuda,
     decode_attention_paged_cuda,
 )
+from repro_torch.core import quantize_block
+from repro_torch.kernels.int4_matmul import int4_matmul_cuda
 from repro_torch.kernels.int8_matmul import int8_matmul_cuda
 from repro_torch.kernels.quantize import (
     quantize_rowwise_cuda,
@@ -67,6 +69,36 @@ def test_int8_matmul_exact(gen, M, K, N):
         got = int8_matmul_cuda(a, a_s, b, b_s, zp, bias)
         want = ref.ref_int8_matmul(a, a_s, b, b_s, zp, bias)
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,G", [(16, 512, 512, 128), (64, 512, 2048, 128),
+                                     (16, 2048, 512, 128), (64, 512, 512, 32),
+                                     (5, 200, 72, 32), (3, 128, 130, 128),
+                                     (7, 90, 40, 6)])
+def test_int4_matmul_equals_plain(gen, out_dtype, M, K, N, G):
+    """K6 against ``ref_int4_matmul``: the slice's shapes at G = 128, G = 32,
+    a padded K (200 in 7 groups of 32; 90 in 15 groups of 6, whose steps
+    are not whole dp4a words), one group (K = G = 128), per-row and scalar
+    activation scales, bias and a zero point.  f32 equal; bf16 within one
+    bf16 ulp (the f32 values are equal, so only the rounding can differ)."""
+    w = torch.randn((K, N), generator=gen, device="cuda") * 0.05
+    bq = quantize_block(w, G)
+    a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    a_s = torch.rand((M, 1), generator=gen, device="cuda") * 0.02
+    bias = torch.randn((N,), generator=gen, device="cuda")
+    for scale, zp, b in ((a_s, None, bias), (0.01, 3.0, None),
+                         (a_s, -2.0, bias)):
+        got = int4_matmul_cuda(a, scale, bq.data, bq.scale, bq.vmin, zp, b,
+                               group_size=G, out_dtype=out_dtype).float()
+        want = ref.ref_int4_matmul(a, scale, bq.data, bq.scale, bq.vmin, zp,
+                                   b, group_size=G,
+                                   out_dtype=out_dtype).float()
+        if out_dtype == torch.float32:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, atol=0, rtol=2.0 ** -7)
 
 
 @pytest.mark.parametrize("H,HKV", [(8, 8), (8, 2)])
@@ -169,5 +201,9 @@ def test_engine_runs_through_every_kernel(gen):
         batch, max_new_tokens=4)
     ServingEngine(model, qp, quant=ctx, max_len=32, paged=True,
                   page_size=8).serve(corpus, n_slots=2, max_new_tokens=4)
+    qp, ctx = quantize_model(params, {}, QuantPolicy(act_quant="dynamic"),
+                             weight_bits=4)
+    ServingEngine(model, qp, quant=ctx, max_len=32).generate(
+        batch, max_new_tokens=4)
     assert all(n > 0 for n in ops.launch_counts().values()), \
         ops.launch_counts()

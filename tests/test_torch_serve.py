@@ -6,10 +6,11 @@ The trained weights and the reference's KL calibration are carried into the
 port (``checkpoint/bridge.py``).  24 requests with skewed budgets (half of
 them 0–3 tokens, half 10–16) go through 6 decode slots, for FP and INT8
 static × contiguous and paged cache × fused and unfused admission × burst
-lengths 1 and 8, and through a tight page pool.  The port's tokens must be
-the reference's, and so must its step, round, encoder-token and page
-counters.  ``host_syncs`` is not compared: the port reads a device flag per
-decode step that the reference's ``lax.while_loop`` does not.
+lengths 1 and 8, and through a tight page pool; with INT4 weights (the
+reference's own, carried across with their group size) over the
+contiguous and the paged cache.  The port's tokens must be the
+reference's, and so must its step, round, encoder-token, page and
+host-sync counters.
 """
 
 import numpy as np
@@ -22,11 +23,17 @@ from repro.core import quantize_model as jquantize_model
 from repro.models import kv_cache as jkv
 
 from repro_torch.checkpoint.bridge import (
+    block_meta_of,
     calibrations_from_reference,
     params_from_flat,
 )
 from repro_torch.configs import get_config
-from repro_torch.core import FP_CONTEXT, QuantPolicy, quantize_model
+from repro_torch.core import (
+    FP_CONTEXT,
+    QuantContext,
+    QuantPolicy,
+    quantize_model,
+)
 from repro_torch.data import make_corpus
 from repro_torch.launch import serve as serve_driver
 from repro_torch.models import EncDecLM
@@ -48,7 +55,7 @@ NMT = dict(vocab=64, d_model=128, n_layers=2, n_enc_layers=2, d_ff=256,
            n_heads=4, n_kv_heads=4, head_dim=32)
 COUNTERS = ("decode_steps", "busy_slot_steps", "prefill_rounds",
             "prefill_dispatches", "encoder_tokens", "page_hwm",
-            "pages_in_use", "peak_running")
+            "pages_in_use", "peak_running", "host_syncs")
 
 
 def _budgets():
@@ -68,15 +75,24 @@ def served(trained_nmt):
     ref_params = {
         "fp": (jparams, JFP_CONTEXT),
         "int8_static": jquantize_model(jparams, jcalibs,
-                                       JQuantPolicy(act_quant="static"))}
+                                       JQuantPolicy(act_quant="static")),
+        "int4_static": jquantize_model(jparams, jcalibs,
+                                       JQuantPolicy(act_quant="static"),
+                                       weight_bits=4)}
     model = EncDecLM(get_config("transformer-base").reduced(**NMT),
                      device="cpu")
     fp = params_from_flat(_flatten_with_paths(jparams), device="cpu")
+    calibs = calibrations_from_reference(jcalibs)
+    jq4 = ref_params["int4_static"][0]
     port_params = {
         "fp": (fp, FP_CONTEXT),
         "int8_static": quantize_model(
-            fp, calibrations_from_reference(jcalibs),
-            QuantPolicy(act_quant="static"), device="cpu")}
+            fp, calibs, QuantPolicy(act_quant="static"), device="cpu"),
+        "int4_static": (
+            params_from_flat(_flatten_with_paths(jq4), device="cpu",
+                             block_meta=block_meta_of(jq4)),
+            QuantContext(policy=QuantPolicy(act_quant="static"),
+                         calibrations=dict(calibs)))}
     requests = corpus[:N_REQ]
     budgets = _budgets()
     engines, done = {}, {}
@@ -124,6 +140,17 @@ def test_serve_matches_reference_engine(served, mode, paged, fused, burst):
     assert got["pages_in_use"] == 0
     if paged:
         assert 0 < got["page_hwm"] <= N_SLOTS * MAX_LEN // PAGE
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_int4_serve_matches_reference_engine(served, paged):
+    """INT4 weights with static activation scales, fused admission, burst
+    8: the reference's tokens and counters, contiguous and paged."""
+    got_tokens, got = served("port", "int4_static", paged, True, 8)
+    want_tokens, want = served("ref", "int4_static", paged, True, 8)
+    assert got_tokens == want_tokens
+    assert got == want
+    assert got["pages_in_use"] == 0
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -265,6 +292,9 @@ def test_unported_serve_options_raise(kw):
      "--batch-size", "4", "--max-new-tokens", "5", "--quant", "none"],
     ["--mode", "static", "--streams", "1", "--requests", "4", "--beam", "2",
      "--max-new-tokens", "4", "--quant", "none"],
+    ["--weight-bits", "4", "--mode", "continuous", "--paged", "--requests",
+     "6", "--slots", "3", "--max-new-tokens", "4", "--weight-group-size",
+     "64"],
 ])
 def test_serve_driver_runs_on_cpu(argv, capsys):
     serve_driver.main(["--device", "cpu", *argv])
@@ -273,10 +303,14 @@ def test_serve_driver_runs_on_cpu(argv, capsys):
     assert f"served {n} requests" in out
     if "--paged" in argv:
         assert "0 leaked" in out
+    if "--weight-bits" in argv:
+        # the reduced transformer-base: 2 decoder layers × 4 INT4 linears
+        assert "INT4 weights: 8 decoder linears" in out
+        assert "(group_size=64)" in out
 
 
 @pytest.mark.parametrize("flag", [["--prefix-cache"], ["--overcommit", "2"],
-                                  ["--mesh", "1,2"], ["--weight-bits", "4"],
+                                  ["--mesh", "1,2"],
                                   ["--mode", "continuous", "--beam", "4"]])
 def test_serve_driver_refuses_unported_flags(flag):
     with pytest.raises(SystemExit, match="ROADMAP"):
