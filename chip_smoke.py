@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's INT8 and INT4-weight translation and serving
-paths on one NVIDIA GPU.
+paths, and its decoder-only MoE generation, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,12 +9,15 @@ final line):
 
 1. card   — name and power limit from ``nvidia-smi``; no CUDA → exit 1;
 2. build  — compile the CUDA kernels from ``src/repro_torch/csrc``;
-3. kernels vs plain — each of the six kernels at its path's shapes against
-   its plain PyTorch version on the card, with its time, the plain
+3. kernels vs plain — each of the seven kernels at its paths' shapes
+   against its plain PyTorch version on the card, with its time, the plain
    version's, a library call's where one computes the same function, and
-   its bound; K5 (paged decode attention) also against K4 on the
-   linearized cache, bit for bit; K6 (the INT4-weight matmul) beside K3's
-   time at the same shape;
+   its bound; K1-K4 at the enc-dec and the MoE shapes (K4 with 16 heads
+   over 8 KV heads for the MoE model); K5 (paged decode attention) also
+   against K4 on the linearized cache, bit for bit; K6 (the INT4-weight
+   matmul) beside K3's time at the same shape; K7 (the grouped expert
+   GEMM) bit for bit at the rows per expert of every MoE forward pass
+   (greedy and beam-4 decode and prefill), f32 and bf16;
 4. end to end — transformer-base at full width (bf16 activations, float32
    weights from ``torch.Generator`` seed 0): after a two-token warm-up,
    KL-calibrate, quantize to INT8, greedy ``generate`` and beam-4
@@ -34,11 +37,21 @@ final line):
    paged ``serve`` of the 48 requests; K6 must launch and its plain version
    run 0 times, and the first decode steps' logits with the kernels must
    match those with ``impl="torch"``;
-7. the serving driver ``python -m repro_torch.launch.serve`` once per mode
+7. the decoder-only MoE family — granite-moe-1b-a400m at its published
+   widths and depth (24 layers, 32 experts top-8; random weights from
+   ``torch.Generator`` seed 0, bf16 activations) on 16 right-padded
+   prompts: INT8 greedy and beam-4 ``generate`` with dynamic activation
+   scales, and greedy with static scales after KL calibration on 16
+   held-out prompts.  K7 (the grouped expert GEMM) must launch three times
+   a layer in every forward pass and its plain version never; then the
+   first decode steps' logits against ``impl="torch"``, with dynamic and
+   with static scales, and a profiled greedy run (busy time, idle share,
+   K7's share);
+8. the serving driver ``python -m repro_torch.launch.serve`` once per mode
    (continuous paged, static, continuous paged with ``--weight-bits 4``),
    each a subprocess that must exit 0;
-8. launch counts of each path, and one JSON line describing each kernel;
-9. last line: ``{"ok": true, "device": {...}}``.
+9. launch counts of each path, and one JSON line describing each kernel;
+10. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package.
 """
@@ -47,6 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -73,6 +87,10 @@ SERVE_BURST = 8
 PAGE = 16                      # tokens per KV page (max_len 64: 4 pages/row)
 TIGHT_PAGES = 32               # half of the contiguous-equivalent 64
 INT4_GROUP = 128               # rows per INT4 scale/min block
+
+MOE_ARCH = "granite-moe-1b-a400m"
+# the longest prompt (46 tokens) plus 24 new tokens must fit the cache
+MOE_MAX_LEN = 80
 
 
 T_START = time.perf_counter()
@@ -143,14 +161,27 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float):
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def check_kernels(s_enc: int):
+def moe_expert_rows(cfg, tokens: int) -> int:
+    """K7's rows per expert for a forward pass over ``tokens`` tokens: the
+    groups times the per-group capacity (``models/moe.py:moe_ffn``)."""
+    m = cfg.moe
+    g = min(m.group_size, tokens)
+    c = max(math.ceil(g * m.top_k / m.n_experts * m.capacity_factor), 4)
+    return -(-tokens // g) * c
+
+
+def check_kernels(s_enc: int, s_moe: int, moe_cfg):
+    """Each kernel against its plain version at the shapes the enc-dec
+    path (sources padded to ``s_enc``) and the MoE path (prompts padded to
+    ``s_moe``, ``moe_cfg``) give it."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import (
         decode_attention_cuda, decode_attention_paged_cuda)
     from repro_torch.core import quantize_block
     from repro_torch.kernels.int4_matmul import int4_matmul_cuda
-    from repro_torch.kernels.int8_matmul import int8_matmul_cuda
+    from repro_torch.kernels.int8_matmul import (int8_matmul_batched_cuda,
+                                                 int8_matmul_cuda)
     from repro_torch.kernels.quantize import (quantize_rowwise_cuda,
                                               quantize_static_cuda)
     from repro_torch.models.kv_cache import linearize_pages
@@ -169,81 +200,133 @@ def check_kernels(s_enc: int):
                     library_ms=library_ms)
 
     rows_m = (N_REQUESTS, N_REQUESTS * BEAM, N_REQUESTS * s_enc)
+    # the MoE path's rows: greedy and beam-4 decode steps and prefills
+    moe_m = (N_REQUESTS, N_REQUESTS * BEAM, N_REQUESTS * s_moe,
+             N_REQUESTS * BEAM * s_moe)
+    d_moe = moe_cfg.d_model
+    d_kv = moe_cfg.n_kv_heads * moe_cfg.hd
 
-    # K1 / K2: exact int8 codes (and bit-equal K2 scales)
-    for M in rows_m:
-        for K in (512, 2048):
-            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
-            amax = float(x.float().abs().max()) * 0.7
-            q = quantize_static_cuda(x, amax)
-            err = (q.int() - ref.ref_quantize_static(x, amax).int()).abs().max()
-            if err:
-                raise AssertionError(f"quantize_static codes differ at "
-                                     f"{(M, K)}: {int(err)}")
-            b, o = bound(M * K * 3, M * K * 4, F32_FLOPS_PER_S)
-            results.setdefault("quantize_static", []).append(row(
-                "quantize_static", [M, K], float(err),
-                time_ms(lambda: quantize_static_cuda(x, amax)),
-                time_ms(lambda: ref.ref_quantize_static(x, amax)), b, o, None))
+    # K1 / K2: exact int8 codes (and bit-equal K2 scales); the MoE path
+    # quantizes d_model-wide rows in front of q/k/v and o
+    for M, K in ([(M, K) for M in rows_m for K in (512, 2048)]
+                 + [(M, d_moe) for M in moe_m]):
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        amax = float(x.float().abs().max()) * 0.7
+        q = quantize_static_cuda(x, amax)
+        err = (q.int() - ref.ref_quantize_static(x, amax).int()).abs().max()
+        if err:
+            raise AssertionError(f"quantize_static codes differ at "
+                                 f"{(M, K)}: {int(err)}")
+        b, o = bound(M * K * 3, M * K * 4, F32_FLOPS_PER_S)
+        results.setdefault("quantize_static", []).append(row(
+            "quantize_static", [M, K], float(err),
+            time_ms(lambda: quantize_static_cuda(x, amax)),
+            time_ms(lambda: ref.ref_quantize_static(x, amax)), b, o, None))
 
-            q, sc = quantize_rowwise_cuda(x)
-            rq, rsc = ref.ref_quantize_rowwise(x)
-            err = max(float((q.int() - rq.int()).abs().max()),
-                      float((sc - rsc).abs().max()))
-            if err:
-                raise AssertionError(f"quantize_rowwise differs at {(M, K)}: "
-                                     f"{err}")
-            b, o = bound(M * K * 3 + M * 4, M * K * 5, F32_FLOPS_PER_S)
-            results.setdefault("quantize_rowwise", []).append(row(
-                "quantize_rowwise", [M, K], err,
-                time_ms(lambda: quantize_rowwise_cuda(x)),
-                time_ms(lambda: ref.ref_quantize_rowwise(x)), b, o, None))
+        q, sc = quantize_rowwise_cuda(x)
+        rq, rsc = ref.ref_quantize_rowwise(x)
+        err = max(float((q.int() - rq.int()).abs().max()),
+                  float((sc - rsc).abs().max()))
+        if err:
+            raise AssertionError(f"quantize_rowwise differs at {(M, K)}: "
+                                 f"{err}")
+        b, o = bound(M * K * 3 + M * 4, M * K * 5, F32_FLOPS_PER_S)
+        results.setdefault("quantize_rowwise", []).append(row(
+            "quantize_rowwise", [M, K], err,
+            time_ms(lambda: quantize_rowwise_cuda(x)),
+            time_ms(lambda: ref.ref_quantize_rowwise(x)), b, o, None))
 
-    # K3: exact s32 accumulator; epilogue in the reference's op order
-    for M in rows_m:
-        for K, N in ((512, 512), (512, 2048), (2048, 512)):
-            a = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
-                              dtype=torch.int8)
-            w = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
-                              dtype=torch.int8)
-            a_scale = torch.rand((M, 1), generator=gen, device=dev) * 0.02
-            b_scale = torch.rand((1, N), generator=gen, device=dev) * 0.02
-            bias = torch.randn((N,), generator=gen, device=dev)
-            ones_a = torch.ones((1, 1), device=dev)
-            ones_b = torch.ones((1, N), device=dev)
-            acc = int8_matmul_cuda(a, ones_a, w, ones_b)
-            exact = torch.matmul(a.double(), w.double())
-            if not torch.equal(acc.double(), exact.float().double()):
-                raise AssertionError(f"int8_matmul accumulator differs at "
-                                     f"{(M, K, N)}")
-            f32 = int8_matmul_cuda(a, a_scale, w, b_scale, None, bias)
-            f32_ref = ref.ref_int8_matmul(a, a_scale, w, b_scale, None, bias)
-            rel = float(((f32 - f32_ref).abs()
-                         / f32_ref.abs().clamp_min(1e-30)).max())
-            if rel > 1e-6:
-                raise AssertionError(f"int8_matmul epilogue rel err {rel} at "
-                                     f"{(M, K, N)}")
-            run = lambda: int8_matmul_cuda(a, a_scale, w, b_scale, None, bias,
-                                           out_dtype=torch.bfloat16)
-            out = run()
-            out_ref = ref.ref_int8_matmul(a, a_scale, w, b_scale, None, bias,
-                                          out_dtype=torch.bfloat16)
-            err = float((out.float() - out_ref.float()).abs().max())
-            # at most one bf16 ulp (the f32 epilogues agree to 1e-6)
-            if not torch.allclose(out.float(), out_ref.float(), atol=0,
-                                  rtol=2.0 ** -7):
-                raise AssertionError(f"int8_matmul bf16 output differs at "
-                                     f"{(M, K, N)}: {err}")
-            lib_ms = None
-            if M > 16:                  # torch._int_mm wants M > 16
-                lib_ms = time_ms(lambda: torch._int_mm(a, w))
-            b, o = bound(M * K + K * N + M * 4 + N * 8 + M * N * 2,
-                         2 * M * N * K, INT8_OPS_PER_S)
-            results.setdefault("int8_matmul", []).append(row(
-                "int8_matmul", [M, K, N], err, time_ms(run),
-                time_ms(lambda: ref.ref_int8_matmul(
-                    a, a_scale, w, b_scale, None, bias,
-                    out_dtype=torch.bfloat16)), b, o, lib_ms))
+    # K3: exact s32 accumulator; epilogue in the reference's op order.
+    # The MoE path's q and o are d_model -> d_model, its k and v
+    # d_model -> n_kv_heads · hd
+    for M, K, N in ([(M, K, N) for M in rows_m
+                     for K, N in ((512, 512), (512, 2048), (2048, 512))]
+                    + [(M, d_moe, N) for M in moe_m for N in (d_moe, d_kv)]):
+        a = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+        a_scale = torch.rand((M, 1), generator=gen, device=dev) * 0.02
+        b_scale = torch.rand((1, N), generator=gen, device=dev) * 0.02
+        bias = torch.randn((N,), generator=gen, device=dev)
+        ones_a = torch.ones((1, 1), device=dev)
+        ones_b = torch.ones((1, N), device=dev)
+        acc = int8_matmul_cuda(a, ones_a, w, ones_b)
+        exact = torch.matmul(a.double(), w.double())
+        if not torch.equal(acc.double(), exact.float().double()):
+            raise AssertionError(f"int8_matmul accumulator differs at "
+                                 f"{(M, K, N)}")
+        f32 = int8_matmul_cuda(a, a_scale, w, b_scale, None, bias)
+        f32_ref = ref.ref_int8_matmul(a, a_scale, w, b_scale, None, bias)
+        rel = float(((f32 - f32_ref).abs()
+                     / f32_ref.abs().clamp_min(1e-30)).max())
+        if rel > 1e-6:
+            raise AssertionError(f"int8_matmul epilogue rel err {rel} at "
+                                 f"{(M, K, N)}")
+        run = lambda: int8_matmul_cuda(a, a_scale, w, b_scale, None, bias,
+                                       out_dtype=torch.bfloat16)
+        out = run()
+        out_ref = ref.ref_int8_matmul(a, a_scale, w, b_scale, None, bias,
+                                      out_dtype=torch.bfloat16)
+        err = float((out.float() - out_ref.float()).abs().max())
+        # at most one bf16 ulp (the f32 epilogues agree to 1e-6)
+        if not torch.allclose(out.float(), out_ref.float(), atol=0,
+                              rtol=2.0 ** -7):
+            raise AssertionError(f"int8_matmul bf16 output differs at "
+                                 f"{(M, K, N)}: {err}")
+        lib_ms = None
+        if M > 16:                  # torch._int_mm wants M > 16
+            lib_ms = time_ms(lambda: torch._int_mm(a, w))
+        b, o = bound(M * K + K * N + M * 4 + N * 8 + M * N * 2,
+                     2 * M * N * K, INT8_OPS_PER_S)
+        results.setdefault("int8_matmul", []).append(row(
+            "int8_matmul", [M, K, N], err, time_ms(run),
+            time_ms(lambda: ref.ref_int8_matmul(
+                a, a_scale, w, b_scale, None, bias,
+                out_dtype=torch.bfloat16)), b, o, lib_ms))
+
+    # K7: the grouped expert GEMM of the MoE FFN at granite-moe's shapes:
+    # 32 experts, gate/up 1024 -> 512 and down 512 -> 1024, at the rows
+    # per expert of the MoE path's forward passes (moe_m: 5, 20, 230 and
+    # 3 groups × 320 = 960); f32 and bf16 must equal the plain version bit
+    # for bit (the same exact accumulator, the same two rounded products
+    # and one rounding to bf16).  Library: one torch._int_mm per expert
+    # (no epilogue; M padded to 17 where _int_mm wants M > 16).
+    E = moe_cfg.moe.n_experts
+    for M in [moe_expert_rows(moe_cfg, t) for t in moe_m]:
+        for K, N in ((d_moe, moe_cfg.d_ff), (moe_cfg.d_ff, d_moe)):
+            a = torch.randint(-127, 128, (E, M, K), generator=gen,
+                              device=dev, dtype=torch.int8)
+            w = torch.randint(-127, 128, (E, K, N), generator=gen,
+                              device=dev, dtype=torch.int8)
+            a_scale = torch.rand((E, M, 1), generator=gen, device=dev) * 0.02
+            b_scale = torch.rand((E, 1, N), generator=gen, device=dev) * 0.02
+            for scale in (a_scale, 0.0123):
+                for dt in (torch.float32, torch.bfloat16):
+                    got = int8_matmul_batched_cuda(a, scale, w, b_scale,
+                                                   out_dtype=dt)
+                    want = ref.ref_int8_matmul_batched(a, scale, w, b_scale,
+                                                       out_dtype=dt)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"int8_matmul_batched {dt} differs at "
+                            f"{(E, M, K, N)} by "
+                            f"{float((got.float() - want.float()).abs().max())}")
+            run = lambda: int8_matmul_batched_cuda(a, a_scale, w, b_scale,
+                                                   out_dtype=torch.bfloat16)
+            a_lib = a if M > 16 else torch.nn.functional.pad(
+                a, (0, 0, 0, 17 - M))
+            # 32 launches a call: ten calls keep the launch queue short
+            # enough to stay behind the sleep
+            lib_ms = time_ms(lambda: [torch._int_mm(a_lib[e], w[e])
+                                      for e in range(E)], iters=10)
+            b, o = bound(E * (M * K + K * N + M * 4 + N * 4 + M * N * 2),
+                         2 * E * M * N * K, INT8_OPS_PER_S)
+            results.setdefault("int8_matmul_batched", []).append(row(
+                "int8_matmul_batched", [E, M, K, N], 0.0, time_ms(run),
+                time_ms(lambda: ref.ref_int8_matmul_batched(
+                    a, a_scale, w, b_scale, out_dtype=torch.bfloat16)),
+                b, o, lib_ms))
 
     # K6: the INT4-weight matmul at the decode shapes of the INT4 sites;
     # f32 out must equal the plain version, bf16 within one bf16 ulp.  No
@@ -285,25 +368,32 @@ def check_kernels(s_enc: int):
             log(f"  K3 at the same shape: {r['k3_ms']:.4f} ms")
             results.setdefault("int4_matmul", []).append(r)
 
-    # K4: flash decode vs masked softmax over the dequantized cache
+    # K4: flash decode vs masked softmax over the dequantized cache, at the
+    # enc-dec decoder's shapes (8 heads, capacity 64) and the MoE path's
+    # (16 heads over 8 KV heads, capacity MOE_MAX_LEN)
     H = HKV = 8
     dh = 64
-    for B in (N_REQUESTS, N_REQUESTS * BEAM):
-        kq = torch.randint(-127, 128, (B, MAX_LEN, HKV, dh), generator=gen,
+    for B, S, H_, HKV_ in ([(B, MAX_LEN, H, HKV)
+                            for B in (N_REQUESTS, N_REQUESTS * BEAM)]
+                           + [(B, MOE_MAX_LEN, moe_cfg.n_heads,
+                               moe_cfg.n_kv_heads)
+                              for B in (N_REQUESTS, N_REQUESTS * BEAM)]):
+        kq = torch.randint(-127, 128, (B, S, HKV_, dh), generator=gen,
                            device=dev, dtype=torch.int8)
-        vq = torch.randint(-127, 128, (B, MAX_LEN, HKV, dh), generator=gen,
+        vq = torch.randint(-127, 128, (B, S, HKV_, dh), generator=gen,
                            device=dev, dtype=torch.int8)
-        ks = torch.rand((B, MAX_LEN, HKV), generator=gen, device=dev) * 0.02
-        vs = torch.rand((B, MAX_LEN, HKV), generator=gen, device=dev) * 0.02
-        lengths = torch.randint(1, MAX_LEN + 1, (B,), generator=gen,
-                                device=dev, dtype=torch.int32)
-        qf = torch.randn((B, H, dh), generator=gen, device=dev)
+        ks = torch.rand((B, S, HKV_), generator=gen, device=dev) * 0.02
+        vs = torch.rand((B, S, HKV_), generator=gen, device=dev) * 0.02
+        lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        qf = torch.randn((B, H_, dh), generator=gen, device=dev)
         sm = 1.0 / dh ** 0.5
         o32 = decode_attention_cuda(qf, kq, ks, vq, vs, lengths, sm_scale=sm)
         r32 = ref.ref_decode_attention(qf, kq, ks, vq, vs, lengths, sm)
         err32 = float((o32 - r32).abs().max())
         if not torch.allclose(o32, r32, atol=1e-5, rtol=1e-5):
-            raise AssertionError(f"decode_attention f32 err {err32} at B={B}")
+            raise AssertionError(f"decode_attention f32 err {err32} at "
+                                 f"{(B, S, H_, HKV_)}")
         q = qf.to(torch.bfloat16)
         run = lambda: decode_attention_cuda(q, kq, ks, vq, vs, lengths,
                                             sm_scale=sm)
@@ -313,12 +403,13 @@ def check_kernels(s_enc: int):
         err = float((out - out_ref).abs().max())
         # bf16 output: one bf16 ulp (2^-8 relative) of rounding either way
         if not torch.allclose(out, out_ref, atol=1e-5, rtol=2.0 ** -7):
-            raise AssertionError(f"decode_attention bf16 err {err} at B={B}")
+            raise AssertionError(f"decode_attention bf16 err {err} at "
+                                 f"{(B, S, H_, HKV_)}")
         tokens = int(lengths.sum())
-        b, o = bound(tokens * HKV * (2 * dh + 8) + 2 * B * H * dh * 2 + 4 * B,
-                     4 * tokens * H * dh, F32_FLOPS_PER_S)
+        b, o = bound(tokens * HKV_ * (2 * dh + 8) + 2 * B * H_ * dh * 2
+                     + 4 * B, 4 * tokens * H_ * dh, F32_FLOPS_PER_S)
         results.setdefault("decode_attention", []).append(row(
-            "decode_attention", [B, MAX_LEN, HKV, dh], max(err, err32),
+            "decode_attention", [B, S, H_, HKV_, dh], max(err, err32),
             time_ms(run),
             time_ms(lambda: ref.ref_decode_attention(q, kq, ks, vq, vs,
                                                      lengths, sm)),
@@ -460,12 +551,13 @@ def warm_up(model, params, corpus) -> None:
     engine.generate_beam(batch, beam=BEAM, max_new_tokens=2)
 
 
-def check_against_plain(model, qparams, qctx, batch, steps: int = 3) -> float:
+def check_against_plain(model, qparams, qctx, batch, steps: int = 3, *,
+                        max_len: int = MAX_LEN) -> float:
     """The first decode steps with the kernels vs with the plain versions."""
     import torch
     b = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
     ctxs = {"cuda": qctx, "torch": dataclasses.replace(qctx, impl="torch")}
-    states = {k: model.init_decode_state(N_REQUESTS, MAX_LEN, quantized=True)
+    states = {k: model.init_decode_state(N_REQUESTS, max_len, quantized=True)
               for k in ctxs}
     logits = {}
     for k, ctx in ctxs.items():
@@ -485,15 +577,16 @@ def check_against_plain(model, qparams, qctx, batch, steps: int = 3) -> float:
         for k, ctx in ctxs.items():
             logits[k], states[k] = model.decode_step(qparams, tok, states[k],
                                                      quant=ctx)
-    # K1-K3 are exact; K4's bf16 output may round one ulp apart, and that
-    # can flip an activation code downstream: a small, bounded drift
+    # K1-K3 and K7 are exact; K4's bf16 output may round one ulp apart, and
+    # that can flip an activation code downstream: a small, bounded drift
     if worst > LOGIT_ATOL:
         raise AssertionError(f"kernel and plain logits differ by {worst}")
     return worst
 
 
-def profile(label: str, fn) -> None:
-    """Device busy time of one call of ``fn``, from torch.profiler."""
+def profile(label: str, fn):
+    """Device busy time of one call of ``fn``, from torch.profiler.
+    Returns (busy ms, [(device ms, kernel name, count)] largest first)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -522,6 +615,7 @@ def profile(label: str, fn) -> None:
         f"steps={steps}")
     for ms, key, count in rows[:8]:
         log(f"  device {ms:8.3f} ms  x{count:<5d} {key[:70]}")
+    return busy_ms, rows
 
 
 def profile_greedy(model, qparams, qctx, batch) -> None:
@@ -753,7 +847,141 @@ def run_int4(model, params, recs, batch, int8_greedy):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the serving driver, once per mode
+# phase 7: the decoder-only MoE family through generate
+# ---------------------------------------------------------------------------
+
+def moe_prompts(vocab: int):
+    """16 prompts and 16 held-out calibration prompts: the NMT corpus's
+    sources drawn at the model's vocabulary.  The prompts are one
+    right-padded batch with their lengths."""
+    from repro_torch.data import make_corpus, pad_batch
+    corpus = make_corpus(2 * N_REQUESTS, vocab, seed=11)
+    toks, lens = pad_batch([s.src for s in corpus[:N_REQUESTS]])
+    return ({"tokens": toks, "lengths": lens},
+            [s.src for s in corpus[N_REQUESTS:]])
+
+
+def run_moe(device: str = "cuda", cfg=None):
+    """granite-moe-1b-a400m at its published widths and depth, random
+    weights, bf16 activations: INT8 with dynamic activation scales (greedy
+    and beam-4 ``generate``) and, after KL calibration on the held-out
+    prompts, with static scales (greedy).  Launch counts are read from zero
+    over the three runs; K7's plain version must not run.  Returns (launch
+    counts, the model, static params and context, dynamic params and
+    context, the prompt batch)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import (Calibrator, QuantPolicy, Taps,
+                                  count_quantized, quantize_model)
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import DecoderLM
+    from repro_torch.serving import ServingEngine
+
+    cfg = cfg or get_config(MOE_ARCH)
+    model = DecoderLM(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    batch, held_out = moe_prompts(cfg.vocab)
+    dparams, dctx = quantize_model(params, {},
+                                   QuantPolicy(act_quant="dynamic"),
+                                   device=device)
+    stats = count_quantized(dparams)
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, vocab "
+        f"{cfg.vocab}; {N_REQUESTS} prompts padded to "
+        f"{batch['tokens'].shape[1]}, max_len={MOE_MAX_LEN}, "
+        f"max_new_tokens={MAX_NEW}; init + quantize "
+        f"{time.perf_counter() - t0:.2f} s: {stats['quantized_linears']} "
+        f"INT8 linears, {stats['int8_bytes']} bytes, "
+        f"{stats['fp_linears']} fp linears (routers)")
+    engine = ServingEngine(model, dparams, quant=dctx, max_len=MOE_MAX_LEN,
+                           device=device)
+    # warm-up: library handles and caches for these shapes (uncounted)
+    engine.generate(batch, max_new_tokens=2)
+    engine.generate_beam(batch, beam=BEAM, max_new_tokens=2)
+
+    plain = ref.ref_int8_matmul_batched
+    plain_calls = []
+
+    def counted(*args, **kwargs):
+        plain_calls.append(1)
+        return plain(*args, **kwargs)
+
+    ref.ref_int8_matmul_batched = counted
+    runs = {}
+    try:
+        ops.reset_launch_counts()
+        runs["moe_greedy_dynamic"] = engine.generate(batch,
+                                                     max_new_tokens=MAX_NEW)
+        greedy_k7 = ops.launch_counts()["int8_matmul_batched"]
+        runs["moe_beam4_dynamic"] = engine.generate_beam(
+            batch, beam=BEAM, max_new_tokens=MAX_NEW)
+        t0 = time.perf_counter()
+        cal = Calibrator()
+        for src in held_out:
+            taps = Taps()
+            model.forward(params, {"tokens": torch.as_tensor(
+                src[None, :], device=device)}, taps=taps)
+            cal.observe_taps(taps)
+        recs = cal.compute("symmetric")
+        sparams, sctx = quantize_model(params, recs,
+                                       QuantPolicy(act_quant="static"),
+                                       device=device)
+        n_q = sum(r.quantize for r in recs.values())
+        log(f"calibrate+quantize (static): "
+            f"{time.perf_counter() - t0:.3f} s, {n_q}/{len(recs)} "
+            f"calibrated sites quantizable")
+        runs["moe_greedy_static"] = ServingEngine(
+            model, sparams, quant=sctx, max_len=MOE_MAX_LEN,
+            device=device).generate(batch, max_new_tokens=MAX_NEW)
+        counts = ops.launch_counts()
+    finally:
+        ref.ref_int8_matmul_batched = plain
+    for name, r in runs.items():
+        log(f"e2e {name}: tokens={r.n_tokens} steps={r.steps} "
+            f"tokens_per_s={r.tokens_per_s:.1f} prefill_s={r.prefill_s:.4f} "
+            f"decode_s={r.decode_s:.4f} host_syncs={r.host_syncs}")
+        if len(r.tokens) != N_REQUESTS:
+            raise AssertionError(f"{name}: {len(r.tokens)} outputs")
+        for t in r.tokens:
+            if len(t) > MAX_NEW or (len(t) and not (
+                    0 <= t.min() and t.max() < cfg.vocab)):
+                raise AssertionError(f"{name}: bad output {t}")
+    # three K7 launches a layer in each forward pass: the prefill and the
+    # decode steps (all MAX_NEW - 1 of them while any row runs)
+    per_pass = 3 * cfg.n_layers
+    greedy = runs["moe_greedy_dynamic"]
+    log(f"  launches: {json.dumps(counts)}; K7 in the greedy dynamic run: "
+        f"{greedy_k7} ({per_pass} a forward pass, {greedy.steps} passes); "
+        f"plain K7 calls: {len(plain_calls)}")
+    if plain_calls or greedy_k7 < per_pass * greedy.steps or (
+            greedy.steps == MAX_NEW and greedy_k7 != per_pass * MAX_NEW):
+        raise AssertionError(f"K7 launched {greedy_k7} times in the greedy "
+                             f"run, its plain version {len(plain_calls)} "
+                             "times")
+    path = ("int8_matmul_batched", "int8_matmul", "quantize_static",
+            "quantize_rowwise", "decode_attention")
+    if any(counts[k] <= 0 for k in path) or counts["int4_matmul"] or \
+            counts["decode_attention_paged"]:
+        raise AssertionError(f"MoE path launches: {counts}")
+    return counts, model, (sparams, sctx), (dparams, dctx), batch
+
+
+def profile_moe(model, qparams, qctx, batch) -> None:
+    """A profiled greedy MoE generate: busy time, idle share and K7's
+    share of the device time."""
+    from repro_torch.serving import ServingEngine
+    engine = ServingEngine(model, qparams, quant=qctx, max_len=MOE_MAX_LEN)
+    busy, rows = profile("moe_greedy_dynamic", lambda: engine.generate(
+        batch, max_new_tokens=MAX_NEW).steps)
+    k7 = sum(ms for ms, key, _ in rows if "int8_matmul_batched" in key)
+    k3 = sum(ms for ms, key, _ in rows if "int8_matmul_kernel" in key)
+    log(f"  K7 device time {k7:.2f} ms = {k7 / busy:.3f} of busy; "
+        f"K3 {k3:.2f} ms = {k3 / busy:.3f}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the serving driver, once per mode
 # ---------------------------------------------------------------------------
 
 DRIVER_RUNS = (
@@ -815,10 +1043,12 @@ def main() -> int:
     s_enc = pad_batch([s.src for s in corpus[:N_REQUESTS]])[0].shape[1]
     log(f"transformer-base: {N_REQUESTS} requests, S_enc={s_enc}, "
         f"max_len={MAX_LEN}, max_new_tokens={MAX_NEW}")
+    moe_cfg = get_config(MOE_ARCH)
+    s_moe = moe_prompts(moe_cfg.vocab)[0]["tokens"].shape[1]
 
     # 3. kernels vs plain
     phase("kernels vs plain")
-    results = check_kernels(s_enc)
+    results = check_kernels(s_enc, s_moe, moe_cfg)
 
     # 4. end to end
     phase("end to end")
@@ -845,25 +1075,40 @@ def main() -> int:
     int4_counts, q4params, q4ctx = run_int4(model, params, recs, batch,
                                             runs["greedy_static"])
     check_against_plain(model, q4params, q4ctx, batch)
+    del model, params, qparams, q4params
 
-    # 7. the serving driver
+    # 7. the decoder-only MoE family
+    phase("MoE generate")
+    moe_counts, moe_model, (msparams, msctx), (mdparams, mdctx), \
+        moe_batch = run_moe()
+    for mparams, mctx in ((mdparams, mdctx), (msparams, msctx)):
+        check_against_plain(moe_model, mparams, mctx, moe_batch,
+                            max_len=MOE_MAX_LEN)
+    profile_moe(moe_model, mdparams, mdctx, moe_batch)
+    del moe_model, msparams, mdparams
+
+    # 8. the serving driver
     phase("serving driver")
     run_driver()
 
-    # 8. launch counts and the kernel table
+    # 9. launch counts and the kernel table
     phase("kernel table")
     maxP = MAX_LEN // PAGE
     headline = {"quantize_static": [N_REQUESTS * s_enc, 512],
                 "quantize_rowwise": [N_REQUESTS * s_enc, 512],
                 "int8_matmul": [N_REQUESTS * BEAM, 512, 512],
+                "int8_matmul_batched": [
+                    moe_cfg.moe.n_experts, moe_expert_rows(moe_cfg, N_REQUESTS),
+                    moe_cfg.d_model, moe_cfg.d_ff],
                 "int4_matmul": [N_REQUESTS * BEAM, 512, 512],
-                "decode_attention": [N_REQUESTS * BEAM, MAX_LEN, 8, 64],
+                "decode_attention": [N_REQUESTS * BEAM, MAX_LEN, 8, 8, 64],
                 "decode_attention_paged": [SERVE_SLOTS, SERVE_SLOTS * maxP,
                                            PAGE, 8, 64]}
     replaces = {
         "quantize_static": "src/repro/kernels/quantize.py:79",
         "quantize_rowwise": "src/repro/kernels/quantize.py:38",
         "int8_matmul": "src/repro/kernels/int8_matmul.py:145",
+        "int8_matmul_batched": "src/repro/kernels/int8_matmul.py:82",
         "int4_matmul": "src/repro/kernels/int4_matmul.py:104",
         "decode_attention": "src/repro/kernels/decode_attention.py:80",
         "decode_attention_paged": "src/repro/kernels/decode_attention.py:250"}
@@ -871,6 +1116,7 @@ def main() -> int:
         "quantize_static": "src/repro_torch/csrc/quantize.cu",
         "quantize_rowwise": "src/repro_torch/csrc/quantize.cu",
         "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
+        "int8_matmul_batched": "src/repro_torch/csrc/int8_matmul.cu",
         "int4_matmul": "src/repro_torch/csrc/int4_matmul.cu",
         "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
         "decode_attention_paged": "src/repro_torch/csrc/decode_attention.cu"}
@@ -883,6 +1129,9 @@ def main() -> int:
     paths["int4_matmul"] = (
         "INT4 weights: generate (greedy + beam-4 static) + paged serve",
         int4_counts["int4_matmul"])
+    paths["int8_matmul_batched"] = (
+        f"MoE generate ({MOE_ARCH}: greedy + beam-4 dynamic, greedy static)",
+        moe_counts["int8_matmul_batched"])
     kernels = []
     for name in replaces:
         r = next(x for x in results[name] if x["shape"] == headline[name])
@@ -901,7 +1150,7 @@ def main() -> int:
                              f"{missing}")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 9. last line
+    # 10. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,9 +5,11 @@ numpy arrays keyed the way ``repro/checkpoint/checkpointer.py``
 (``_flatten_with_paths``) keys them — ``"enc_blocks.0/attn/q_proj/w"``, and
 for a ``QTensor`` weight ``".../w/0"`` (int8 data), ``".../w/1"`` (keepdims
 per-column scale) and ``".../w/2"`` (zero point) — and returns the port's
-nested parameter dict on ``device``.  A scan-stacked tree (``enc_blocks``
-with a leading layer axis) is split into the port's per-layer
-``enc_blocks.{i}`` nodes.
+nested parameter dict on ``device``.  A scan-stacked tree (``enc_blocks``,
+``dec_blocks`` or the decoder-only ``blocks``, with a leading layer axis) is
+split into the port's per-layer nodes (``enc_blocks.{i}``, ...); only that
+axis splits, so MoE expert weights keep their expert axis ((L, E, K, N) →
+(E, K, N), and their scales (L, E, 1, N) → (E, 1, N)).
 
 A ``BlockQTensor`` (INT4) weight is flattened under the same three keys
 (packed nibbles, block scales, block minimums) without its ``group_size``
@@ -36,7 +38,7 @@ from repro_torch.core.histogram import HistogramClass
 from repro_torch.core.qtensor import BlockQTensor, QTensor
 from repro_torch.core.quantize import Thresholds
 
-_STACKED = re.compile(r"^(enc_blocks|dec_blocks)$")
+_STACKED = re.compile(r"^(enc_blocks|dec_blocks|blocks)$")
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Model configuration + registry (port of ``repro/configs/base.py``).
 
-Only what the encoder-decoder translation path reads is kept; the field
-names and defaults are the reference's, so a configuration reads the same
-in both packages.
+Only what the ported families read is kept (the encoder-decoder
+translation model and the decoder-only MoE model); the field names and
+defaults are the reference's, so a configuration reads the same in both
+packages.
 """
 
 from __future__ import annotations
@@ -17,9 +18,17 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    group_size: int = 1024          # GShard-style dispatch group
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # the port has the enc-dec family only
+    family: str                     # audio (enc-dec) | moe | dense
     n_layers: int
     d_model: int
     n_heads: int
@@ -28,10 +37,12 @@ class ModelConfig:
     vocab: int
     head_dim: Optional[int] = None
     norm: str = "rmsnorm"           # rmsnorm | layernorm
-    ffn: str = "swiglu"             # the port implements gelu only
+    ffn: str = "swiglu"             # dense FFN: the port has gelu only
+    rope_theta: float = 10000.0
     max_seq: int = 32768
     tie_embeddings: bool = False
     attn_bias: bool = False
+    moe: Optional[MoEConfig] = None
     enc_dec: bool = False
     n_enc_layers: int = 0
     input_kind: str = "tokens"
@@ -66,6 +77,8 @@ class ModelConfig:
             max_seq=128,
             dtype="float32",
         )
+        if self.moe:
+            small["moe"] = MoEConfig(n_experts=4, top_k=2, group_size=32)
         if self.enc_dec:
             small["n_enc_layers"] = 2
         small.update(overrides)

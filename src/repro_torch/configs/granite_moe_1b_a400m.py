@@ -1,0 +1,21 @@
+"""granite-moe-1b-a400m — 24L d_model=1024 16H (GQA kv=8) d_ff=512
+vocab=49155, MoE 32 experts top-8. [hf:ibm-granite/granite-3.0-1b-a400m-base]
+"""
+
+from repro_torch.configs.base import ModelConfig, MoEConfig, register
+
+
+@register("granite-moe-1b-a400m")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="granite-moe-1b-a400m",
+        family="moe",
+        n_layers=24,
+        d_model=1024,
+        n_heads=16,
+        n_kv_heads=8,
+        d_ff=512,
+        vocab=49155,
+        moe=MoEConfig(n_experts=32, top_k=8),
+        tie_embeddings=True,
+    )

@@ -1,10 +1,24 @@
-// s8 x s8 -> s32 matmul with the dequantize epilogue fused (K3), for Hopper
-// (sm_90a).
+// s8 x s8 -> s32 matmul with the dequantize epilogue fused (K3), and its
+// per-expert grouped form (K7), for Hopper (sm_90a).
 //
-// Replaces src/repro/kernels/int8_matmul.py:int8_matmul_pallas.
+// K3 replaces src/repro/kernels/int8_matmul.py:int8_matmul_pallas:
 //
 //   out[m, n] = ((acc[m, n] - zp * colsum[n]) * a_scale[m] * b_scale[n]
 //                + bias[n])                               cast to out dtype
+//
+// K7 replaces src/repro/kernels/int8_matmul.py:int8_matmul_batched_pallas,
+// the MoE expert FFN's grouped GEMM: for every expert e,
+//
+//   out[e, m, n] = acc_e[m, n] * a_scale[e, m] * b_scale[e, n]
+//
+// with acc_e = a[e] @ b[e] (a (E,M,K), b (E,K,N)).  It runs K3's tile
+// (int8_matmul_tile) as a kernel of its own with the expert as the third
+// grid axis (blockIdx.z): each block offsets its expert's operands, scales
+// and output, and the epilogue is K3's without the zero point and the
+// bias, so it is exact in the same way.  A decode step gives every expert
+// M = capacity rows (5 at 16 rows, top-8 of 32): the 32-row tile masks the
+// rest, and the E x N/64 blocks (256 for N = 512) fill the card that K3's
+// N/64 blocks at small M do not.
 //
 // Bound on the H100: bytes at decode (M = live rows, 16..64: the weight
 // matrix is read once and each weight byte feeds only M multiply-adds) and
@@ -43,14 +57,15 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// One block's 32 x 64 output tile of one (M,K) x (K,N) product.
 template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
-int8_matmul_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-                   const float* __restrict__ a_scale, float a_scale_value,
-                   int a_scale_per_row, const float* __restrict__ b_scale,
-                   const float* __restrict__ colsum, float zp, int has_zp,
-                   const float* __restrict__ bias, OutT* __restrict__ out,
-                   int M, int N, int K) {
+__device__ __forceinline__ void int8_matmul_tile(
+    const int8_t* __restrict__ a, const int8_t* __restrict__ b,
+    const float* __restrict__ a_scale, float a_scale_value,
+    int a_scale_per_row, const float* __restrict__ b_scale,
+    const float* __restrict__ colsum, float zp, int has_zp,
+    const float* __restrict__ bias, OutT* __restrict__ out, int M, int N,
+    int K) {
   __shared__ int32_t As[kBM][kLd];   // A tile, K contiguous
   __shared__ int32_t Bs[kBN][kLd];   // B tile transposed, K contiguous
   int8_t* As8 = reinterpret_cast<int8_t*>(&As[0][0]);
@@ -119,9 +134,62 @@ int8_matmul_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   }
 }
 
+// K3: one product, grid (N/64, M/32).
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads)
+int8_matmul_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
+                   const float* __restrict__ a_scale, float a_scale_value,
+                   int a_scale_per_row, const float* __restrict__ b_scale,
+                   const float* __restrict__ colsum, float zp, int has_zp,
+                   const float* __restrict__ bias, OutT* __restrict__ out,
+                   int M, int N, int K) {
+  int8_matmul_tile(a, b, a_scale, a_scale_value, a_scale_per_row, b_scale,
+                   colsum, zp, has_zp, bias, out, M, N, K);
+}
+
+// K7: grid (N/64, M/32, E); blockIdx.z is the expert, whose operands,
+// per-row activation scales, weight scales and output follow each other in
+// one tensor each.  A scalar activation scale is shared by every expert.
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads)
+int8_matmul_batched_kernel(const int8_t* __restrict__ a,
+                           const int8_t* __restrict__ b,
+                           const float* __restrict__ a_scale,
+                           float a_scale_value, int a_scale_per_row,
+                           const float* __restrict__ b_scale,
+                           OutT* __restrict__ out, int M, int N, int K) {
+  const long long e = blockIdx.z;
+  int8_matmul_tile(a + e * M * K, b + e * K * N,
+                   a_scale_per_row ? a_scale + e * M : a_scale,
+                   a_scale_value, a_scale_per_row, b_scale + e * N, nullptr,
+                   0.0f, 0, nullptr, out + e * M * N, M, N, K);
+}
+
 }  // namespace
 
-// a (M,K) s8 and b (K,N) s8 row-major.  a_scale: (M,) f32 when
+namespace {
+
+template <typename OutT>
+void launch_k3(dim3 grid, cudaStream_t s, const int8_t* a, const int8_t* b,
+               const float* as, float asv, int per_row, const float* bs,
+               const float* cs, float zp, int has_zp, const float* bi,
+               void* out, int M, int N, int K) {
+  int8_matmul_kernel<<<grid, kThreads, 0, s>>>(
+      a, b, as, asv, per_row, bs, cs, zp, has_zp, bi,
+      static_cast<OutT*>(out), M, N, K);
+}
+
+template <typename OutT>
+void launch_k7(dim3 grid, cudaStream_t s, const int8_t* a, const int8_t* b,
+               const float* as, float asv, int per_row, const float* bs,
+               void* out, int M, int N, int K) {
+  int8_matmul_batched_kernel<<<grid, kThreads, 0, s>>>(
+      a, b, as, asv, per_row, bs, static_cast<OutT*>(out), M, N, K);
+}
+
+}  // namespace
+
+// K3.  a (M,K) s8 and b (K,N) s8 row-major.  a_scale: (M,) f32 when
 // a_scale_per_row, else one f32 at a_scale, or a_scale_value when a_scale is
 // null.  b_scale (N,) f32; colsum (N,) f32 when has_zp; bias (N,) f32 or
 // null.  out_dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
@@ -133,22 +201,50 @@ extern "C" int repro_int8_matmul(const void* a, const void* b,
                                  int K, int out_dtype, int device,
                                  void* stream) {
   cudaSetDevice(device);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  const int8_t* a8 = static_cast<const int8_t*>(a);
-  const int8_t* b8 = static_cast<const int8_t*>(b);
-  const float* as = static_cast<const float*>(a_scale);
-  const float* bs = static_cast<const float*>(b_scale);
-  const float* cs = static_cast<const float*>(colsum);
-  const float* bi = static_cast<const float*>(bias);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* a8 = static_cast<const int8_t*>(a);
+  const auto* b8 = static_cast<const int8_t*>(b);
+  const auto* as = static_cast<const float*>(a_scale);
+  const auto* bs = static_cast<const float*>(b_scale);
+  const auto* cs = static_cast<const float*>(colsum);
+  const auto* bi = static_cast<const float*>(bias);
   if (out_dtype == 1) {
-    int8_matmul_kernel<<<grid, kThreads, 0, s>>>(
-        a8, b8, as, a_scale_value, a_scale_per_row, bs, cs, zp, has_zp, bi,
-        static_cast<__nv_bfloat16*>(out), M, N, K);
+    launch_k3<__nv_bfloat16>(grid, s, a8, b8, as, a_scale_value,
+                             a_scale_per_row, bs, cs, zp, has_zp, bi, out, M,
+                             N, K);
   } else {
-    int8_matmul_kernel<<<grid, kThreads, 0, s>>>(
-        a8, b8, as, a_scale_value, a_scale_per_row, bs, cs, zp, has_zp, bi,
-        static_cast<float*>(out), M, N, K);
+    launch_k3<float>(grid, s, a8, b8, as, a_scale_value, a_scale_per_row, bs,
+                     cs, zp, has_zp, bi, out, M, N, K);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7.  a (E,M,K) s8, b (E,K,N) s8, out (E,M,N), all row-major.  a_scale:
+// (E,M) f32 when a_scale_per_row, else one f32 for every expert at a_scale,
+// or a_scale_value when a_scale is null.  b_scale (E,N) f32.  E <= 65535.
+// out_dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
+extern "C" int repro_int8_matmul_batched(const void* a, const void* b,
+                                         const void* a_scale,
+                                         float a_scale_value,
+                                         int a_scale_per_row,
+                                         const void* b_scale, void* out,
+                                         int E, int M, int N, int K,
+                                         int out_dtype, int device,
+                                         void* stream) {
+  cudaSetDevice(device);
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, E);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* a8 = static_cast<const int8_t*>(a);
+  const auto* b8 = static_cast<const int8_t*>(b);
+  const auto* as = static_cast<const float*>(a_scale);
+  const auto* bs = static_cast<const float*>(b_scale);
+  if (out_dtype == 1) {
+    launch_k7<__nv_bfloat16>(grid, s, a8, b8, as, a_scale_value,
+                             a_scale_per_row, bs, out, M, N, K);
+  } else {
+    launch_k7<float>(grid, s, a8, b8, as, a_scale_value, a_scale_per_row, bs,
+                     out, M, N, K);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"quantize_static": 0, "quantize_rowwise": 0,
-                            "int8_matmul": 0, "int4_matmul": 0,
+                            "int8_matmul": 0, "int8_matmul_batched": 0,
+                            "int4_matmul": 0,
                             "decode_attention": 0,
                             "decode_attention_paged": 0}
 
@@ -46,6 +47,8 @@ _SIGNATURES = {
     "repro_quantize_rowwise": [_P, _P, _P, _L, _L, _I, _I, _P],
     "repro_int8_matmul": [_P, _P, _P, _F, _I, _P, _P, _F, _I, _P, _P, _I, _I,
                           _I, _I, _I, _P],
+    "repro_int8_matmul_batched": [_P, _P, _P, _F, _I, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _P],
     "repro_int4_matmul": [_P, _P, _P, _F, _I, _P, _P, _I, _P, _F, _I, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _P],
     "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

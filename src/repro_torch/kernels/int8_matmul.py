@@ -1,11 +1,14 @@
-"""s8·s8→s32 matmul with the dequantize epilogue fused (K3), on the card.
+"""s8·s8→s32 matmul with the dequantize epilogue fused (K3), and its
+per-expert grouped form (K7), on the card.
 
-Port of ``repro/kernels/int8_matmul.py:int8_matmul_pallas``.  The kernel is
-in ``csrc/int8_matmul.cu``; this wrapper checks its inputs, computes the
-zero-point column sums (as the reference's wrapper does, outside the kernel,
-and only for asymmetric activations), allocates the output, launches on the
-current stream and counts the launch.  The plain version is
-``ref.ref_int8_matmul``.
+Ports of ``repro/kernels/int8_matmul.py:int8_matmul_pallas`` and
+``:int8_matmul_batched_pallas``.  Both run the kernel in
+``csrc/int8_matmul.cu`` (K7 with the expert as a third grid axis); these
+wrappers check their inputs, compute the zero-point column sums (as the
+reference's wrapper does, outside the kernel, and only for asymmetric
+activations), allocate the output, launch on the current stream and count
+the launch.  The plain versions are ``ref.ref_int8_matmul`` and
+``ref.ref_int8_matmul_batched``.
 """
 
 from __future__ import annotations
@@ -82,4 +85,54 @@ def int8_matmul_cuda(
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, "int8_matmul")
         build.LAUNCHES["int8_matmul"] += 1
+    return out
+
+
+MAX_EXPERTS = 65535          # the grid's z extent
+
+
+def int8_matmul_batched_cuda(
+    a_q: torch.Tensor,                      # (E, M, K) int8
+    a_scale: Union[torch.Tensor, float],    # (E, M, 1) / (1, 1, 1) f32, float
+    b_q: torch.Tensor,                      # (E, K, N) int8
+    b_scale: torch.Tensor,                  # (E, 1, N) f32
+    *,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """K7: ``out[e] = (a_q[e] @ b_q[e]) · a_scale[e] · b_scale[e]``."""
+    kernel = "int8_matmul_batched"
+    if not a_q.is_cuda:
+        raise ValueError(f"{kernel}: needs CUDA tensors, got {a_q.device}")
+    if (a_q.dim() != 3 or b_q.dim() != 3 or a_q.shape[0] != b_q.shape[0]
+            or a_q.shape[2] != b_q.shape[1]):
+        raise ValueError(f"{kernel}: shapes {tuple(a_q.shape)} x "
+                         f"{tuple(b_q.shape)} do not multiply per expert")
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"{kernel}: out_dtype must be float32 or bfloat16, "
+                        f"got {out_dtype}")
+    E, M, K = a_q.shape
+    N = b_q.shape[2]
+    if E > MAX_EXPERTS:
+        raise ValueError(f"{kernel}: at most {MAX_EXPERTS} experts, got {E}")
+    dev = a_q.device
+    _check(a_q, "a_q", torch.int8, (E, M, K), dev, kernel)
+    _check(b_q, "b_q", torch.int8, (E, K, N), dev, kernel)
+    _check(b_scale, "b_scale", torch.float32, (E, 1, N), dev, kernel)
+    a_scale_ptr, a_scale_value, per_row = None, 0.0, 0
+    if isinstance(a_scale, torch.Tensor):
+        per_row = int(a_scale.numel() != 1)
+        _check(a_scale, "a_scale", torch.float32,
+               (E, M, 1) if per_row else (1, 1, 1), dev, kernel)
+        a_scale_ptr = a_scale.data_ptr()
+    else:
+        a_scale_value = float(a_scale)
+    out = torch.empty((E, M, N), dtype=out_dtype, device=dev)
+    if out.numel():
+        err = build.lib().repro_int8_matmul_batched(
+            a_q.data_ptr(), b_q.data_ptr(), a_scale_ptr, a_scale_value,
+            per_row, b_scale.data_ptr(), out.data_ptr(), E, M, N, K,
+            OUT_DTYPES[out_dtype], dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(err, kernel)
+        build.LAUNCHES[kernel] += 1
     return out

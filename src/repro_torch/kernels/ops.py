@@ -29,7 +29,10 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_paged_cuda,
 )
 from repro_torch.kernels.int4_matmul import int4_matmul_cuda
-from repro_torch.kernels.int8_matmul import int8_matmul_cuda
+from repro_torch.kernels.int8_matmul import (
+    int8_matmul_batched_cuda,
+    int8_matmul_cuda,
+)
 from repro_torch.kernels.quantize import (
     quantize_rowwise_cuda,
     quantize_static_cuda,
@@ -115,6 +118,38 @@ def int8_matmul(
         out = ref.ref_int8_matmul(a2, a_scale, b.data, b_scale, zp, bias,
                                   out_dtype=out_dtype)
     return out.reshape(*batch_shape, N)
+
+
+def int8_matmul_batched(
+    a: QTensor,
+    b: QTensor,
+    *,
+    out_dtype: torch.dtype = torch.float32,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Per-expert grouped int8 matmul (the MoE expert FFN's hot path).
+
+    ``a``: activations (E, M, K), scale (E, M, 1) or a scalar;
+    ``b``: weights (E, K, N), symmetric per-column scale (E, 1, N).
+    Returns ``dequant(a[e]) @ dequant(b[e])`` for every expert, (E, M, N).
+    """
+    E, M, _ = a.data.shape
+    N = b.data.shape[-1]
+    a_scale = a.scale
+    if isinstance(a_scale, torch.Tensor):
+        a_scale = a_scale.to(torch.float32)
+        a_scale = (a_scale.reshape(1, 1, 1) if a_scale.numel() == 1
+                   else a_scale.expand(E, M, 1).contiguous())
+    else:
+        a_scale = float(a_scale)
+    b_scale = torch.as_tensor(b.scale, dtype=torch.float32,
+                              device=b.data.device).reshape(E, 1, N)
+    if use_kernel(impl, a.data):
+        return int8_matmul_batched_cuda(
+            a.data.contiguous(), a_scale, b.data.contiguous(),
+            b_scale.contiguous(), out_dtype=out_dtype)
+    return ref.ref_int8_matmul_batched(a.data, a_scale, b.data, b_scale,
+                                       out_dtype=out_dtype)
 
 
 def int4_matmul(

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's six kernels.
+"""Plain PyTorch versions of the port's seven kernels.
 
 Each ``ref_*`` function computes its kernel's result with plain torch ops at
 full (exact integer / float32) precision, mirroring
@@ -47,6 +47,26 @@ def ref_int8_matmul(
     out = acc * a_scale * b_scale
     if bias is not None:
         out = out + bias.to(torch.float32)
+    return out.to(out_dtype)
+
+
+def ref_int8_matmul_batched(
+    a_q: torch.Tensor,             # (E, M, K) int8
+    a_scale: Scale,                # (E, M, 1) / (E, 1, 1) f32 or a float
+    b_q: torch.Tensor,             # (E, K, N) int8
+    b_scale: torch.Tensor,         # (E, 1, N) f32
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Grouped (per-expert) int8 matmul (``repro/kernels/ref.py:48``):
+    ``acc[e] = a_q[e] @ b_q[e]`` exactly, then ``acc · a_scale · b_scale``
+    in that order, cast to ``out_dtype``.
+
+    As in :func:`ref_int8_matmul`, the accumulator is formed in float64,
+    exact on any device (torch has no integer ``bmm`` on CUDA, and float32
+    is not exact once 127² · K passes 2^24).
+    """
+    acc = torch.bmm(a_q.to(torch.float64), b_q.to(torch.float64))
+    out = acc.to(torch.float32) * a_scale * b_scale
     return out.to(out_dtype)
 
 

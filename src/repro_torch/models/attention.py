@@ -1,8 +1,8 @@
 """Multi-head / grouped-query attention with prefill + decode paths.
 
-Port of ``repro/models/attention.py`` (no rotary embeddings yet).
-Prefill and training use a chunked attention written out in plain torch —
-matmul, mask, float32 softmax — over query chunks.  Decode appends the
+Port of ``repro/models/attention.py``.  Prefill and training use a
+chunked attention written out in plain torch — matmul, mask, float32
+softmax — over query chunks.  Decode appends the
 step's K/V to the cache and then, for an INT8 cache, reads it through
 ``kernels.ops.decode_attention`` (K4, contiguous) or
 ``kernels.ops.decode_attention_paged`` (K5, paged).
@@ -19,7 +19,7 @@ from repro_torch.core.calibration import Taps
 from repro_torch.core.ptq import FP_CONTEXT, QuantContext
 from repro_torch.kernels import ops
 from repro_torch.models import kv_cache as kvc
-from repro_torch.models.layers import dense, dense_init
+from repro_torch.models.layers import apply_rope, dense, dense_init
 
 NEG_INF = -1e30
 
@@ -102,6 +102,7 @@ def attention(
     positions: Optional[torch.Tensor] = None,      # (B, S)
     kv_lengths: Optional[torch.Tensor] = None,
     causal: bool = True,
+    rope: bool = True,
     cache: Optional[kvc.LayerCacheView] = None,
     memory: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     memory_lengths: Optional[torch.Tensor] = None,
@@ -114,6 +115,11 @@ def attention(
       cursor (in place), then each query position j attends its own causal
       prefix with the single-query kernel at lengths ``cursor + j + 1``;
     * ``memory is not None`` — cross-attention onto precomputed (k, v).
+
+    ``rope``: rotate q and k by their positions (the decoder-only family;
+    the enc-dec family passes False).  Decode positions come from the
+    cache cursor, ``lengths + [0, S)``; train and prefill positions are
+    ``positions`` or ``arange(S)``.
     """
     B, S, _ = x.shape
     H, HKV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -140,6 +146,15 @@ def attention(
               taps=taps).reshape(B, S, HKV, dh)
     v = dense(params["v_proj"], x, site=f"{site}/v_proj", quant=quant,
               taps=taps).reshape(B, S, HKV, dh)
+
+    if rope:
+        pos = positions
+        if pos is None:
+            steps = torch.arange(S, dtype=torch.int32, device=x.device)
+            pos = (cache.lengths[:, None] + steps[None, :]
+                   if cache is not None else steps.expand(B, S))
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
 
     if cache is not None:
         tables = cache.block_tables
@@ -181,9 +196,6 @@ def attention(
                   taps=taps)
         return y, (k_c, v_c, ks_c, vs_c)
 
-    if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=x.device).expand(B, S)
     out = chunked_attention(q, k, v, causal=causal, q_positions=positions,
                             kv_lengths=kv_lengths)
     out = out.reshape(B, S, H * dh)

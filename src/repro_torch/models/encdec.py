@@ -121,7 +121,7 @@ class EncDecLM:
             h = norm(bp["attn_norm"], x, cfg.norm)
             a, _ = attention(bp["attn"], h, cfg=cfg, site=f"{site}/attn",
                              quant=quant, taps=taps, causal=False,
-                             kv_lengths=lengths)
+                             rope=False, kv_lengths=lengths)
             x = x + a
             h = norm(bp["ffn_norm"], x, cfg.norm)
             x = x + ffn(bp["ffn"], h, cfg=cfg, site=f"{site}/ffn",
@@ -136,7 +136,7 @@ class EncDecLM:
         a, entries = attention(
             bparams["self_attn"], h, cfg=cfg, site=f"{site}/self_attn",
             quant=quant, taps=taps, positions=positions,
-            kv_lengths=kv_lengths, cache=cache_view)
+            kv_lengths=kv_lengths, cache=cache_view, rope=False)
         x = x + a
         h = norm(bparams["cross_norm"], x, cfg.norm)
         c, _ = attention(

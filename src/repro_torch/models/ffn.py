@@ -1,5 +1,6 @@
 """GELU feed-forward block of the enc-dec family (port of
-``repro/models/ffn.py``; the SwiGLU branch is not ported yet).
+``repro/models/ffn.py``; the SwiGLU branch of the dense decoder-only
+family is not ported yet, ROADMAP Queue 1, item 11).
 
 Both matmuls route through :func:`repro_torch.models.layers.dense`, so the
 FFN picks up the INT8 path when its weights are quantized.
@@ -19,8 +20,8 @@ from repro_torch.models.layers import dense, dense_init
 
 def ffn_init(gen: torch.Generator, cfg, *, dtype=torch.float32, device=None):
     if cfg.ffn != "gelu":
-        raise NotImplementedError(f"the port has the GELU FFN only, "
-                                  f"not {cfg.ffn!r}")
+        raise NotImplementedError(f"the port has the GELU FFN only, not "
+                                  f"{cfg.ffn!r} (ROADMAP Queue 1, item 11)")
     d, f = cfg.d_model, cfg.d_ff
     return {
         "in": dense_init(gen, d, f, bias=cfg.attn_bias, dtype=dtype,

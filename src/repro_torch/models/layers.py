@@ -1,8 +1,8 @@
 """Shared model layers.  ``dense`` is the quantization integration point.
 
-Port of ``repro/models/layers.py`` (the INT8 and INT4-weight paths and
-layernorm; RMSNorm and rotary embeddings are not ported yet).  Conventions
-are the reference's:
+Port of ``repro/models/layers.py`` (the INT8 and INT4-weight paths,
+layernorm, RMSNorm and rotary embeddings).  Conventions are the
+reference's:
 
 * every linear is a dict node ``{"w": (d_in, d_out)[, "b": (d_out,)]}``;
 * quantized weights are :class:`QTensor` with keepdims per-output-channel
@@ -14,8 +14,9 @@ are the reference's:
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -31,10 +32,12 @@ from repro_torch.kernels import ops
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
-               bias: bool = False, dtype=torch.float32,
-               device=None) -> Dict[str, Any]:
+               bias: bool = False, dtype=torch.float32, device=None,
+               stack: tuple = ()) -> Dict[str, Any]:
+    """Uniform ±1/√d_in weights (``stack``: leading expert dims)."""
     scale = 1.0 / math.sqrt(d_in)
-    w = torch.rand((d_in, d_out), generator=gen, dtype=dtype, device=device)
+    w = torch.rand((*stack, d_in, d_out), generator=gen, dtype=dtype,
+                   device=device)
     node = {"w": w * (2 * scale) - scale}
     if bias:
         node["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
@@ -104,6 +107,14 @@ def dense(
     return y
 
 
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` semantics: the k largest along the last axis,
+    descending, ties broken toward the lower index.  ``torch.topk`` promises
+    no tie order on CUDA, so this is a stable descending sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def embed(node, ids: torch.Tensor, dtype) -> torch.Tensor:
     # gather, then cast: the same values as casting the table first
     return node["table"][ids].to(dtype)
@@ -127,7 +138,56 @@ def layernorm(node, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def rmsnorm(node, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * node["scale"].to(torch.float32)).to(x.dtype)
+
+
 def norm(node, x: torch.Tensor, kind: str) -> torch.Tensor:
-    if kind != "layernorm":
-        raise NotImplementedError(f"the port has layernorm only, not {kind!r}")
-    return layernorm(node, x)
+    return layernorm(node, x) if kind == "layernorm" else rmsnorm(node, x)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def _rope_frequencies_on(head_dim: int, theta: float,
+                         device: str) -> torch.Tensor:
+    exps = (torch.arange(0, head_dim, 2, dtype=torch.float32)
+            / head_dim).to(torch.float64)
+    return (1.0 / theta ** exps).to(device=device, dtype=torch.float32)
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    """``1 / theta^(2i / head_dim)`` as float32, computed in float64 on the
+    host and rounded once (then kept on ``device``).  Inside the
+    reference's jitted programs XLA folds these constants to the correctly
+    rounded values; torch's (and eager JAX's) float32 ``pow`` differs from
+    them in the last bit on about a third of the entries."""
+    return _rope_frequencies_on(head_dim, float(theta),
+                                str(torch.device(device or "cpu")))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, dh); positions: (B, S) int32.  Rotates the two halves
+    of the head dimension (not interleaved pairs), in float32.
+
+    The angles are the reference's float32 products; their cosine and sine
+    are taken in float64 and rounded once, which agrees with XLA's float32
+    ``cos``/``sin`` on about 99% of entries (torch's float32 ones on 95%)
+    and is within one float32 ulp elsewhere.
+    """
+    dh = x.shape[-1]
+    freqs = rope_frequencies(dh, theta, device=x.device)
+    angles = (positions[..., None].to(torch.float32)
+              * freqs).to(torch.float64)                    # (B, S, dh/2)
+    cos = torch.cos(angles).to(torch.float32)[:, :, None, :]
+    sin = torch.sin(angles).to(torch.float32)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -2,8 +2,11 @@
 continuous greedy serving).
 
 Port of ``repro/serving/engine.py``: ``generate`` and ``generate_beam``
-over a contiguous KV cache, and greedy continuous batching (``serve``) over
-a contiguous or paged KV cache with fused or unfused admission.  This is
+over a contiguous KV cache (for the encoder-decoder model with a
+``{"src_tokens", "src_lengths"}`` batch, and for the decoder-only model with
+``{"tokens", "lengths"}``), and greedy continuous batching (``serve``, the
+encoder-decoder model only) over a contiguous or paged KV cache with fused
+or unfused admission.  This is
 the paper's workload: batched NMT inference with a decoder loop, where beam
 search reorders the KV cache every step (``kv_cache.gather_beams``, the
 GatherNd the paper quantized in §5.3); with an INT8 cache the reorder moves
@@ -47,6 +50,7 @@ from repro_torch.core.ptq import FP_CONTEXT, QuantContext
 from repro_torch.data.sorting import next_pow2
 from repro_torch.data.synthetic import EOS, pad_batch
 from repro_torch.models import kv_cache as kvc
+from repro_torch.models.layers import top_k
 from repro_torch.serving.scheduler import (
     ContinuousScheduler,
     Request,
@@ -163,14 +167,6 @@ class ServeResult:
             "total_latency_mean_s": float(np.mean(total)) if total else 0.0,
             "total_latency_p95_s": pct(total, 95),
         }
-
-
-def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``jax.lax.top_k`` semantics: the k largest along the last axis,
-    descending, ties broken toward the lower index.  ``torch.topk`` promises
-    no tie order on CUDA, so this is a stable descending sort."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 class ServingEngine:
@@ -635,8 +631,16 @@ class ServingEngine:
 
         ``beam``, ``prefix_cache``, ``overcommit > 1``, ``prefill_chunk``,
         ``chaos`` and ``speculative_k`` raise ``NotImplementedError``: they
-        are not ported yet.
+        are not ported yet.  So does a model without ``encode_cross_kv``
+        (the decoder-only family), which the reference's ``serve`` does not
+        take either.
         """
+        if not hasattr(self.model, "encode_cross_kv"):
+            raise NotImplementedError(
+                f"serve() needs an encoder-decoder model; "
+                f"{type(self.model).__name__} runs generate and "
+                "generate_beam only, as in the reference (ROADMAP Queue 1, "
+                "item 11)")
         if beam is not None:
             raise NotImplementedError(f"serve(beam=...): {_BEAM_SERVE} is "
                                       "not ported yet")

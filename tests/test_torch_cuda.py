@@ -22,12 +22,15 @@ from repro_torch.kernels.decode_attention import (
 )
 from repro_torch.core import quantize_block
 from repro_torch.kernels.int4_matmul import int4_matmul_cuda
-from repro_torch.kernels.int8_matmul import int8_matmul_cuda
+from repro_torch.kernels.int8_matmul import (
+    int8_matmul_batched_cuda,
+    int8_matmul_cuda,
+)
 from repro_torch.kernels.quantize import (
     quantize_rowwise_cuda,
     quantize_static_cuda,
 )
-from repro_torch.models import EncDecLM
+from repro_torch.models import DecoderLM, EncDecLM
 from repro_torch.models.kv_cache import linearize_pages
 from repro_torch.serving import ServingEngine
 
@@ -69,6 +72,27 @@ def test_int8_matmul_exact(gen, M, K, N):
         got = int8_matmul_cuda(a, a_s, b, b_s, zp, bias)
         want = ref.ref_int8_matmul(a, a_s, b, b_s, zp, bias)
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,M,K,N", [(32, 5, 1024, 512), (32, 20, 512, 1024),
+                                     (4, 37, 200, 72), (1, 1, 64, 48),
+                                     (3, 33, 130, 130)])
+def test_int8_matmul_batched_equals_plain(gen, out_dtype, E, M, K, N):
+    """K7 against ``ref_int8_matmul_batched`` bit for bit: granite-moe's
+    decode shapes, ragged M, K and N, one expert, per-row and scalar
+    activation scales."""
+    a = torch.randint(-127, 128, (E, M, K), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (E, K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    a_s = torch.rand((E, M, 1), generator=gen, device="cuda") * 0.05
+    b_s = torch.rand((E, 1, N), generator=gen, device="cuda") * 0.05
+    for scale in (a_s, 0.0123, torch.full((1, 1, 1), 0.02, device="cuda")):
+        got = int8_matmul_batched_cuda(a, scale, b, b_s, out_dtype=out_dtype)
+        want = ref.ref_int8_matmul_batched(a, scale, b, b_s,
+                                           out_dtype=out_dtype)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
@@ -205,5 +229,13 @@ def test_engine_runs_through_every_kernel(gen):
                              weight_bits=4)
     ServingEngine(model, qp, quant=ctx, max_len=32).generate(
         batch, max_new_tokens=4)
+    # the decoder-only MoE model runs K7
+    cfg = get_config("granite-moe-1b-a400m").reduced(vocab=512,
+                                                      dtype="bfloat16")
+    moe_model = DecoderLM(cfg)
+    qp, ctx = quantize_model(moe_model.init(gen), {},
+                             QuantPolicy(act_quant="dynamic"))
+    ServingEngine(moe_model, qp, quant=ctx, max_len=48).generate(
+        {"tokens": src, "lengths": lens}, max_new_tokens=4)
     assert all(n > 0 for n in ops.launch_counts().values()), \
         ops.launch_counts()
