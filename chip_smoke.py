@@ -13,11 +13,14 @@ final line):
    against its plain PyTorch version on the card, with its time, the plain
    version's, a library call's where one computes the same function, and
    its bound; K1-K4 at the enc-dec and the MoE shapes (K4 with 16 heads
-   over 8 KV heads for the MoE model); K5 (paged decode attention) also
-   against K4 on the linearized cache, bit for bit; K6 (the INT4-weight
-   matmul) beside K3's time at the same shape; K7 (the grouped expert
-   GEMM) bit for bit at the rows per expert of every MoE forward pass
-   (greedy and beam-4 decode and prefill), f32 and bf16;
+   over 8 KV heads for the MoE model); K3 (the INT8 GEMM tile) bit for
+   bit, f32 and bf16, also at shapes that reach both tile configurations
+   and a split of K, with a cold-L2 time beside the warm one; K5 (paged
+   decode attention) also against K4 on the linearized cache, bit for
+   bit; K6 (the INT4-weight matmul) beside K3's time at the same shape;
+   K7 (the grouped expert GEMM, K3's tile) bit for bit at the rows per
+   expert of every MoE forward pass (greedy and beam-4 decode and
+   prefill), f32 and bf16, warm and cold;
 4. end to end — transformer-base at full width (bf16 activations, float32
    weights from ``torch.Generator`` seed 0): after a two-token warm-up,
    KL-calibrate, quantize to INT8, greedy ``generate`` and beam-4
@@ -59,6 +62,7 @@ It imports nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -151,6 +155,23 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+L2_BYTES = 50 * 2 ** 20        # H100 L2 cache
+
+
+def cold_ms(fn, w, other_bytes: int = 0) -> float:
+    """Device milliseconds per call of ``fn(w_i)`` over rotating copies of
+    the weights ``w``, enough that more than twice the L2 (50 MB) passes
+    between two uses of one copy: the weights are read cold, as on the real
+    path, which streams every layer's weights once per step."""
+    per_call = w.numel() * w.element_size() + other_bytes
+    n = math.ceil(2 * L2_BYTES / per_call) + 1
+    copies = [w.clone() for _ in range(n)]
+    it = itertools.cycle(copies)
+    ms = time_ms(lambda: fn(next(it)), iters=n, warmup=n)
+    del copies
+    return ms
+
+
 def bound(bytes_moved: float, ops: float, ops_per_s: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
@@ -181,7 +202,7 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
     from repro_torch.core import quantize_block
     from repro_torch.kernels.int4_matmul import int4_matmul_cuda
     from repro_torch.kernels.int8_matmul import (int8_matmul_batched_cuda,
-                                                 int8_matmul_cuda)
+                                                 int8_matmul_cuda, plan)
     from repro_torch.kernels.quantize import (quantize_rowwise_cuda,
                                               quantize_static_cuda)
     from repro_torch.models.kv_cache import linearize_pages
@@ -236,12 +257,18 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
             time_ms(lambda: quantize_rowwise_cuda(x)),
             time_ms(lambda: ref.ref_quantize_rowwise(x)), b, o, None))
 
-    # K3: exact s32 accumulator; epilogue in the reference's op order.
-    # The MoE path's q and o are d_model -> d_model, its k and v
-    # d_model -> n_kv_heads · hd
+    # K3: exact s32 accumulator; f32 and bf16 outputs equal to the plain
+    # version bit for bit (the same accumulator, the epilogue in the
+    # reference's op order, one rounding to bf16).  The MoE path's q and o
+    # are d_model -> d_model, its k and v d_model -> n_kv_heads · hd; the
+    # last shapes reach both tile configurations and the split of K
+    # (kernels/int8_matmul.py:plan).  Library: torch._int_mm without the
+    # epilogue, M padded to 17 where it wants more than 16 rows.
     for M, K, N in ([(M, K, N) for M in rows_m
                      for K, N in ((512, 512), (512, 2048), (2048, 512))]
-                    + [(M, d_moe, N) for M in moe_m for N in (d_moe, d_kv)]):
+                    + [(M, d_moe, N) for M in moe_m for N in (d_moe, d_kv)]
+                    + [(M, K, 512) for M in (1, 17, 65)
+                       for K in (1024, 2048)]):
         a = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
                           dtype=torch.int8)
         w = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
@@ -256,34 +283,29 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
         if not torch.equal(acc.double(), exact.float().double()):
             raise AssertionError(f"int8_matmul accumulator differs at "
                                  f"{(M, K, N)}")
-        f32 = int8_matmul_cuda(a, a_scale, w, b_scale, None, bias)
-        f32_ref = ref.ref_int8_matmul(a, a_scale, w, b_scale, None, bias)
-        rel = float(((f32 - f32_ref).abs()
-                     / f32_ref.abs().clamp_min(1e-30)).max())
-        if rel > 1e-6:
-            raise AssertionError(f"int8_matmul epilogue rel err {rel} at "
-                                 f"{(M, K, N)}")
-        run = lambda: int8_matmul_cuda(a, a_scale, w, b_scale, None, bias,
-                                       out_dtype=torch.bfloat16)
-        out = run()
-        out_ref = ref.ref_int8_matmul(a, a_scale, w, b_scale, None, bias,
-                                      out_dtype=torch.bfloat16)
-        err = float((out.float() - out_ref.float()).abs().max())
-        # at most one bf16 ulp (the f32 epilogues agree to 1e-6)
-        if not torch.allclose(out.float(), out_ref.float(), atol=0,
-                              rtol=2.0 ** -7):
-            raise AssertionError(f"int8_matmul bf16 output differs at "
-                                 f"{(M, K, N)}: {err}")
-        lib_ms = None
-        if M > 16:                  # torch._int_mm wants M > 16
-            lib_ms = time_ms(lambda: torch._int_mm(a, w))
+        for dt in (torch.float32, torch.bfloat16):
+            got = int8_matmul_cuda(a, a_scale, w, b_scale, None, bias,
+                                   out_dtype=dt)
+            want = ref.ref_int8_matmul(a, a_scale, w, b_scale, None, bias,
+                                       out_dtype=dt)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"int8_matmul {dt} differs at {(M, K, N)} by "
+                    f"{float((got.float() - want.float()).abs().max())}")
+        run = lambda wi=w: int8_matmul_cuda(a, a_scale, wi, b_scale, None,
+                                            bias, out_dtype=torch.bfloat16)
+        a_lib = torch.nn.functional.pad(a, (0, 0, 0, max(0, 17 - M)))
+        lib_ms = time_ms(lambda: torch._int_mm(a_lib, w))
         b, o = bound(M * K + K * N + M * 4 + N * 8 + M * N * 2,
                      2 * M * N * K, INT8_OPS_PER_S)
-        results.setdefault("int8_matmul", []).append(row(
-            "int8_matmul", [M, K, N], err, time_ms(run),
-            time_ms(lambda: ref.ref_int8_matmul(
-                a, a_scale, w, b_scale, None, bias,
-                out_dtype=torch.bfloat16)), b, o, lib_ms))
+        r = row("int8_matmul", [M, K, N], 0.0, time_ms(run),
+                time_ms(lambda: ref.ref_int8_matmul(
+                    a, a_scale, w, b_scale, None, bias,
+                    out_dtype=torch.bfloat16)), b, o, lib_ms)
+        r["cold_ms"] = cold_ms(run, w, M * K + M * N * 2)
+        r["tile"] = dataclasses.asdict(plan(1, M, N, K))
+        log(f"  cold_ms={r['cold_ms']:.4f} tile={r['tile']}")
+        results.setdefault("int8_matmul", []).append(r)
 
     # K7: the grouped expert GEMM of the MoE FFN at granite-moe's shapes:
     # 32 experts, gate/up 1024 -> 512 and down 512 -> 1024, at the rows
@@ -312,8 +334,8 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
                             f"int8_matmul_batched {dt} differs at "
                             f"{(E, M, K, N)} by "
                             f"{float((got.float() - want.float()).abs().max())}")
-            run = lambda: int8_matmul_batched_cuda(a, a_scale, w, b_scale,
-                                                   out_dtype=torch.bfloat16)
+            run = lambda wi=w: int8_matmul_batched_cuda(
+                a, a_scale, wi, b_scale, out_dtype=torch.bfloat16)
             a_lib = a if M > 16 else torch.nn.functional.pad(
                 a, (0, 0, 0, 17 - M))
             # 32 launches a call: ten calls keep the launch queue short
@@ -322,11 +344,14 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
                                       for e in range(E)], iters=10)
             b, o = bound(E * (M * K + K * N + M * 4 + N * 4 + M * N * 2),
                          2 * E * M * N * K, INT8_OPS_PER_S)
-            results.setdefault("int8_matmul_batched", []).append(row(
-                "int8_matmul_batched", [E, M, K, N], 0.0, time_ms(run),
-                time_ms(lambda: ref.ref_int8_matmul_batched(
-                    a, a_scale, w, b_scale, out_dtype=torch.bfloat16)),
-                b, o, lib_ms))
+            r = row("int8_matmul_batched", [E, M, K, N], 0.0, time_ms(run),
+                    time_ms(lambda: ref.ref_int8_matmul_batched(
+                        a, a_scale, w, b_scale, out_dtype=torch.bfloat16)),
+                    b, o, lib_ms)
+            r["cold_ms"] = cold_ms(run, w, a.numel() + E * M * N * 2)
+            r["tile"] = dataclasses.asdict(plan(E, M, N, K))
+            log(f"  cold_ms={r['cold_ms']:.4f} tile={r['tile']}")
+            results.setdefault("int8_matmul_batched", []).append(r)
 
     # K6: the INT4-weight matmul at the decode shapes of the INT4 sites;
     # f32 out must equal the plain version, bf16 within one bf16 ulp.  No
@@ -974,8 +999,11 @@ def profile_moe(model, qparams, qctx, batch) -> None:
     engine = ServingEngine(model, qparams, quant=qctx, max_len=MOE_MAX_LEN)
     busy, rows = profile("moe_greedy_dynamic", lambda: engine.generate(
         batch, max_new_tokens=MAX_NEW).steps)
+    # K7: int8_matmul_batched_kernel (+ _reduce_kernel); K3: int8_matmul_
+    # kernel and int8_matmul_reduce_kernel
     k7 = sum(ms for ms, key, _ in rows if "int8_matmul_batched" in key)
-    k3 = sum(ms for ms, key, _ in rows if "int8_matmul_kernel" in key)
+    k3 = sum(ms for ms, key, _ in rows if "int8_matmul_kernel" in key
+             or "int8_matmul_reduce_kernel" in key)
     log(f"  K7 device time {k7:.2f} ms = {k7 / busy:.3f} of busy; "
         f"K3 {k3:.2f} ms = {k3 / busy:.3f}")
 
@@ -1143,7 +1171,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             "path": paths[name][0],
-            **({"k3_ms": r["k3_ms"]} if "k3_ms" in r else {})})
+            **{k: r[k] for k in ("k3_ms", "cold_ms", "tile") if k in r}})
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "

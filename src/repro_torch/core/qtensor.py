@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 INT8_MIN = -127  # symmetric: avoid -128 so |q| <= 127
@@ -56,6 +57,11 @@ def _expand(param: Param, axis: Optional[int], ndim: int) -> Param:
 
 def _f32(v, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=like.device)
+
+
+# float32(1/127): the reference's jitted programs scale an abs-max by it
+# (XLA rewrites ``amax / 127`` into ``amax * float32(1/127)``)
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
 
 
 def div_exact(t: torch.Tensor, s: float) -> torch.Tensor:

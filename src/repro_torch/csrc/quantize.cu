@@ -13,10 +13,17 @@
 // registers and shared memory, so its row is read twice from L1/L2 but
 // written once, and no intermediate ever goes to device memory.
 //
-// Exactness: the codes must equal the reference's bit for bit, so the scale
-// is computed here in f32 as max(amax, 1e-12) / 127 (quantize.py:73), the
-// division x / scale is the IEEE one (__fdiv_rn, never a reciprocal
-// multiply) and rounding is half to even (rintf).  Build without fast math.
+// Exactness: the codes and scales must equal the reference's bit for bit
+// as its engine computes them, jitted (XLA folds the calibrated scale and
+// rewrites a division by a constant into a multiply by its f32 reciprocal;
+// counted against jax.jit of the reference's prefill and decode_step in
+// tests/test_torch_jit_forms.py).  So K1 computes scale = max(amax, 1e-12)
+// / 127 (quantize.py:73) and its reciprocal inv = 1 / scale in f32, both
+// IEEE divisions (__fdiv_rn), and the codes rint(x * inv) (__fmul_rn); K2
+// computes the row scale max(amax, 1e-12) * f32(1/127) (__fmul_rn) and the
+// codes rint(x / scale) with the IEEE division (__fdiv_rn, a division by a
+// tensor, which XLA keeps).  Rounding is half to even (rintf).  Build
+// without fast math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -26,15 +33,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr float kInt8Max = 127.0f;
+constexpr float kInv127 = 1.0f / 127.0f;   // f32(1/127), rounded once
 constexpr float kEps = 1e-12f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-__device__ __forceinline__ int8_t quantize_one(float x, float scale) {
-  float q = rintf(__fdiv_rn(x, scale));
-  q = fminf(fmaxf(q, -kInt8Max), kInt8Max);
-  return static_cast<int8_t>(q);
+__device__ __forceinline__ int8_t clip_code(float q) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(q), -kInt8Max), kInt8Max));
 }
 
 template <typename T>
@@ -42,11 +48,12 @@ __global__ void __launch_bounds__(kThreads)
 quantize_static_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
                        long long K, float amax) {
   const float scale = __fdiv_rn(fmaxf(amax, kEps), kInt8Max);
+  const float inv = __fdiv_rn(1.0f, scale);
   const long long row = blockIdx.x;
   const T* xr = x + row * K;
   int8_t* qr = q + row * K;
   for (long long k = threadIdx.x; k < K; k += blockDim.x) {
-    qr[k] = quantize_one(to_f32(xr[k]), scale);
+    qr[k] = clip_code(__fmul_rn(to_f32(xr[k]), inv));
   }
 }
 
@@ -79,10 +86,10 @@ quantize_rowwise_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
     if (lane == 0) warp_max[0] = m;
   }
   __syncthreads();
-  const float scale = __fdiv_rn(fmaxf(warp_max[0], kEps), kInt8Max);
+  const float scale = __fmul_rn(fmaxf(warp_max[0], kEps), kInv127);
   if (tid == 0) scale_out[row] = scale;
   for (long long k = tid; k < K; k += blockDim.x) {
-    qr[k] = quantize_one(to_f32(xr[k]), scale);
+    qr[k] = clip_code(__fdiv_rn(to_f32(xr[k]), scale));
   }
 }
 

@@ -46,9 +46,9 @@ _SIGNATURES = {
     "repro_quantize_static": [_P, _P, _L, _L, _F, _I, _I, _P],
     "repro_quantize_rowwise": [_P, _P, _P, _L, _L, _I, _I, _P],
     "repro_int8_matmul": [_P, _P, _P, _F, _I, _P, _P, _F, _I, _P, _P, _I, _I,
-                          _I, _I, _I, _P],
+                          _I, _I, _I, _I, _I, _P, _I, _P],
     "repro_int8_matmul_batched": [_P, _P, _P, _F, _I, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _P],
+                                  _I, _I, _I, _I, _P, _I, _P],
     "repro_int4_matmul": [_P, _P, _P, _F, _I, _P, _P, _I, _P, _F, _I, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _P],
     "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -2,11 +2,15 @@
 
 Each ``ref_*`` function computes its kernel's result with plain torch ops at
 full (exact integer / float32) precision, mirroring
-``repro/kernels/ref.py``.  Every division by a scale is an IEEE division on
-every device (``div_exact``; see ``core/qtensor.py``).  The CPU path of
-:mod:`repro_torch.kernels.ops` runs these, the tests hold them against the
-JAX package, and ``chip_smoke.py`` holds each CUDA kernel against them on
-the card.
+``repro/kernels/ref.py`` in the form the reference's engine computes it
+under ``jax.jit`` (XLA folds a calibrated scale into the weight scales and
+rewrites a division by a constant into a multiply by its float32
+reciprocal; ``tests/test_torch_jit_forms.py`` counts the sites against the
+jitted engine).  Every remaining division is an IEEE division on every
+device (``div_exact``/``rdiv_exact``; see ``core/qtensor.py``).  The CPU
+path of :mod:`repro_torch.kernels.ops` runs these, the tests hold them
+against the JAX package, and ``chip_smoke.py`` holds each CUDA kernel
+against them on the card.
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.core.qtensor import div_exact, unpack_nibbles
+from repro_torch.core.qtensor import (INV_127, div_exact, rdiv_exact,
+                                      unpack_nibbles)
 
 INT8_MAX = 127.0
 _EPS = 1e-12
@@ -37,14 +42,20 @@ def ref_int8_matmul(
     The s32 accumulator is formed in float64, where every partial sum of
     int8 products (< 2^25 here, < 2^53 in general) is an exact integer, so it
     equals the s32 sum on any device; rounding it to f32 is the reference's
-    int32 -> f32 conversion.
+    int32 -> f32 conversion.  A tensor activation scale (dynamic, per row)
+    multiplies first, ``(acc · a_scale) · b_scale``; a float one (a
+    calibrated constant) is folded into the weight scales first,
+    ``acc · (a_scale · b_scale)``, as XLA folds it in the jitted engine.
     """
     acc = torch.matmul(a_q.to(torch.float64), b_q.to(torch.float64))
     acc = acc.to(torch.float32)
     if a_zero_point is not None:
         colsum = b_q.to(torch.int32).sum(dim=0, keepdim=True).to(torch.float32)
         acc = acc - torch.as_tensor(a_zero_point, dtype=torch.float32) * colsum
-    out = acc * a_scale * b_scale
+    if isinstance(a_scale, torch.Tensor):
+        out = acc * a_scale * b_scale
+    else:
+        out = acc * (float(a_scale) * b_scale)
     if bias is not None:
         out = out + bias.to(torch.float32)
     return out.to(out_dtype)
@@ -134,21 +145,27 @@ def ref_int4_matmul(
 
 
 def ref_quantize_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dynamic symmetric row-wise quantization: (int8, (M, 1) f32 scales)."""
+    """Dynamic symmetric row-wise quantization: (int8, (M, 1) f32 scales).
+    The scale is ``amax · float32(1/127)`` and the codes ``round(x / scale)``
+    (an IEEE division by a tensor), as the jitted reference computes them."""
     xf = x.to(torch.float32)
     amax = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), _EPS)
-    scale = div_exact(amax, INT8_MAX)
+    scale = amax * INV_127
     q = torch.clamp(torch.round(xf / scale), -INT8_MAX, INT8_MAX)
     return q.to(torch.int8), scale
 
 
 def ref_quantize_static(x: torch.Tensor, amax: Scale) -> torch.Tensor:
-    """Static-scale symmetric quantization (calibrated threshold)."""
+    """Static-scale symmetric quantization (calibrated threshold): the
+    codes ``round(x · inv)`` with ``scale = max(amax, eps) / 127`` and
+    ``inv = 1 / scale``, both IEEE divisions in float32, as the jitted
+    reference computes them (a division by a constant becomes a multiply
+    by its reciprocal)."""
     amax = (amax.to(device=x.device, dtype=torch.float32)
             if isinstance(amax, torch.Tensor)
             else torch.full((), float(amax), device=x.device))
-    scale = div_exact(torch.clamp_min(amax, _EPS), INT8_MAX)
-    q = torch.clamp(torch.round(x.to(torch.float32) / scale),
+    inv = rdiv_exact(1.0, div_exact(torch.clamp_min(amax, _EPS), INT8_MAX))
+    q = torch.clamp(torch.round(x.to(torch.float32) * inv),
                     -INT8_MAX, INT8_MAX)
     return q.to(torch.int8)
 

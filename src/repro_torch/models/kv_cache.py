@@ -28,7 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.qtensor import div_exact
+from repro_torch.core.qtensor import INV_127
 
 INT8_MAX = 127.0
 _EPS = 1e-12
@@ -79,11 +79,12 @@ def init_cache(n_layers: int, batch: int, max_len: int, n_kv: int, dh: int,
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token per-head symmetric quantization: (…, dh) → int8 + scale.
 
-    IEEE division and round-half-to-even, so the codes equal the
-    reference's bit for bit."""
+    The scale is ``amax · float32(1/127)`` (the reference's ``amax / 127``
+    as its jitted engine computes it), the codes an IEEE division by it
+    rounded half to even, so both equal the engine's bit for bit."""
     xf = x.to(torch.float32)
     amax = torch.clamp_min(xf.abs().amax(dim=-1), _EPS)
-    scale = div_exact(amax, INT8_MAX)
+    scale = amax * INV_127
     q = torch.clamp(torch.round(xf / scale[..., None]), -INT8_MAX, INT8_MAX)
     return q.to(torch.int8), scale
 

@@ -26,13 +26,9 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.calibration import Taps, record
 from repro_torch.core.ptq import FP_CONTEXT, QuantContext
-from repro_torch.core.qtensor import QTensor
+from repro_torch.core.qtensor import INV_127, QTensor
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense, dense_init, top_k
-
-# float32(1/127): inside the reference's jitted programs XLA turns the
-# dynamic scale ``amax / 127.0`` into ``amax * float32(1/127)``
-_INV_127 = float(np.float32(1.0) / np.float32(127.0))
 
 # a static site's weight scales times its activation scale, kept per
 # weight-scale tensor (by identity) and activation scale: the product
@@ -94,7 +90,7 @@ def _expert_dense(node, x: torch.Tensor, *, site: str, quant: QuantContext,
             E, _, N = w.data.shape
             b_scale = w.scale.reshape(E, 1, N)
             amax = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-12)
-            a_scale = amax * _INV_127
+            a_scale = amax * INV_127
             q = torch.clamp(torch.round(xf / a_scale), -127, 127)
         xq = QTensor(q.to(torch.int8), a_scale, 0.0, None)
         wq = QTensor(w.data, b_scale, 0.0, None)

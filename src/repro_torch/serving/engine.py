@@ -203,6 +203,16 @@ class ServingEngine:
 
     # ------------------------------------------------------------------ util
     @staticmethod
+    def _check_speculative(fn: str, speculative_k: Optional[int]) -> None:
+        spec = int(speculative_k or 0)
+        if spec < 0:
+            raise ValueError(f"speculative_k must be >= 0, got {spec}")
+        if spec:
+            raise NotImplementedError(
+                f"{fn}(speculative_k=...): speculative decoding (ROADMAP "
+                "Queue 1, item 8) is not ported yet")
+
+    @staticmethod
     def _check_burst(k) -> int:
         if isinstance(k, str):
             if k == "auto":
@@ -358,7 +368,11 @@ class ServingEngine:
     # ---------------------------------------------------------------- greedy
     def generate(self, batch: Dict[str, np.ndarray], *,
                  max_new_tokens: int = 64,
-                 burst_len: Optional[int] = None) -> GenerationResult:
+                 burst_len: Optional[int] = None,
+                 speculative_k: Optional[int] = None) -> GenerationResult:
+        """Greedy decode of a batch.  ``speculative_k`` (self-speculative
+        decoding) raises ``NotImplementedError``: it is not ported yet."""
+        self._check_speculative("generate", speculative_k)
         K = self._check_burst(self.burst_len if burst_len is None
                               else burst_len)
         batch = self._device_batch(batch)
@@ -478,13 +492,13 @@ class ServingEngine:
                              "Request ids must not collide)")
         return out
 
-    def _enc_bucket(self, reqs: Sequence[Request]) -> int:
+    def _enc_bucket(self, reqs: Sequence[Request], m: int) -> int:
         """Admission ``enc_len``: the serve's longest source rounded up to a
-        multiple of 8, then to a power of two held monotone across serves
-        on this engine (the reference's default bucketing; padding is
-        masked)."""
+        multiple of ``m`` (``pad_to_multiple``), then to a power of two held
+        monotone across serves on this engine (the reference's default
+        bucketing; padding is masked)."""
         enc_len = max(r.n_src_tokens for r in reqs)
-        enc_len = ((enc_len + 7) // 8) * 8
+        enc_len = ((enc_len + m - 1) // m) * m
         self._enc_bucket_hwm = max(self._enc_bucket_hwm, next_pow2(enc_len))
         return self._enc_bucket_hwm
 
@@ -605,8 +619,12 @@ class ServingEngine:
 
     def serve(self, requests: Sequence[Any], *, n_slots: int = 8,
               max_new_tokens: Union[int, Sequence[int]] = 64,
+              prefill_token_budget: Optional[int] = None,
+              admit_min_free: int = 1,
+              pad_to_multiple: int = 8,
               burst_len: Optional[int] = None,
               beam: Optional[Union[int, Sequence[int]]] = None,
+              alpha: float = 0.6,
               fused_admission: bool = True,
               prefix_cache: Optional[bool] = None,
               overcommit: float = 1.0,
@@ -628,6 +646,13 @@ class ServingEngine:
         ``fused_admission=False`` runs each admission round as a separate
         prefill plus a first-token drain (``prefill_dispatches`` counts
         them); the token streams are the same.
+
+        As in the reference: ``prefill_token_budget`` caps the source
+        tokens a round admits (the scheduler's token budget);
+        ``admit_min_free`` is admission hysteresis (a round waits until
+        that many slots are free, or as many as there are waiting requests);
+        ``pad_to_multiple`` rounds the admission ``enc_len`` before its
+        power-of-two bucket; ``alpha`` is beam serving's length penalty.
 
         ``beam``, ``prefix_cache``, ``overcommit > 1``, ``prefill_chunk``,
         ``chaos`` and ``speculative_k`` raise ``NotImplementedError``: they
@@ -652,13 +677,11 @@ class ServingEngine:
             raise ValueError(f"overcommit must be >= 1.0, got {overcommit}")
         for name, value in (("overcommit", overcommit > 1.0),
                             ("prefill_chunk", prefill_chunk is not None),
-                            ("chaos", chaos is not None),
-                            ("speculative_k", bool(speculative_k))):
+                            ("chaos", chaos is not None)):
             if value:
-                what = (_OVERLOAD if name != "speculative_k" else
-                        "speculative decoding (ROADMAP Queue 1, item 8)")
-                raise NotImplementedError(f"serve({name}=...): {what} is "
-                                          "not ported yet")
+                raise NotImplementedError(f"serve({name}=...): {_OVERLOAD} "
+                                          "is not ported yet")
+        self._check_speculative("serve", speculative_k)
         K = self._check_burst(self.burst_len if burst_len is None
                               else burst_len)
         reqs = self._as_requests(requests, max_new_tokens)
@@ -671,7 +694,7 @@ class ServingEngine:
         if max(r.max_new_tokens for r in reqs) > self.max_len:
             raise ValueError("a request's max_new_tokens exceeds the "
                              f"engine KV capacity {self.max_len}")
-        enc_len = self._enc_bucket(reqs)
+        enc_len = self._enc_bucket(reqs, pad_to_multiple)
         allocator = None
         if self.paged:
             allocator = self._make_allocator(n_slots)
@@ -682,7 +705,8 @@ class ServingEngine:
                         f"request {r.req_id} needs {need} pages but the "
                         f"pool holds {allocator.n_pages}")
         sched = ContinuousScheduler(
-            n_slots, allocator=allocator,
+            n_slots, prefill_token_budget=prefill_token_budget,
+            allocator=allocator,
             pages_per_request=self._pages_per_request if allocator else None)
         sched.submit_many(reqs)
         state = self.model.init_decode_state(
@@ -725,7 +749,9 @@ class ServingEngine:
 
         while not sched.all_done:
             plan = None
-            want_admit = sched.n_waiting and sched.n_free
+            want_admit = (sched.n_waiting and sched.n_free >=
+                          min(max(admit_min_free, 1), sched.n_waiting,
+                              n_slots))
             if want_admit and fused_admission:
                 plan = sched.plan_admission(now(), step=decode_steps,
                                             enc_len=enc_len, oob_row=n_slots)

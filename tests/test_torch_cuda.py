@@ -23,8 +23,10 @@ from repro_torch.kernels.decode_attention import (
 from repro_torch.core import quantize_block
 from repro_torch.kernels.int4_matmul import int4_matmul_cuda
 from repro_torch.kernels.int8_matmul import (
+    Plan,
     int8_matmul_batched_cuda,
     int8_matmul_cuda,
+    plan,
 )
 from repro_torch.kernels.quantize import (
     quantize_rowwise_cuda,
@@ -71,7 +73,103 @@ def test_int8_matmul_exact(gen, M, K, N):
     for zp in (None, 3.0):
         got = int8_matmul_cuda(a, a_s, b, b_s, zp, bias)
         want = ref.ref_int8_matmul(a, a_s, b, b_s, zp, bias)
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        assert torch.equal(got, want)
+
+
+# rows that reach both tile configurations, ragged M tiles and K splits
+TILE_M = (1, 5, 16, 17, 64, 65, 300)
+
+
+def _int8_operands(gen, E, M, K, N):
+    a = torch.randint(-127, 128, (E, M, K), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (E, K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    a_s = torch.rand((E, M, 1), generator=gen, device="cuda") * 0.05
+    b_s = torch.rand((E, 1, N), generator=gen, device="cuda") * 0.05
+    return a, b, a_s, b_s
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [48, 130, 512])
+@pytest.mark.parametrize("K", [64, 130, 1024, 2048])
+def test_int8_matmul_tile_equals_plain(gen, K, N, out_dtype):
+    """K3 bit for bit against ``ref_int8_matmul`` at every M of ``TILE_M``
+    (the small and the large tile, split and unsplit K, 16-byte and 1-byte
+    loads), with the zero point and the bias on and off."""
+    for M in TILE_M:
+        a, b, a_s, b_s = (t[0] for t in _int8_operands(gen, 1, M, K, N))
+        bias = torch.randn((N,), generator=gen, device="cuda")
+        for zp, bi in ((None, None), (3.0, bias), (None, bias), (-2.5, None)):
+            got = int8_matmul_cuda(a, a_s, b, b_s, zp, bi,
+                                   out_dtype=out_dtype)
+            want = ref.ref_int8_matmul(a, a_s, b, b_s, zp, bi,
+                                       out_dtype=out_dtype)
+            assert torch.equal(got, want), (M, K, N, zp, bi is not None,
+                                            plan(1, M, N, K))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [48, 130, 512])
+@pytest.mark.parametrize("K", [64, 130, 1024, 2048])
+def test_int8_matmul_batched_tile_equals_plain(gen, K, N, out_dtype):
+    """K7 bit for bit at the same shapes, three experts, per-row and
+    scalar activation scales."""
+    for M in TILE_M:
+        a, b, a_s, b_s = _int8_operands(gen, 3, M, K, N)
+        for scale in (a_s, 0.0123):
+            got = int8_matmul_batched_cuda(a, scale, b, b_s,
+                                           out_dtype=out_dtype)
+            want = ref.ref_int8_matmul_batched(a, scale, b, b_s,
+                                               out_dtype=out_dtype)
+            assert torch.equal(got, want), (M, K, N, plan(3, M, N, K))
+
+
+def _forced_tiles(M, K):
+    bm = min(64, 16 * -(-M // 16))
+    tiles = [Plan("small", bm, 64, 128, 1, K),
+             Plan("large", 128, 128, 64, 1, K)]
+    for per in (2, 3):
+        if K // (per * 128) >= 2:
+            tiles.append(Plan("small", bm, 64, 128, K // (per * 128),
+                              per * 128))
+    return tiles
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 1024, 512), (17, 130, 130),
+                                   (65, 2048, 512), (300, 1024, 130)])
+def test_int8_matmul_every_configuration_equals_plain(gen, M, K, N):
+    """Every configuration and split, forced at shapes ``plan`` gives to
+    another, is the same product bit for bit (K3 and K7)."""
+    a, b, a_s, b_s = _int8_operands(gen, 2, M, K, N)
+    bias = torch.randn((N,), generator=gen, device="cuda")
+    want3 = ref.ref_int8_matmul(a[0], a_s[0], b[0], b_s[0], 1.5, bias,
+                                out_dtype=torch.bfloat16)
+    want7 = ref.ref_int8_matmul_batched(a, a_s, b, b_s)
+    for tile in _forced_tiles(M, K):
+        got = int8_matmul_cuda(a[0], a_s[0], b[0], b_s[0], 1.5, bias,
+                               out_dtype=torch.bfloat16, tile=tile)
+        assert torch.equal(got, want3), tile
+        assert torch.equal(int8_matmul_batched_cuda(a, a_s, b, b_s,
+                                                    tile=tile), want7), tile
+
+
+def test_int8_matmul_launches_counted_once(gen):
+    """One launch per wrapper call, split (two kernels) or not."""
+    for E, M, K, N in ((1, 16, 2048, 512), (1, 300, 512, 512),
+                       (2, 5, 2048, 512), (2, 230, 1024, 512)):
+        a, b, a_s, b_s = _int8_operands(gen, E, M, K, N)
+        ops.reset_launch_counts()
+        if E == 1:
+            int8_matmul_cuda(a[0], a_s[0], b[0], b_s[0])
+            key = "int8_matmul"
+        else:
+            int8_matmul_batched_cuda(a, a_s, b, b_s)
+            key = "int8_matmul_batched"
+        counts = ops.launch_counts()
+        assert counts[key] == 1 and sum(counts.values()) == 1, counts
+    assert plan(1, 16, 512, 2048).splits > 1
+    assert plan(2, 5, 512, 2048).splits > 1
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])

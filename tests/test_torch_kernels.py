@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.core.qtensor import QTensor as JQTensor
@@ -77,23 +78,28 @@ def test_quantize_static_bf16_input(impl):
 @pytest.mark.parametrize("kind", ["normal", "half"])
 @pytest.mark.parametrize("M", [1, 12, 37])
 def test_quantize_rowwise_codes_and_scales_equal(impl, kind, M):
-    """Scales are bit-equal to the reference's plain version (an IEEE
-    ``amax / 127``).  Its Pallas kernel run in interpret mode computes
-    ``amax * (1/127)`` instead (XLA rewrites the division by a constant), so
-    against it a scale may sit one ulp away; the codes agree either way."""
+    """Codes and scales are bit-equal to the reference's as its engine runs
+    it, jitted: XLA rewrites the division ``amax / 127`` of the plain
+    version into ``amax * float32(1/127)``, which the Pallas kernel in
+    interpret mode computes too (``tests/test_torch_jit_forms.py``)."""
     x = _inputs(kind, M, 80, seed=100 + M)
-    want = jops.quantize_rowwise(jnp.asarray(x), impl=impl)
+    if impl == "xla":
+        want = jax.jit(lambda v: jops.quantize_rowwise(v, impl="xla"))(
+            jnp.asarray(x))
+    else:
+        want = jops.quantize_rowwise(jnp.asarray(x), impl=impl)
     got = ops.quantize_rowwise(torch.from_numpy(x))
     np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
     ulps = np.abs(got.scale.numpy().view(np.int32).astype(np.int64)
                   - np.asarray(want.scale).view(np.int32).astype(np.int64))
-    assert ulps.max() <= (0 if impl == "xla" else 1), ulps.max()
+    assert ulps.max() == 0, ulps.max()
 
 
 def test_quantize_rowwise_flattens_leading_dims():
     x = _inputs("normal", 6, 32, seed=7).reshape(2, 3, 32)
     got = ops.quantize_rowwise(torch.from_numpy(x))
-    want = jops.quantize_rowwise(jnp.asarray(x), impl="xla")
+    want = jax.jit(lambda v: jops.quantize_rowwise(v, impl="xla"))(
+        jnp.asarray(x))
     assert tuple(got.data.shape) == (2, 3, 32)
     assert tuple(got.scale.shape) == (2, 3, 1)
     np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
@@ -141,16 +147,21 @@ def test_int8_matmul_epilogue(impl, per_row, zp, M, K, N):
     bias add into an FMA, which moves a result by up to one ulp of the
     scaled product; where the bias cancels that product, that ulp is large
     relative to the result, so against it each element may also be off by
-    2^-22 · |product|."""
+    2^-22 · |product|.  A scalar activation scale is a calibrated constant:
+    the jitted engine folds it into the weight scales first
+    (``acc · (a_scale · b_scale)``, ``tests/test_torch_jit_forms.py``), so
+    the reference gets it so folded, with unit activation scale."""
     a, b, a_scale, b_scale, bias = _mm_inputs(M, K, N, seed=7 * M + N)
     a_s = a_scale if per_row else np.float32(0.0123)
     aq = QTensor(torch.from_numpy(a),
                  torch.from_numpy(a_s) if per_row else float(a_s), zp)
     bq = QTensor(torch.from_numpy(b), torch.from_numpy(b_scale), 0.0)
     got = ops.int8_matmul(aq, bq, torch.from_numpy(bias)).numpy()
+    ja_s, jb_s = ((a_s, b_scale) if per_row
+                  else (np.float32(1.0), a_s * b_scale))
     want = np.asarray(jops.int8_matmul(
-        JQTensor(jnp.asarray(a), jnp.asarray(a_s), jnp.float32(zp)),
-        JQTensor(jnp.asarray(b), jnp.asarray(b_scale), jnp.float32(0.0)),
+        JQTensor(jnp.asarray(a), jnp.asarray(ja_s), jnp.float32(zp)),
+        JQTensor(jnp.asarray(b), jnp.asarray(jb_s), jnp.float32(0.0)),
         jnp.asarray(bias), impl=impl))
     tol = 1e-6 * np.abs(want)
     if impl == "interpret":
@@ -205,7 +216,7 @@ def test_decode_attention_matches(impl, H, HKV):
 def test_quantize_kv_codes_and_scales_equal(kind):
     x = _inputs(kind, 24, 16, seed=11).reshape(3, 2, 4, 16)
     q, s = kv.quantize_kv(torch.from_numpy(x))
-    jq, js = jkv.quantize_kv(jnp.asarray(x))
+    jq, js = jax.jit(jkv.quantize_kv)(jnp.asarray(x))     # as the engine runs
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(s.numpy().view(np.uint32),
                                   np.asarray(js).view(np.uint32))

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels import ops as jops
@@ -128,7 +129,9 @@ def test_append_paged_equals_reference(quantized, T, seed):
                            quantized=quantized)
     k_new = rng.standard_normal((B, T, HKV, DH)).astype(np.float32)
     v_new = rng.standard_normal((B, T, HKV, DH)).astype(np.float32)
-    jfn = jkv.append_token_paged if T == 1 else jkv.append_tokens_paged
+    # jitted, as the engine runs it (the scale is amax · float32(1/127))
+    jfn = jax.jit(jkv.append_token_paged if T == 1
+                  else jkv.append_tokens_paged)
     pfn = kv.append_token_paged if T == 1 else kv.append_tokens_paged
     for i in range(L):
         jk, jv, jks, jvs = jfn(

@@ -97,11 +97,14 @@ def served(trained_nmt):
     budgets = _budgets()
     engines, done = {}, {}
 
-    def run(side, mode, paged, fused, burst, n_pages=None):
-        key = (side, mode, paged, fused, burst, n_pages)
+    def run(side, mode, paged, fused, burst, n_pages=None, **serve_kw):
+        """``serve_kw``: more ``serve`` keywords; a run with any gets an
+        engine of its own (the admission bucket is kept per engine)."""
+        kw_key = tuple(sorted(serve_kw.items()))
+        key = (side, mode, paged, fused, burst, n_pages, kw_key)
         if key in done:
             return done[key]
-        ekey = (side, mode, paged, n_pages)
+        ekey = (side, mode, paged, n_pages, kw_key)
         if ekey not in engines:
             kw = dict(max_len=MAX_LEN, paged=paged, page_size=PAGE,
                       n_pages=n_pages)
@@ -115,7 +118,7 @@ def served(trained_nmt):
                                               device="cpu", **kw)
         res = engines[ekey].serve(requests, n_slots=N_SLOTS,
                                   max_new_tokens=budgets, burst_len=burst,
-                                  fused_admission=fused)
+                                  fused_admission=fused, **serve_kw)
         done[key] = ([[int(t) for t in res.tokens_for(i)]
                       for i in range(N_REQ)],
                      {c: getattr(res, c) for c in COUNTERS})
@@ -167,6 +170,29 @@ def test_tight_page_pool_matches_reference_engine(served, fused):
     _, roomy = served("port", "int8_static", True, fused, 8)
     assert got["peak_running"] < roomy["peak_running"]
     assert got_tokens == served("port", "int8_static", False, fused, 8)[0]
+
+
+# admission keywords the reference's serve takes: a source-token budget per
+# round, hysteresis (wait for 3 free slots) and enc_len padded to 16
+ADMISSION_KW = dict(prefill_token_budget=20, admit_min_free=3,
+                    pad_to_multiple=16)
+
+
+@pytest.mark.parametrize("paged,fused", [(False, True), (True, False)])
+def test_admission_keywords_match_reference_engine(served, paged, fused):
+    """``prefill_token_budget``, ``admit_min_free`` and ``pad_to_multiple``
+    behave as the reference's: the same tokens, decode steps, host syncs,
+    admission rounds and encoder tokens; and they change the admission
+    (the budget splits rounds: more of them than with the defaults).""" 
+    got_tokens, got = served("port", "int8_static", paged, fused, 8,
+                             **ADMISSION_KW)
+    want_tokens, want = served("ref", "int8_static", paged, fused, 8,
+                               **ADMISSION_KW)
+    assert got_tokens == want_tokens
+    assert got == want
+    _, default = served("port", "int8_static", paged, fused, 8)
+    assert got["prefill_rounds"] > default["prefill_rounds"]
+    assert got_tokens == served("port", "int8_static", paged, fused, 8)[0]
 
 
 def test_paged_and_contiguous_serve_agree(served):
@@ -280,6 +306,21 @@ def test_unported_serve_options_raise(kw):
     engine = ServingEngine(model, {}, max_len=16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.serve([np.arange(3, 8)], **kw)
+
+
+def test_generate_speculative_k_raises():
+    """``generate`` takes the reference's ``speculative_k`` and refuses it
+    as ``serve`` does, naming the ROADMAP item; ``alpha`` is accepted."""
+    model = EncDecLM(get_config("transformer-base").reduced(), device="cpu")
+    engine = ServingEngine(model, {}, max_len=16, device="cpu")
+    batch = {"src_tokens": np.ones((1, 4), np.int32),
+             "src_lengths": np.array([4], np.int32)}
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
+        engine.generate(batch, speculative_k=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
+        engine.serve([np.arange(3, 8)], speculative_k=2, alpha=0.8)
+    with pytest.raises(ValueError, match="speculative_k"):
+        engine.generate(batch, speculative_k=-1)
 
 
 @pytest.mark.parametrize("argv", [
