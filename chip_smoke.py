@@ -17,7 +17,9 @@ final line):
    bit, f32 and bf16, also at shapes that reach both tile configurations
    and a split of K, with a cold-L2 time beside the warm one; K5 (paged
    decode attention) also against K4 on the linearized cache, bit for
-   bit; K6 (the INT4-weight matmul) beside K3's time at the same shape;
+   bit; K6 (the INT4-weight matmul, K3's tile on packed nibbles) bit for
+   bit, f32 and bf16, also at shapes that reach each tile and its
+   group-ordered split, warm and cold, beside K3's time at the same shape;
    K7 (the grouped expert GEMM, K3's tile) bit for bit at the rows per
    expert of every MoE forward pass (greedy and beam-4 decode and
    prefill), f32 and bf16, warm and cold;
@@ -39,7 +41,8 @@ final line):
    scales; static activation scales): greedy and beam-4 ``generate`` and one
    paged ``serve`` of the 48 requests; K6 must launch and its plain version
    run 0 times, and the first decode steps' logits with the kernels must
-   match those with ``impl="torch"``;
+   match those with ``impl="torch"``; then a profiled greedy run (busy
+   time, idle share, K6's time and kernels);
 7. the decoder-only MoE family — granite-moe-1b-a400m at its published
    widths and depth (24 layers, 32 experts top-8; random weights from
    ``torch.Generator`` seed 0, bf16 activations) on 16 right-padded
@@ -156,18 +159,23 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 L2_BYTES = 50 * 2 ** 20        # H100 L2 cache
+COLD_ITERS = 200               # timed calls: two launches each stay queued
 
 
 def cold_ms(fn, w, other_bytes: int = 0) -> float:
     """Device milliseconds per call of ``fn(w_i)`` over rotating copies of
     the weights ``w``, enough that more than twice the L2 (50 MB) passes
     between two uses of one copy: the weights are read cold, as on the real
-    path, which streams every layer's weights once per step."""
+    path, which streams every layer's weights once per step.  One warm-up
+    pass touches every copy; then at most ``COLD_ITERS`` calls are timed,
+    each on a copy last used a whole pass earlier, so that small weights
+    (hundreds of copies) do not overflow the launch queue behind the
+    sleep."""
     per_call = w.numel() * w.element_size() + other_bytes
     n = math.ceil(2 * L2_BYTES / per_call) + 1
     copies = [w.clone() for _ in range(n)]
     it = itertools.cycle(copies)
-    ms = time_ms(lambda: fn(next(it)), iters=n, warmup=n)
+    ms = time_ms(lambda: fn(next(it)), iters=min(n, COLD_ITERS), warmup=n)
     del copies
     return ms
 
@@ -201,6 +209,7 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
         decode_attention_cuda, decode_attention_paged_cuda)
     from repro_torch.core import quantize_block
     from repro_torch.kernels.int4_matmul import int4_matmul_cuda
+    from repro_torch.kernels.int4_matmul import plan as plan4
     from repro_torch.kernels.int8_matmul import (int8_matmul_batched_cuda,
                                                  int8_matmul_cuda, plan)
     from repro_torch.kernels.quantize import (quantize_rowwise_cuda,
@@ -353,45 +362,58 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
             log(f"  cold_ms={r['cold_ms']:.4f} tile={r['tile']}")
             results.setdefault("int8_matmul_batched", []).append(r)
 
-    # K6: the INT4-weight matmul at the decode shapes of the INT4 sites;
-    # f32 out must equal the plain version, bf16 within one bf16 ulp.  No
-    # PyTorch call takes s8 activation codes with INT4 weights
+    # K6: the INT4-weight matmul at the decode shapes of the INT4 sites
+    # (group 128, f16 scales), then shapes that reach each tile (16, 32, 64
+    # rows), split at group boundaries and unsplit (kernels/int4_matmul.py:
+    # plan), one with f32 scales; f32 and bf16 must equal the plain version
+    # bit for bit (the same exact group sums, combined in ascending groups
+    # with the same rounded ops, one rounding to bf16).  "cold" rotates the
+    # packed weights (the scales and mins, a sixteenth of the bytes, stay
+    # warm).
+    # No PyTorch call takes s8 activation codes with INT4 weights
     # (``torch._weight_int4pack_mm`` takes bf16 activations): library null.
     k3_ms = {tuple(r["shape"]): r["ms"] for r in results["int8_matmul"]}
-    for M in (N_REQUESTS, N_REQUESTS * BEAM):
-        for K, N in ((512, 512), (512, 2048), (2048, 512)):
-            a = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
-                              dtype=torch.int8)
-            w = torch.randn((K, N), generator=gen, device=dev) * 0.05
-            bq = quantize_block(w, INT4_GROUP)
-            a_scale = torch.rand((M, 1), generator=gen, device=dev) * 0.02
-            bias = torch.randn((N,), generator=gen, device=dev)
-            args = (a, a_scale, bq.data, bq.scale, bq.vmin, None, bias)
-            f32 = int4_matmul_cuda(*args, group_size=INT4_GROUP)
-            f32_ref = ref.ref_int4_matmul(*args, group_size=INT4_GROUP)
-            if not torch.equal(f32, f32_ref):
+    for M, K, N, sdt in ([(M, K, N, torch.float16)
+                          for M in (N_REQUESTS, N_REQUESTS * BEAM)
+                          for K, N in ((512, 512), (512, 2048), (2048, 512))]
+                         + [(1, 1024, 512, torch.float16),
+                            (17, 2048, 512, torch.float16),
+                            (65, 2048, 512, torch.float32),
+                            (N_REQUESTS * s_enc, 512, 2048, torch.float16)]):
+        a = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randn((K, N), generator=gen, device=dev) * 0.05
+        bq = quantize_block(w, INT4_GROUP, scale_dtype=sdt)
+        a_scale = torch.rand((M, 1), generator=gen, device=dev) * 0.02
+        bias = torch.randn((N,), generator=gen, device=dev)
+        args = (a, a_scale, bq.data, bq.scale, bq.vmin, None, bias)
+        for dt in (torch.float32, torch.bfloat16):
+            got = int4_matmul_cuda(*args, group_size=INT4_GROUP, out_dtype=dt)
+            want = ref.ref_int4_matmul(*args, group_size=INT4_GROUP,
+                                       out_dtype=dt)
+            if not torch.equal(got, want):
                 raise AssertionError(
-                    f"int4_matmul f32 differs at {(M, K, N)} by "
-                    f"{float((f32 - f32_ref).abs().max())}")
-            run = lambda: int4_matmul_cuda(*args, group_size=INT4_GROUP,
-                                           out_dtype=torch.bfloat16)
-            out = run().float()
-            out_ref = ref.ref_int4_matmul(*args, group_size=INT4_GROUP,
-                                          out_dtype=torch.bfloat16).float()
-            err = float((out - out_ref).abs().max())
-            if not torch.allclose(out, out_ref, atol=0, rtol=2.0 ** -7):
-                raise AssertionError(f"int4_matmul bf16 output differs at "
-                                     f"{(M, K, N)}: {err}")
-            n_g = K // INT4_GROUP
-            b, o = bound(M * K + K * N // 2 + 2 * n_g * N * 2 + M * 4 + N * 4
-                         + M * N * 2, 2 * M * N * K, INT8_OPS_PER_S)
-            r = row("int4_matmul", [M, K, N], err, time_ms(run),
-                    time_ms(lambda: ref.ref_int4_matmul(
-                        *args, group_size=INT4_GROUP,
-                        out_dtype=torch.bfloat16)), b, o, None)
-            r["k3_ms"] = k3_ms[(M, K, N)]
-            log(f"  K3 at the same shape: {r['k3_ms']:.4f} ms")
-            results.setdefault("int4_matmul", []).append(r)
+                    f"int4_matmul {dt} differs at {(M, K, N)} by "
+                    f"{float((got.float() - want.float()).abs().max())}")
+        run = lambda wi=bq.data: int4_matmul_cuda(
+            a, a_scale, wi, bq.scale, bq.vmin, None, bias,
+            group_size=INT4_GROUP, out_dtype=torch.bfloat16)
+        n_g = K // INT4_GROUP
+        b, o = bound(M * K + K * N // 2 + 2 * n_g * N * bq.scale.element_size()
+                     + M * 4 + N * 4 + M * N * 2, 2 * M * N * K,
+                     INT8_OPS_PER_S)
+        r = row("int4_matmul", [M, K, N], 0.0, time_ms(run),
+                time_ms(lambda: ref.ref_int4_matmul(
+                    *args, group_size=INT4_GROUP,
+                    out_dtype=torch.bfloat16)), b, o, None)
+        r["cold_ms"] = cold_ms(run, bq.data, M * K + M * N * 2)
+        r["tile"] = dataclasses.asdict(plan4(M, N, K, INT4_GROUP))
+        r["k3_ms"] = k3_ms[(M, K, N)]
+        r["scale_dtype"] = str(sdt).replace("torch.", "")
+        log(f"  cold_ms={r['cold_ms']:.4f} tile={r['tile']} "
+            f"scales={r['scale_dtype']}; K3 at the same shape: "
+            f"{r['k3_ms']:.4f} ms")
+        results.setdefault("int4_matmul", []).append(r)
 
     # K4: flash decode vs masked softmax over the dequantized cache, at the
     # enc-dec decoder's shapes (8 heads, capacity 64) and the MoE path's
@@ -511,18 +533,12 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def run_main_path(model, params, corpus):
+def calibrate(model, params, corpus):
+    """KL calibration records from the held-out sentences of ``corpus``."""
     import numpy as np
     import torch
-    from repro_torch.core import Calibrator, QuantPolicy, Taps, quantize_model
-    from repro_torch.data import pad_batch
-    from repro_torch.serving import ServingEngine
+    from repro_torch.core import Calibrator, Taps
 
-    requests = corpus[:N_REQUESTS]
-    src, lens = pad_batch([s.src for s in requests])
-    batch = {"src_tokens": src, "src_lengths": lens}
-
-    t0 = time.perf_counter()
     cal = Calibrator()
     for s in corpus[N_REQUESTS:N_REQUESTS + N_CALIB]:
         taps = Taps()
@@ -531,7 +547,21 @@ def run_main_path(model, params, corpus):
             "src_tokens": torch.as_tensor(s.src[None, :], device="cuda"),
             "tgt_tokens": torch.as_tensor(tgt, device="cuda")}, taps=taps)
         cal.observe_taps(taps)
-    recs = cal.compute("symmetric")
+    return cal.compute("symmetric")
+
+
+def run_main_path(model, params, corpus):
+    import torch
+    from repro_torch.core import QuantPolicy, quantize_model
+    from repro_torch.data import pad_batch
+    from repro_torch.serving import ServingEngine
+
+    requests = corpus[:N_REQUESTS]
+    src, lens = pad_batch([s.src for s in requests])
+    batch = {"src_tokens": src, "src_lengths": lens}
+
+    t0 = time.perf_counter()
+    recs = calibrate(model, params, corpus)
     qparams, qctx = quantize_model(params, recs,
                                    QuantPolicy(act_quant="static"))
     torch.cuda.synchronize()
@@ -611,7 +641,8 @@ def check_against_plain(model, qparams, qctx, batch, steps: int = 3, *,
 
 def profile(label: str, fn):
     """Device busy time of one call of ``fn``, from torch.profiler.
-    Returns (busy ms, [(device ms, kernel name, count)] largest first)."""
+    Returns (busy ms, [(device ms, kernel name, count)] largest first,
+    wall ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -640,7 +671,7 @@ def profile(label: str, fn):
         f"steps={steps}")
     for ms, key, count in rows[:8]:
         log(f"  device {ms:8.3f} ms  x{count:<5d} {key[:70]}")
-    return busy_ms, rows
+    return busy_ms, rows, wall_ms
 
 
 def profile_greedy(model, qparams, qctx, batch) -> None:
@@ -871,6 +902,25 @@ def run_int4(model, params, recs, batch, int8_greedy):
     return counts, qparams, qctx
 
 
+def profile_int4(model, qparams, qctx, batch) -> None:
+    """A profiled INT4 greedy generate: busy time, idle share and K6's
+    device time and launches (K6's kernel and its split's reduction)."""
+    from repro_torch.serving import ServingEngine
+    engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN)
+    busy, rows, _ = profile("int4_greedy_static", lambda: engine.generate(
+        batch, max_new_tokens=MAX_NEW).steps)
+    k6 = [(ms, n) for ms, key, n in rows if "int4_matmul" in key]
+    k3 = sum(ms for ms, key, _ in rows if "int8_matmul_kernel" in key
+             or "int8_matmul_reduce_kernel" in key)
+    k6_ms = sum(ms for ms, _ in k6)
+    k6_kernels = sum(n for ms, n in k6)
+    log(f"  K6 device time {k6_ms:.2f} ms in {k6_kernels} kernels (tile + "
+        f"reduction) = {k6_ms / busy:.3f} of busy; K3 {k3:.2f} ms = "
+        f"{k3 / busy:.3f}")
+    if not k6_kernels:
+        raise AssertionError("the profiled INT4 generate ran no K6 kernel")
+
+
 # ---------------------------------------------------------------------------
 # phase 7: the decoder-only MoE family through generate
 # ---------------------------------------------------------------------------
@@ -997,7 +1047,7 @@ def profile_moe(model, qparams, qctx, batch) -> None:
     share of the device time."""
     from repro_torch.serving import ServingEngine
     engine = ServingEngine(model, qparams, quant=qctx, max_len=MOE_MAX_LEN)
-    busy, rows = profile("moe_greedy_dynamic", lambda: engine.generate(
+    busy, rows, _ = profile("moe_greedy_dynamic", lambda: engine.generate(
         batch, max_new_tokens=MAX_NEW).steps)
     # K7: int8_matmul_batched_kernel (+ _reduce_kernel); K3: int8_matmul_
     # kernel and int8_matmul_reduce_kernel
@@ -1103,6 +1153,7 @@ def main() -> int:
     int4_counts, q4params, q4ctx = run_int4(model, params, recs, batch,
                                             runs["greedy_static"])
     check_against_plain(model, q4params, q4ctx, batch)
+    profile_int4(model, q4params, q4ctx, batch)
     del model, params, qparams, q4params
 
     # 7. the decoder-only MoE family

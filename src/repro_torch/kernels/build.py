@@ -50,7 +50,7 @@ _SIGNATURES = {
     "repro_int8_matmul_batched": [_P, _P, _P, _F, _I, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _P, _I, _P],
     "repro_int4_matmul": [_P, _P, _P, _F, _I, _P, _P, _I, _P, _F, _I, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _I, _P],
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _F, _I, _I, _P],
     "repro_decode_attention_smem_bytes": [_I, _I],

@@ -199,28 +199,97 @@ def test_int8_matmul_batched_equals_plain(gen, out_dtype, E, M, K, N):
                                      (5, 200, 72, 32), (3, 128, 130, 128),
                                      (7, 90, 40, 6)])
 def test_int4_matmul_equals_plain(gen, out_dtype, M, K, N, G):
-    """K6 against ``ref_int4_matmul``: the slice's shapes at G = 128, G = 32,
-    a padded K (200 in 7 groups of 32; 90 in 15 groups of 6, whose steps
-    are not whole dp4a words), one group (K = G = 128), per-row and scalar
-    activation scales, bias and a zero point.  f32 equal; bf16 within one
-    bf16 ulp (the f32 values are equal, so only the rounding can differ)."""
+    """K6 against ``ref_int4_matmul`` bit for bit, f32 and bf16 (the f32
+    values are equal and both sides round to nearest even): the slice's
+    shapes at G = 128, G = 32, a padded K (200 in 7 groups of 32; 90 in 15
+    groups of 6, each padded to 32 rows in the kernel), one group (K = G =
+    128), f16 and f32 scales, per-row and scalar activation scales, bias
+    and a zero point."""
     w = torch.randn((K, N), generator=gen, device="cuda") * 0.05
-    bq = quantize_block(w, G)
     a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
                       dtype=torch.int8)
     a_s = torch.rand((M, 1), generator=gen, device="cuda") * 0.02
     bias = torch.randn((N,), generator=gen, device="cuda")
-    for scale, zp, b in ((a_s, None, bias), (0.01, 3.0, None),
-                         (a_s, -2.0, bias)):
-        got = int4_matmul_cuda(a, scale, bq.data, bq.scale, bq.vmin, zp, b,
-                               group_size=G, out_dtype=out_dtype).float()
-        want = ref.ref_int4_matmul(a, scale, bq.data, bq.scale, bq.vmin, zp,
-                                   b, group_size=G,
-                                   out_dtype=out_dtype).float()
-        if out_dtype == torch.float32:
-            assert torch.equal(got, want)
-        else:
-            torch.testing.assert_close(got, want, atol=0, rtol=2.0 ** -7)
+    for scale_dtype in (torch.float16, torch.float32):
+        bq = quantize_block(w, G, scale_dtype=scale_dtype)
+        for scale, zp, b in ((a_s, None, bias), (0.01, 3.0, None),
+                             (a_s, -2.0, bias)):
+            got = int4_matmul_cuda(a, scale, bq.data, bq.scale, bq.vmin, zp,
+                                   b, group_size=G, out_dtype=out_dtype)
+            want = ref.ref_int4_matmul(a, scale, bq.data, bq.scale, bq.vmin,
+                                       zp, b, group_size=G,
+                                       out_dtype=out_dtype)
+            assert torch.equal(got, want), (scale_dtype, zp)
+
+
+def _int4_operands(gen, M, K, N, G, scale_dtype):
+    w = torch.randn((K, N), generator=gen, device="cuda") * 0.05
+    bq = quantize_block(w, G, scale_dtype=scale_dtype)
+    a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    a_s = torch.rand((M, 1), generator=gen, device="cuda") * 0.02
+    return a, a_s, bq
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [6, 32, 128])
+@pytest.mark.parametrize("N", [40, 130, 512])
+@pytest.mark.parametrize("K", [90, 512, 2048])
+def test_int4_matmul_tile_equals_plain(gen, K, N, G, out_dtype):
+    """K6 bit for bit against ``ref_int4_matmul`` at every M of ``TILE_M``
+    (each row count of the tile, ragged M tiles, split and unsplit K,
+    16-byte and 1-byte loads), f16 and f32 scales, with the zero point and
+    the bias on and off."""
+    from repro_torch.kernels.int4_matmul import plan as plan4
+    for M in TILE_M:
+        for scale_dtype in (torch.float16, torch.float32):
+            a, a_s, bq = _int4_operands(gen, M, K, N, G, scale_dtype)
+            bias = torch.randn((N,), generator=gen, device="cuda")
+            for zp, bi in ((None, None), (3.0, bias)):
+                got = int4_matmul_cuda(a, a_s, bq.data, bq.scale, bq.vmin,
+                                       zp, bi, group_size=G,
+                                       out_dtype=out_dtype)
+                want = ref.ref_int4_matmul(a, a_s, bq.data, bq.scale,
+                                           bq.vmin, zp, bi, group_size=G,
+                                           out_dtype=out_dtype)
+                assert torch.equal(got, want), (M, scale_dtype, zp,
+                                                plan4(M, N, K, G))
+
+
+@pytest.mark.parametrize("M,K,N,G", [(1, 2048, 512, 128), (17, 512, 130, 32),
+                                     (65, 2048, 512, 128), (300, 512, 72, 6),
+                                     (16, 4096, 512, 128)])
+def test_int4_matmul_every_split_equals_plain(gen, M, K, N, G):
+    """Every tile (16, 32 or 64 rows) and every group-ordered split
+    (slices of 1, 2, 3 groups and unsplit), forced at shapes ``plan``
+    gives to another, is the same product bit for bit, f32 and bf16."""
+    from repro_torch.kernels.int4_matmul import Plan as Plan4
+    a, a_s, bq = _int4_operands(gen, M, K, N, G, torch.float16)
+    bias = torch.randn((N,), generator=gen, device="cuda")
+    n_g = bq.scale.shape[0]
+    for dt in (torch.float32, torch.bfloat16):
+        want = ref.ref_int4_matmul(a, a_s, bq.data, bq.scale, bq.vmin, 1.5,
+                                   bias, group_size=G, out_dtype=dt)
+        for bm in (16, 32, 64):
+            for per in (n_g, 1, 2, 3):
+                tile = Plan4(bm, -(-n_g // per), per)
+                got = int4_matmul_cuda(a, a_s, bq.data, bq.scale, bq.vmin,
+                                       1.5, bias, group_size=G, out_dtype=dt,
+                                       tile=tile)
+                assert torch.equal(got, want), (dt, tile)
+
+
+def test_int4_matmul_launches_counted_once(gen):
+    """One launch per wrapper call, split (two kernels) or not."""
+    from repro_torch.kernels.int4_matmul import plan as plan4
+    for M, K, N in ((16, 2048, 512), (16, 512, 512), (300, 512, 512)):
+        a, a_s, bq = _int4_operands(gen, M, K, N, 128, torch.float16)
+        ops.reset_launch_counts()
+        int4_matmul_cuda(a, a_s, bq.data, bq.scale, bq.vmin,
+                         group_size=128)
+        counts = ops.launch_counts()
+        assert counts["int4_matmul"] == 1 and sum(counts.values()) == 1
+    assert plan4(16, 512, 2048, 128).splits > 1
 
 
 @pytest.mark.parametrize("H,HKV", [(8, 8), (8, 2)])

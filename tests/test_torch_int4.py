@@ -397,8 +397,9 @@ def test_bridge_refuses_an_unnamed_int4_triple(nmt_random):
 # ---------------------------------------------------------------------------
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Import every ``repro_torch`` module and ``chip_smoke`` in a fresh
-    interpreter: neither ``jax`` nor ``repro`` may be in ``sys.modules``."""
+    """Import every ``repro_torch`` module, ``chip_smoke`` and the chip
+    tools in a fresh interpreter: neither ``jax`` nor ``repro`` may be in
+    ``sys.modules``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -406,6 +407,8 @@ def test_port_and_chip_smoke_import_no_jax():
         " 'repro_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import int4_ab, int8_tile_sweep\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(len(names), bad)\n"
