@@ -15,11 +15,15 @@ final line):
    its bound; K1-K4 at the enc-dec and the MoE shapes (K4 with 16 heads
    over 8 KV heads for the MoE model); K3 (the INT8 GEMM tile) bit for
    bit, f32 and bf16, also at shapes that reach both tile configurations
-   and a split of K, with a cold-L2 time beside the warm one; K5 (paged
-   decode attention) also against K4 on the linearized cache, bit for
-   bit; K6 (the INT4-weight matmul, K3's tile on packed nibbles) bit for
-   bit, f32 and bf16, also at shapes that reach each tile and its
-   group-ordered split, warm and cold, beside K3's time at the same shape;
+   and a split of K, with a cold-L2 time beside the warm one; K4 and K5
+   (flash-decode attention, contiguous and paged) also under every forced
+   plan (the same bits, and each plan's time), at a long cache of 4096
+   positions that the plan splits over a cluster, warm and cold, with a
+   row's output the same bits alone and in its batch, and K5 against K4
+   on the linearized cache, bit for bit; K6 (the INT4-weight matmul, K3's
+   tile on packed nibbles) bit for bit, f32 and bf16, also at shapes that
+   reach each tile and its group-ordered split, warm and cold, beside K3's
+   time at the same shape;
    K7 (the grouped expert GEMM, K3's tile) bit for bit at the rows per
    expert of every MoE forward pass (greedy and beam-4 decode and
    prefill), f32 and bf16, warm and cold;
@@ -29,13 +33,14 @@ final line):
    ``generate_beam`` with static activation scales, one greedy
    ``generate`` with dynamic scales; then the first decode steps' logits
    against the same run with ``impl="torch"``, and a profiled greedy run
-   (device busy time and its largest kernels);
+   (device busy time, its largest kernels, K4's and K5's device time);
 5. continuous serving — 48 requests with budgets of 4–48 tokens through
    ``ServingEngine.serve`` on 16 slots (INT8, static scales): contiguous
    cache, paged cache (default pool and a tight 32-page pool) with fused
    admission, and paged with unfused admission.  Paged and contiguous
    tokens must be identical, every page returned, K5 launched on the paged
-   runs only and its plain version never; then a profiled paged serve;
+   runs only and its plain version never; then a profiled paged serve
+   (with K4's and K5's device time);
 6. INT4 weights — the same model quantized with ``weight_bits=4`` (decoder
    FFN and attention output projections block-wise INT4, group 128, f16
    scales; static activation scales): greedy and beam-4 ``generate`` and one
@@ -52,7 +57,7 @@ final line):
    a layer in every forward pass and its plain version never; then the
    first decode steps' logits against ``impl="torch"``, with dynamic and
    with static scales, and a profiled greedy run (busy time, idle share,
-   K7's share);
+   K7's share, K4's device time);
 8. the serving driver ``python -m repro_torch.launch.serve`` once per mode
    (continuous paged, static, continuous paged with ``--weight-bits 4``),
    each a subprocess that must exit 0;
@@ -94,6 +99,8 @@ SERVE_BURST = 8
 PAGE = 16                      # tokens per KV page (max_len 64: 4 pages/row)
 TIGHT_PAGES = 32               # half of the contiguous-equivalent 64
 INT4_GROUP = 128               # rows per INT4 scale/min block
+
+LONG_S = 4096                  # phase 3: a long decode cache (K4, K5)
 
 MOE_ARCH = "granite-moe-1b-a400m"
 # the longest prompt (46 tokens) plus 24 new tokens must fit the cache
@@ -164,16 +171,18 @@ COLD_ITERS = 200               # timed calls: two launches each stay queued
 
 def cold_ms(fn, w, other_bytes: int = 0) -> float:
     """Device milliseconds per call of ``fn(w_i)`` over rotating copies of
-    the weights ``w``, enough that more than twice the L2 (50 MB) passes
-    between two uses of one copy: the weights are read cold, as on the real
-    path, which streams every layer's weights once per step.  One warm-up
-    pass touches every copy; then at most ``COLD_ITERS`` calls are timed,
-    each on a copy last used a whole pass earlier, so that small weights
-    (hundreds of copies) do not overflow the launch queue behind the
-    sleep."""
-    per_call = w.numel() * w.element_size() + other_bytes
+    the weights ``w`` (a tensor, or a tuple of tensors such as a KV cache),
+    enough that more than twice the L2 (50 MB) passes between two uses of
+    one copy: the weights are read cold, as on the real path, which streams
+    every layer's weights once per step.  One warm-up pass touches every
+    copy; then at most ``COLD_ITERS`` calls are timed, each on a copy last
+    used a whole pass earlier, so that small weights (hundreds of copies) do
+    not overflow the launch queue behind the sleep."""
+    ws = w if isinstance(w, tuple) else (w,)
+    per_call = sum(t.numel() * t.element_size() for t in ws) + other_bytes
     n = math.ceil(2 * L2_BYTES / per_call) + 1
-    copies = [w.clone() for _ in range(n)]
+    copies = [tuple(t.clone() for t in ws) if isinstance(w, tuple)
+              else w.clone() for _ in range(n)]
     it = itertools.cycle(copies)
     ms = time_ms(lambda: fn(next(it)), iters=min(n, COLD_ITERS), warmup=n)
     del copies
@@ -207,6 +216,8 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import (
         decode_attention_cuda, decode_attention_paged_cuda)
+    from repro_torch.kernels.decode_attention import all_plans
+    from repro_torch.kernels.decode_attention import plan as attention_plan
     from repro_torch.core import quantize_block
     from repro_torch.kernels.int4_matmul import int4_matmul_cuda
     from repro_torch.kernels.int4_matmul import plan as plan4
@@ -417,14 +428,21 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
 
     # K4: flash decode vs masked softmax over the dequantized cache, at the
     # enc-dec decoder's shapes (8 heads, capacity 64) and the MoE path's
-    # (16 heads over 8 KV heads, capacity MOE_MAX_LEN)
+    # (16 heads over 8 KV heads, capacity MOE_MAX_LEN), then a long cache
+    # (LONG_S positions, lengths drawn in [1, LONG_S]) that the plan splits
+    # over a cluster.  f32 within 1e-5 and bf16 within one bf16 ulp of the
+    # plain version; under every forced plan (kernels/decode_attention.py:
+    # all_plans) the same bits as under the plan; a row the same bits
+    # alone and among 16; "cold" rotates the caches past the L2.
     H = HKV = 8
     dh = 64
     for B, S, H_, HKV_ in ([(B, MAX_LEN, H, HKV)
                             for B in (N_REQUESTS, N_REQUESTS * BEAM)]
                            + [(B, MOE_MAX_LEN, moe_cfg.n_heads,
                                moe_cfg.n_kv_heads)
-                              for B in (N_REQUESTS, N_REQUESTS * BEAM)]):
+                              for B in (N_REQUESTS, N_REQUESTS * BEAM)]
+                           + [(N_REQUESTS, LONG_S, moe_cfg.n_heads,
+                               moe_cfg.n_kv_heads)]):
         kq = torch.randint(-127, 128, (B, S, HKV_, dh), generator=gen,
                            device=dev, dtype=torch.int8)
         vq = torch.randint(-127, 128, (B, S, HKV_, dh), generator=gen,
@@ -435,42 +453,69 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
                                 dtype=torch.int32)
         qf = torch.randn((B, H_, dh), generator=gen, device=dev)
         sm = 1.0 / dh ** 0.5
-        o32 = decode_attention_cuda(qf, kq, ks, vq, vs, lengths, sm_scale=sm)
-        r32 = ref.ref_decode_attention(qf, kq, ks, vq, vs, lengths, sm)
-        err32 = float((o32 - r32).abs().max())
-        if not torch.allclose(o32, r32, atol=1e-5, rtol=1e-5):
-            raise AssertionError(f"decode_attention f32 err {err32} at "
-                                 f"{(B, S, H_, HKV_)}")
+        shape = [B, S, H_, HKV_, dh]
+        cache = (kq, ks, vq, vs)
+        tile = attention_plan(B, S, HKV_, H_ // HKV_, dh)
+        errs = []
+        for q in (qf, qf.to(torch.bfloat16)):
+            out = decode_attention_cuda(q, kq, ks, vq, vs, lengths,
+                                        sm_scale=sm)
+            out_ref = ref.ref_decode_attention(q, kq, ks, vq, vs, lengths, sm)
+            err = float((out.float() - out_ref.float()).abs().max())
+            # f32: 1e-5; bf16 output: one bf16 ulp (2^-8 relative) either way
+            rtol = 1e-5 if q.dtype == torch.float32 else 2.0 ** -7
+            if not torch.allclose(out.float(), out_ref.float(), atol=1e-5,
+                                  rtol=rtol):
+                raise AssertionError(f"decode_attention {q.dtype} err {err} "
+                                     f"at {shape}")
+            errs.append(err)
+            for p in all_plans(S):
+                got = decode_attention_cuda(q, kq, ks, vq, vs, lengths,
+                                            sm_scale=sm, tile=p)
+                if not torch.equal(got, out):
+                    raise AssertionError(f"decode_attention {q.dtype} at "
+                                         f"{shape}: {p} differs from {tile}")
+            for rows in (slice(0, 1), slice(0, min(B, N_REQUESTS))):
+                got = decode_attention_cuda(q[rows], kq[rows], ks[rows],
+                                            vq[rows], vs[rows],
+                                            lengths[rows], sm_scale=sm)
+                if not torch.equal(got, out[rows]):
+                    raise AssertionError(f"decode_attention {q.dtype} at "
+                                         f"{shape}: rows {rows} alone differ "
+                                         f"from the batch of {B}")
         q = qf.to(torch.bfloat16)
-        run = lambda: decode_attention_cuda(q, kq, ks, vq, vs, lengths,
-                                            sm_scale=sm)
-        out = run().float()
-        out_ref = ref.ref_decode_attention(q, kq, ks, vq, vs, lengths,
-                                           sm).float()
-        err = float((out - out_ref).abs().max())
-        # bf16 output: one bf16 ulp (2^-8 relative) of rounding either way
-        if not torch.allclose(out, out_ref, atol=1e-5, rtol=2.0 ** -7):
-            raise AssertionError(f"decode_attention bf16 err {err} at "
-                                 f"{(B, S, H_, HKV_)}")
+        run = lambda c=cache, tile=None: decode_attention_cuda(
+            q, c[0], c[1], c[2], c[3], lengths, sm_scale=sm, tile=tile)
         tokens = int(lengths.sum())
         b, o = bound(tokens * HKV_ * (2 * dh + 8) + 2 * B * H_ * dh * 2
                      + 4 * B, 4 * tokens * H_ * dh, F32_FLOPS_PER_S)
-        results.setdefault("decode_attention", []).append(row(
-            "decode_attention", [B, S, H_, HKV_, dh], max(err, err32),
-            time_ms(run),
-            time_ms(lambda: ref.ref_decode_attention(q, kq, ks, vq, vs,
-                                                     lengths, sm)),
-            b, o, None))
+        r = row("decode_attention", shape, max(errs), time_ms(run),
+                time_ms(lambda: ref.ref_decode_attention(q, kq, ks, vq, vs,
+                                                         lengths, sm)),
+                b, o, None)
+        r["cold_ms"] = cold_ms(run, cache, 2 * B * H_ * dh * 2)
+        r["plan"] = dataclasses.asdict(tile)
+        r["plans_ms"] = {f"{p.split}x{p.warps}": time_ms(
+            lambda p=p: run(tile=p)) for p in all_plans(S)}
+        log(f"  cold_ms={r['cold_ms']:.4f} plan={r['plan']} every plan "
+            f"(split x warps, ms; same bits, and a row alone and among "
+            f"{min(B, N_REQUESTS)} the same bits): "
+            + " ".join(f"{k}:{v:.4f}" for k, v in r["plans_ms"].items()))
+        results.setdefault("decode_attention", []).append(r)
 
     # K5: paged flash decode vs the plain version, and vs K4 on the
-    # linearized cache (bit for bit), at the serve shapes: page size 16,
-    # 4 pages a row, a pool of B·4 pages handed out shuffled, sentinels
-    # past each row's reservation
-    maxP = MAX_LEN // PAGE
-    for B, HKV_ in ((SERVE_SLOTS, HKV), (SERVE_SLOTS * 4, HKV),
-                    (SERVE_SLOTS, 4)):
+    # linearized cache (bit for bit, under every forced plan), at the serve
+    # shapes (page size 16, 4 pages a row, a pool of B·4 pages handed out
+    # shuffled, sentinels past each row's reservation) and a long cache of
+    # LONG_S // PAGE pages a row with the MoE heads
+    for B, maxP, H_, HKV_ in ((SERVE_SLOTS, MAX_LEN // PAGE, H, HKV),
+                              (SERVE_SLOTS * 4, MAX_LEN // PAGE, H, HKV),
+                              (SERVE_SLOTS, MAX_LEN // PAGE, H, 4),
+                              (SERVE_SLOTS, LONG_S // PAGE, moe_cfg.n_heads,
+                               moe_cfg.n_kv_heads)):
+        S = maxP * PAGE
         P = B * maxP
-        cpu = torch.Generator().manual_seed(B + HKV_)
+        cpu = torch.Generator().manual_seed(B + HKV_ + maxP)
         perm = torch.randperm(P, generator=cpu).int()
         reserve = torch.randint(1, maxP + 1, (B,), generator=cpu)
         reserve[1] = maxP                  # row 1 holds the full capacity
@@ -478,9 +523,9 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
         for i in range(B):
             n = int(reserve[i])
             tables[i, :n] = perm[i * maxP:i * maxP + n]
-        lengths = torch.minimum(torch.randint(1, MAX_LEN + 1, (B,),
-                                              generator=cpu), reserve * PAGE)
-        lengths[0], lengths[1] = 1, MAX_LEN
+        lengths = torch.minimum(torch.randint(1, S + 1, (B,), generator=cpu),
+                                reserve * PAGE)
+        lengths[0], lengths[1] = 1, S
         tables, lengths = tables.to(dev), lengths.to(torch.int32).to(dev)
         kq = torch.randint(-127, 128, (P, PAGE, HKV_, dh), generator=gen,
                            device=dev, dtype=torch.int8)
@@ -488,15 +533,16 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
                            device=dev, dtype=torch.int8)
         ks = torch.rand((P, PAGE, HKV_), generator=gen, device=dev) * 0.02
         vs = torch.rand((P, PAGE, HKV_), generator=gen, device=dev) * 0.02
-        qf = torch.randn((B, H, dh), generator=gen, device=dev)
+        qf = torch.randn((B, H_, dh), generator=gen, device=dev)
         sm = 1.0 / dh ** 0.5
         lin = lambda a: linearize_pages(a, tables).contiguous()
+        lin_cache = (lin(kq), lin(ks), lin(vq), lin(vs))
+        cache = (kq, ks, vq, vs)
+        tile = attention_plan(B, S, HKV_, H_ // HKV_, dh)
         errs = []
         for q in (qf, qf.to(torch.bfloat16)):
-            run = lambda: decode_attention_paged_cuda(q, kq, ks, vq, vs,
-                                                      tables, lengths,
-                                                      sm_scale=sm)
-            out = run()
+            out = decode_attention_paged_cuda(q, kq, ks, vq, vs, tables,
+                                              lengths, sm_scale=sm)
             out_ref = ref.ref_decode_attention_paged(q, kq, ks, vq, vs,
                                                      tables, lengths, sm)
             err = float((out.float() - out_ref.float()).abs().max())
@@ -505,27 +551,47 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
             if not torch.allclose(out.float(), out_ref.float(), atol=1e-5,
                                   rtol=rtol):
                 raise AssertionError(f"decode_attention_paged {q.dtype} err "
-                                     f"{err} at B={B}, HKV={HKV_}")
-            k4 = decode_attention_cuda(q, lin(kq), lin(ks), lin(vq), lin(vs),
-                                       lengths, sm_scale=sm)
-            d4 = float((out.float() - k4.float()).abs().max())
-            if not torch.equal(out, k4):
-                raise AssertionError(f"decode_attention_paged differs from "
-                                     f"K4 on the linearized cache by {d4} "
-                                     f"({q.dtype}, B={B}, HKV={HKV_})")
+                                     f"{err} at B={B}, HKV={HKV_}, "
+                                     f"maxP={maxP}")
+            for p in all_plans(S):
+                got = decode_attention_paged_cuda(q, kq, ks, vq, vs, tables,
+                                                  lengths, sm_scale=sm,
+                                                  tile=p)
+                k4 = decode_attention_cuda(q, *lin_cache, lengths,
+                                           sm_scale=sm, tile=p)
+                if not (torch.equal(got, out) and torch.equal(k4, out)):
+                    raise AssertionError(
+                        f"decode_attention_paged ({q.dtype}, B={B}, "
+                        f"HKV={HKV_}, maxP={maxP}, {p}): differs from K5 "
+                        f"under {tile} or from K4 on the linearized cache by "
+                        f"{float((k4.float() - out.float()).abs().max())}")
             errs.append(err)
-        log(f"kernel decode_attention_paged B={B} HKV={HKV_}: "
-            f"max |K5 - K4 on the linearized cache| = 0 (f32 and bf16)")
+        log(f"kernel decode_attention_paged B={B} HKV={HKV_} maxP={maxP}: "
+            f"max |K5 - K4 on the linearized cache| = 0 under every plan "
+            f"(f32 and bf16)")
+        run = lambda c=cache, tile=None: decode_attention_paged_cuda(
+            q, c[0], c[1], c[2], c[3], tables, lengths, sm_scale=sm,
+            tile=tile)
         tokens = int(lengths.sum())
         b, o = bound(tokens * HKV_ * (2 * dh + 8) + B * maxP * 4
-                     + 2 * B * H * dh * 2, 4 * tokens * H * dh,
+                     + 2 * B * H_ * dh * 2, 4 * tokens * H_ * dh,
                      F32_FLOPS_PER_S)
-        results.setdefault("decode_attention_paged", []).append(row(
-            "decode_attention_paged", [B, P, PAGE, HKV_, dh], max(errs),
-            time_ms(run),
-            time_ms(lambda: ref.ref_decode_attention_paged(
-                q, kq, ks, vq, vs, tables, lengths, sm)),
-            b, o, None))
+        r = row("decode_attention_paged", [B, P, PAGE, HKV_, dh], max(errs),
+                time_ms(run),
+                time_ms(lambda: ref.ref_decode_attention_paged(
+                    q, kq, ks, vq, vs, tables, lengths, sm)),
+                b, o, None)
+        r["cold_ms"] = cold_ms(run, cache, 2 * B * H_ * dh * 2)
+        r["plan"] = dataclasses.asdict(tile)
+        r["plans_ms"] = {f"{p.split}x{p.warps}": time_ms(
+            lambda p=p: run(tile=p)) for p in all_plans(S)}
+        r["k4_ms"] = time_ms(lambda: decode_attention_cuda(
+            q, *lin_cache, lengths, sm_scale=sm))
+        log(f"  cold_ms={r['cold_ms']:.4f} plan={r['plan']} K4 on the "
+            f"linearized cache {r['k4_ms']:.4f} ms; every plan (split x "
+            f"warps, ms): "
+            + " ".join(f"{k}:{v:.4f}" for k, v in r["plans_ms"].items()))
+        results.setdefault("decode_attention_paged", []).append(r)
     return results
 
 
@@ -674,11 +740,23 @@ def profile(label: str, fn):
     return busy_ms, rows, wall_ms
 
 
+def attention_ms(rows) -> str:
+    """K4's and K5's device ms and launches in a profile's rows."""
+    out = []
+    for name, key in (("K4", "decode_attention_kernel"),
+                      ("K5", "decode_attention_paged_kernel")):
+        ms = sum(r[0] for r in rows if key in r[1])
+        n = sum(r[2] for r in rows if key in r[1])
+        out.append(f"{name} {ms:.2f} ms in {n} launches")
+    return ", ".join(out)
+
+
 def profile_greedy(model, qparams, qctx, batch) -> None:
     from repro_torch.serving import ServingEngine
     engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN)
-    profile("greedy_static", lambda: engine.generate(
+    _, rows, _ = profile("greedy_static", lambda: engine.generate(
         batch, max_new_tokens=MAX_NEW).steps)
+    log(f"  {attention_ms(rows)}")
 
 
 # ---------------------------------------------------------------------------
@@ -813,9 +891,10 @@ def profile_paged_serve(model, qparams, qctx) -> None:
     half = SERVE_REQUESTS // 2
     engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN,
                            burst_len=SERVE_BURST, paged=True, page_size=PAGE)
-    profile(f"serve_paged {half} requests", lambda: engine.serve(
+    _, rows, _ = profile(f"serve_paged {half} requests", lambda: engine.serve(
         corpus[:half], n_slots=SERVE_SLOTS,
         max_new_tokens=budgets[:half]).decode_steps)
+    log(f"  {attention_ms(rows)}")
 
 
 # ---------------------------------------------------------------------------
@@ -916,7 +995,7 @@ def profile_int4(model, qparams, qctx, batch) -> None:
     k6_kernels = sum(n for ms, n in k6)
     log(f"  K6 device time {k6_ms:.2f} ms in {k6_kernels} kernels (tile + "
         f"reduction) = {k6_ms / busy:.3f} of busy; K3 {k3:.2f} ms = "
-        f"{k3 / busy:.3f}")
+        f"{k3 / busy:.3f}; {attention_ms(rows)}")
     if not k6_kernels:
         raise AssertionError("the profiled INT4 generate ran no K6 kernel")
 
@@ -1055,7 +1134,7 @@ def profile_moe(model, qparams, qctx, batch) -> None:
     k3 = sum(ms for ms, key, _ in rows if "int8_matmul_kernel" in key
              or "int8_matmul_reduce_kernel" in key)
     log(f"  K7 device time {k7:.2f} ms = {k7 / busy:.3f} of busy; "
-        f"K3 {k3:.2f} ms = {k3 / busy:.3f}")
+        f"K3 {k3:.2f} ms = {k3 / busy:.3f}; {attention_ms(rows)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1222,7 +1301,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             "path": paths[name][0],
-            **{k: r[k] for k in ("k3_ms", "cold_ms", "tile") if k in r}})
+            **{k: r[k] for k in ("k3_ms", "cold_ms", "tile", "plan")
+               if k in r}})
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "

@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -52,11 +52,12 @@ _SIGNATURES = {
     "repro_int4_matmul": [_P, _P, _P, _F, _I, _P, _P, _I, _P, _F, _I, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _F, _I, _I, _P],
-    "repro_decode_attention_smem_bytes": [_I, _I],
+                               _F, _I, _I, _I, _I, _P],
+    "repro_decode_attention_smem_bytes": [_I, _I, _I, _I, _I, _I],
+    "repro_decode_attention_chunk": [],
     "repro_decode_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    "repro_decode_attention_paged_smem_bytes": [_I, _I, _I],
+                                     _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+                                     _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -75,23 +76,26 @@ def _nvcc() -> str:
                        "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path() -> Path:
-    """Where the build for the current sources lives (built or not)."""
+def library_path(defines: Tuple[str, ...] = ()) -> Path:
+    """Where the build for the current sources (and ``defines``, extra
+    ``-D`` flags) lives, built or not."""
     h = hashlib.sha256()
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
+def build(defines: Tuple[str, ...] = ()) -> Path:
     """Compile the sources (one nvcc each, in parallel) and link the library.
 
-    Returns the library path; a library already built from the same sources
-    is reused.  Raises with the compiler's output if any step fails.
+    ``defines`` are extra ``-D`` flags (a tool's variant of a kernel; the
+    port itself builds with none).  Returns the library path; a library
+    already built from the same sources and flags is reused.  Raises with
+    the compiler's output if any step fails.
     """
-    so = library_path()
+    so = library_path(defines)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -102,7 +106,8 @@ def build() -> Path:
         obj = BUILD_DIR / f"{Path(name).stem}.{tag}.o"
         objs.append(obj)
         procs.append((name, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / name), "-o", str(obj)],
+            [nvcc, *NVCC_FLAGS, *defines, "-c", str(CSRC_DIR / name), "-o",
+             str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
     for name, proc in procs:          # wait for every compiler, failed or not
@@ -124,16 +129,21 @@ def build() -> Path:
     return so
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """A built library with its entry points' signatures set."""
+    loaded = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(loaded, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return loaded
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     global _lib
     if _lib is None:
-        loaded = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(loaded, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = loaded
+        _lib = load(build())
     return _lib
 
 

@@ -16,10 +16,16 @@ from repro_torch.configs import get_config
 from repro_torch.core import Calibrator, QuantPolicy, Taps, quantize_model
 from repro_torch.data import make_corpus, pad_batch
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (
+    CHUNK,
+    Plan as AttentionPlan,
+    all_plans,
     decode_attention_cuda,
     decode_attention_paged_cuda,
+    smem_bytes,
 )
+from repro_torch.kernels.decode_attention import plan as attention_plan
 from repro_torch.core import quantize_block
 from repro_torch.kernels.int4_matmul import int4_matmul_cuda
 from repro_torch.kernels.int8_matmul import (
@@ -365,6 +371,188 @@ def test_decode_attention_paged_equals_contiguous_kernel(gen, dtype, ps,
     want = decode_attention_cuda(q, lin(kq), lin(ks), lin(vq), lin(vs),
                                  lengths, sm_scale=0.125)
     assert torch.equal(got, want)
+
+
+# lengths 1, C - 1, C, C + 1 and the full capacity, for K4 and K5 under every
+# plan the planner can return, forced
+def _attention_lengths(S):
+    return [1, CHUNK - 1, CHUNK, CHUNK + 1, S]
+
+
+def _k4_inputs(gen, B, S, HKV, G, lengths, dh=64):
+    kq = torch.randint(-127, 128, (B, S, HKV, dh), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    vq = torch.randint(-127, 128, (B, S, HKV, dh), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    ks = torch.rand((B, S, HKV), generator=gen, device="cuda") * 0.02
+    vs = torch.rand((B, S, HKV), generator=gen, device="cuda") * 0.02
+    q = torch.randn((B, HKV * G, dh), generator=gen, device="cuda")
+    return (q, kq, ks, vq, vs,
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+def _paged_pool(gen, lengths, HKV, G, ps, maxP, dh=64):
+    """Each row reserves the pages its length reaches, from a shuffled pool
+    of B·maxP pages; the rest of its table is the sentinel P."""
+    B = len(lengths)
+    P = B * maxP
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(ps))
+    tables = torch.full((B, maxP), P, dtype=torch.int32)
+    for b, n in enumerate(lengths):
+        k = -(-n // ps)
+        tables[b, :k] = perm[b * maxP:b * maxP + k].int()
+    kq = torch.randint(-127, 128, (P, ps, HKV, dh), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    vq = torch.randint(-127, 128, (P, ps, HKV, dh), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    ks = torch.rand((P, ps, HKV), generator=gen, device="cuda") * 0.02
+    vs = torch.rand((P, ps, HKV), generator=gen, device="cuda") * 0.02
+    q = torch.randn((B, HKV * G, dh), generator=gen, device="cuda")
+    return (q, kq, ks, vq, vs, tables.cuda(),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+def _tol(dtype):
+    """f32 within 1e-5; bf16 output within one bf16 ulp (2^-8 relative)."""
+    return dict(atol=1e-5, rtol=1e-5 if dtype == torch.float32 else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_decode_attention_every_plan_equals_plain(gen, G, dtype):
+    """K4 under every plan (splits 1, 2, 4, 8 up to one a chunk; 2, 4 and 8
+    warps): within the tolerance of the plain version, and the same bits
+    under every plan."""
+    S = 70
+    q, kq, ks, vq, vs, lengths = _k4_inputs(gen, 5, S, 2, G,
+                                            _attention_lengths(S))
+    q = q.to(dtype)
+    want = ref.ref_decode_attention(q, kq, ks, vq, vs, lengths, 0.125)
+    first = None
+    for p in all_plans(S):
+        got = decode_attention_cuda(q, kq, ks, vq, vs, lengths,
+                                    sm_scale=0.125, tile=p)
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+        first = got if first is None else first
+        assert torch.equal(got, first), p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("ps,maxP", [(4, 18), (16, 5)])
+def test_decode_attention_paged_every_plan(gen, ps, maxP, G, dtype):
+    """K5 under every plan: within the tolerance of the plain version, and
+    equal bit for bit to K4 on the linearized cache under the same plan."""
+    S = ps * maxP
+    q, kq, ks, vq, vs, tables, lengths = _paged_pool(
+        gen, _attention_lengths(S), 2, G, ps, maxP)
+    q = q.to(dtype)
+    want = ref.ref_decode_attention_paged(q, kq, ks, vq, vs, tables, lengths,
+                                          0.125)
+    lin = lambda a: linearize_pages(a, tables).contiguous()
+    k_l, ks_l, v_l, vs_l = lin(kq), lin(ks), lin(vq), lin(vs)
+    first = None
+    for p in all_plans(S):
+        got = decode_attention_paged_cuda(q, kq, ks, vq, vs, tables, lengths,
+                                          sm_scale=0.125, tile=p)
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+        k4 = decode_attention_cuda(q, k_l, ks_l, v_l, vs_l, lengths,
+                                   sm_scale=0.125, tile=p)
+        assert torch.equal(got, k4), p
+        first = got if first is None else first
+        assert torch.equal(got, first), p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_row_independent(gen, dtype):
+    """A row's output is the same bits alone (B = 1), among 16 or 64 rows
+    of other lengths, and under any forced split: the plan changes with B,
+    the bits do not."""
+    S = 80
+    lengths = torch.randint(1, S + 1, (64,), generator=gen,
+                            device="cuda").tolist()
+    q, kq, ks, vq, vs, lens = _k4_inputs(gen, 64, S, 8, 2, lengths)
+    q = q.to(dtype)
+    k4 = lambda sl, tile=None: decode_attention_cuda(
+        q[sl], kq[sl], ks[sl], vq[sl], vs[sl], lens[sl], sm_scale=0.125,
+        tile=tile)
+    full = k4(slice(0, 64))
+    assert torch.equal(k4(slice(0, 16)), full[:16])
+    for r in (0, 5, 17, 63):
+        assert torch.equal(k4(slice(r, r + 1))[0], full[r]), r
+    for tile in (AttentionPlan(2, 4), AttentionPlan(4, 2),
+                 AttentionPlan(4, 8)):
+        assert torch.equal(k4(slice(0, 64), tile), full), tile
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_attention_long_cache(gen, paged):
+    """16 rows over 4096 positions (K5: 256 pages of 16), 16 heads over 8,
+    lengths drawn in [1, 4096]: the plan splits the sequence; the split is
+    within the tolerance of the plain version and equal to no split."""
+    S, ps = 4096, 16
+    lengths = torch.randint(1, S + 1, (16,), generator=gen,
+                            device="cuda").tolist()
+    p = attention_plan(16, S, 8, 2, 64)
+    assert p.split > 1
+    for dtype in (torch.float32, torch.bfloat16):
+        if paged:
+            q, kq, ks, vq, vs, tables, lens = _paged_pool(
+                gen, lengths, 8, 2, ps, S // ps)
+            q = q.to(dtype)
+            run = lambda tile: decode_attention_paged_cuda(
+                q, kq, ks, vq, vs, tables, lens, sm_scale=0.125, tile=tile)
+            want = ref.ref_decode_attention_paged(q, kq, ks, vq, vs, tables,
+                                                  lens, 0.125)
+        else:
+            q, kq, ks, vq, vs, lens = _k4_inputs(gen, 16, S, 8, 2, lengths)
+            q = q.to(dtype)
+            run = lambda tile: decode_attention_cuda(
+                q, kq, ks, vq, vs, lens, sm_scale=0.125, tile=tile)
+            want = ref.ref_decode_attention(q, kq, ks, vq, vs, lens, 0.125)
+        got = run(None)
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+        assert torch.equal(got, run(AttentionPlan(1, p.warps)))
+
+
+def test_decode_attention_shared_memory_as_planned(gen):
+    """The library's chunk is CHUNK and its shared memory per block is what
+    ``smem_bytes`` (which the plan consults) says, K4 and K5."""
+    lib = build.lib()
+    assert lib.repro_decode_attention_chunk() == CHUNK
+    for G, dh, S, maxP in ((1, 64, 64, 0), (2, 64, 80, 0), (2, 64, 64, 4),
+                           (12, 128, 300, 0), (3, 16, 4096, 256)):
+        for p in all_plans(S):
+            assert lib.repro_decode_attention_smem_bytes(
+                G, dh, S, maxP, p.split, p.warps) == smem_bytes(
+                    p, G, dh, S, maxP), (G, dh, S, maxP, p)
+
+
+def test_decode_attention_refuses_what_it_cannot_run(gen):
+    """No fallback: a head dim the kernels are not built for, a plan out of
+    range or a misaligned cache raises, and nothing is launched."""
+    q, kq, ks, vq, vs, lengths = _k4_inputs(gen, 2, 32, 2, 1, [3, 32])
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attention_cuda(q[..., :48].contiguous(),
+                              kq[..., :48].contiguous(), ks,
+                              vq[..., :48].contiguous(), vs, lengths,
+                              sm_scale=0.125)
+    with pytest.raises(ValueError, match="plan"):
+        decode_attention_cuda(q, kq, ks, vq, vs, lengths, sm_scale=0.125,
+                              tile=AttentionPlan(9, 4))
+    with pytest.raises(ValueError, match="plan"):
+        decode_attention_cuda(q, kq, ks, vq, vs, lengths, sm_scale=0.125,
+                              tile=AttentionPlan(1, 3))
+    with pytest.raises(ValueError, match="plan"):
+        decode_attention_cuda(q, kq, ks, vq, vs, lengths, sm_scale=0.125,
+                              tile=AttentionPlan(3, 4))
+    flat = torch.zeros(kq.numel() + 1, dtype=torch.int8, device="cuda")
+    shifted = flat[1:].view(kq.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        decode_attention_cuda(q, shifted, ks, vq, vs, lengths,
+                              sm_scale=0.125)
+    assert sum(ops.launch_counts().values()) == 0
 
 
 def test_engine_runs_through_every_kernel(gen):
