@@ -13,13 +13,17 @@ final line):
    against its plain PyTorch version on the card, with its time, the plain
    version's, a library call's where one computes the same function, and
    its bound; K1-K4 at the enc-dec and the MoE shapes (K4 with 16 heads
-   over 8 KV heads for the MoE model); K3 (the INT8 GEMM tile) bit for
-   bit, f32 and bf16, also at shapes that reach both tile configurations
-   and a split of K, with a cold-L2 time beside the warm one; K4 and K5
-   (flash-decode attention, contiguous and paged) also under every forced
-   plan (the same bits, and each plan's time), at a long cache of 4096
-   positions that the plan splits over a cluster, warm and cold, with a
-   row's output the same bits alone and in its batch, and K5 against K4
+   over 8 KV heads for the MoE model); an empty kernel's time first; K1
+   and K2 (the activation quantizers) bit for bit also at the MoE expert
+   inputs (32 experts' rows at greedy and beam-4 decode and prefill), with
+   cold-L2 times at the prefill and expert shapes; K3 (the INT8 GEMM
+   tile) bit for bit, f32 and bf16, also at shapes that reach both tile
+   configurations and a split of K, with a cold-L2 time beside the warm
+   one; K4 and K5 (flash-decode attention, contiguous and paged) also
+   under every forced plan (the same bits, and each plan's time), at a
+   long cache of 4096 positions that the plan splits over a cluster,
+   warm and cold, with a row's output the same bits alone and in its
+   batch, and K5 against K4
    on the linearized cache, bit for bit; K6 (the INT4-weight matmul, K3's
    tile on packed nibbles) bit for bit, f32 and bf16, also at shapes that
    reach each tile and its group-ordered split, warm and cold, beside K3's
@@ -54,14 +58,18 @@ final line):
    prompts: INT8 greedy and beam-4 ``generate`` with dynamic activation
    scales, and greedy with static scales after KL calibration on 16
    held-out prompts.  K7 (the grouped expert GEMM) must launch three times
-   a layer in every forward pass and its plain version never; then the
+   a layer in every forward pass and its plain version never, and one
+   quantizer (K2 with dynamic scales, K1 or K2 with static ones) seven
+   times a layer (q, k, v, o and the three expert sites), with no plain
+   quantizer run; then the
    first decode steps' logits against ``impl="torch"``, with dynamic and
    with static scales, and a profiled greedy run (busy time, idle share,
    K7's share, K4's device time);
 8. the serving driver ``python -m repro_torch.launch.serve`` once per mode
    (continuous paged, static, continuous paged with ``--weight-bits 4``),
    each a subprocess that must exit 0;
-9. launch counts of each path, and one JSON line describing each kernel;
+9. launch counts of each path, and one JSON line describing each kernel
+   (its launches summed over every path of phases 4-7);
 10. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package.
@@ -208,6 +216,36 @@ def moe_expert_rows(cfg, tokens: int) -> int:
     return -(-tokens // g) * c
 
 
+def path_dims():
+    """(s_enc, s_moe, moe_cfg): the enc-dec sources' and the MoE prompts'
+    padded lengths, and the MoE model's config, as the paths build them."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_corpus, pad_batch
+    corpus = make_corpus(N_REQUESTS + N_CALIB, get_config(
+        "transformer-base").vocab, seed=11)
+    s_enc = pad_batch([s.src for s in corpus[:N_REQUESTS]])[0].shape[1]
+    moe_cfg = get_config(MOE_ARCH)
+    s_moe = moe_prompts(moe_cfg.vocab)[0]["tokens"].shape[1]
+    return s_enc, s_moe, moe_cfg
+
+
+def quantizer_shapes(s_enc: int, s_moe: int, moe_cfg):
+    """K1's and K2's (M, K) on the paths: the enc-dec linears' inputs
+    (greedy and beam-4 decode, prefill; d_model 512 and d_ff 2048), the MoE
+    linears' (d_model 1024 at greedy and beam-4 decode and prefill), and
+    the MoE expert inputs, E·rows an expert (gate/up d_model wide at every
+    forward pass, down d_ff wide at the decode steps)."""
+    rows_m = (N_REQUESTS, N_REQUESTS * BEAM, N_REQUESTS * s_enc)
+    moe_m = (N_REQUESTS, N_REQUESTS * BEAM, N_REQUESTS * s_moe,
+             N_REQUESTS * BEAM * s_moe)
+    E = moe_cfg.moe.n_experts
+    experts = [E * moe_expert_rows(moe_cfg, t) for t in moe_m]
+    return ([(M, K) for M in rows_m for K in (512, 2048)]
+            + [(M, moe_cfg.d_model) for M in moe_m]
+            + [(M, moe_cfg.d_model) for M in experts]
+            + [(M, moe_cfg.d_ff) for M in experts[:2]])
+
+
 def check_kernels(s_enc: int, s_moe: int, moe_cfg):
     """Each kernel against its plain version at the shapes the enc-dec
     path (sources padded to ``s_enc``) and the MoE path (prompts padded to
@@ -223,7 +261,9 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
     from repro_torch.kernels.int4_matmul import plan as plan4
     from repro_torch.kernels.int8_matmul import (int8_matmul_batched_cuda,
                                                  int8_matmul_cuda, plan)
-    from repro_torch.kernels.quantize import (quantize_rowwise_cuda,
+    from repro_torch.kernels.quantize import (is_aligned,
+                                              plan as quant_plan,
+                                              quantize_rowwise_cuda,
                                               quantize_static_cuda)
     from repro_torch.models.kv_cache import linearize_pages
 
@@ -247,22 +287,33 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
     d_moe = moe_cfg.d_model
     d_kv = moe_cfg.n_kv_heads * moe_cfg.hd
 
-    # K1 / K2: exact int8 codes (and bit-equal K2 scales); the MoE path
-    # quantizes d_model-wide rows in front of q/k/v and o
-    for M, K in ([(M, K) for M in rows_m for K in (512, 2048)]
-                 + [(M, d_moe) for M in moe_m]):
+    # K1 / K2: exact int8 codes (and bit-equal K2 scales) at every path's
+    # shapes (quantizer_shapes), with an empty kernel's time beside them
+    # (torch's sleep for 0 cycles): at the decode shapes a launch is most
+    # of the time.  "cold" rotates the input past the L2 (the prefill and
+    # expert shapes).
+    empty_ms = time_ms(lambda: torch.cuda._sleep(0))
+    log(f"empty kernel: {empty_ms:.4f} ms a launch (time_ms)")
+    for M, K in quantizer_shapes(s_enc, s_moe, moe_cfg):
         x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
         amax = float(x.float().abs().max()) * 0.7
+        tile = quant_plan(M, K, x.dtype, is_aligned(x))
         q = quantize_static_cuda(x, amax)
         err = (q.int() - ref.ref_quantize_static(x, amax).int()).abs().max()
         if err:
             raise AssertionError(f"quantize_static codes differ at "
                                  f"{(M, K)}: {int(err)}")
         b, o = bound(M * K * 3, M * K * 4, F32_FLOPS_PER_S)
-        results.setdefault("quantize_static", []).append(row(
-            "quantize_static", [M, K], float(err),
-            time_ms(lambda: quantize_static_cuda(x, amax)),
-            time_ms(lambda: ref.ref_quantize_static(x, amax)), b, o, None))
+        r = row("quantize_static", [M, K], float(err),
+                time_ms(lambda: quantize_static_cuda(x, amax)),
+                time_ms(lambda: ref.ref_quantize_static(x, amax)), b, o, None)
+        r["plan"] = dataclasses.asdict(tile.static)
+        r["empty_ms"] = empty_ms
+        if M >= N_REQUESTS * s_enc:
+            r["cold_ms"] = cold_ms(lambda xi: quantize_static_cuda(xi, amax),
+                                   x, M * K)
+            log(f"  cold_ms={r['cold_ms']:.4f} plan={r['plan']}")
+        results.setdefault("quantize_static", []).append(r)
 
         q, sc = quantize_rowwise_cuda(x)
         rq, rsc = ref.ref_quantize_rowwise(x)
@@ -272,10 +323,15 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
             raise AssertionError(f"quantize_rowwise differs at {(M, K)}: "
                                  f"{err}")
         b, o = bound(M * K * 3 + M * 4, M * K * 5, F32_FLOPS_PER_S)
-        results.setdefault("quantize_rowwise", []).append(row(
-            "quantize_rowwise", [M, K], err,
-            time_ms(lambda: quantize_rowwise_cuda(x)),
-            time_ms(lambda: ref.ref_quantize_rowwise(x)), b, o, None))
+        r = row("quantize_rowwise", [M, K], err,
+                time_ms(lambda: quantize_rowwise_cuda(x)),
+                time_ms(lambda: ref.ref_quantize_rowwise(x)), b, o, None)
+        r["plan"] = dataclasses.asdict(tile.rowwise)
+        r["empty_ms"] = empty_ms
+        if M >= N_REQUESTS * s_enc:
+            r["cold_ms"] = cold_ms(quantize_rowwise_cuda, x, M * K + M * 4)
+            log(f"  cold_ms={r['cold_ms']:.4f} plan={r['plan']}")
+        results.setdefault("quantize_rowwise", []).append(r)
 
     # K3: exact s32 accumulator; f32 and bf16 outputs equal to the plain
     # version bit for bit (the same accumulator, the epilogue in the
@@ -741,9 +797,12 @@ def profile(label: str, fn):
 
 
 def attention_ms(rows) -> str:
-    """K4's and K5's device ms and launches in a profile's rows."""
+    """K1's, K2's, K4's and K5's device ms and launches in a profile's
+    rows."""
     out = []
-    for name, key in (("K4", "decode_attention_kernel"),
+    for name, key in (("K1", "quantize_static_kernel"),
+                      ("K2", "quantize_rowwise"),
+                      ("K4", "decode_attention_kernel"),
                       ("K5", "decode_attention_paged_kernel")):
         ms = sum(r[0] for r in rows if key in r[1])
         n = sum(r[2] for r in rows if key in r[1])
@@ -1054,20 +1113,30 @@ def run_moe(device: str = "cuda", cfg=None):
     engine.generate(batch, max_new_tokens=2)
     engine.generate_beam(batch, beam=BEAM, max_new_tokens=2)
 
-    plain = ref.ref_int8_matmul_batched
-    plain_calls = []
+    # the plain K7 and the plain quantizers are counted: on the card they
+    # must not run
+    plains = {(ref, "ref_int8_matmul_batched"): "K7",
+              (ref, "ref_quantize_static"): "quantize",
+              (ref, "ref_quantize_rowwise"): "quantize"}
+    plain_calls = {"K7": 0, "quantize": 0}
+    saved = {key: getattr(*key) for key in plains}
 
-    def counted(*args, **kwargs):
-        plain_calls.append(1)
-        return plain(*args, **kwargs)
+    def counted(fn, kind):
+        def call(*args, **kwargs):
+            plain_calls[kind] += 1
+            return fn(*args, **kwargs)
+        return call
 
-    ref.ref_int8_matmul_batched = counted
+    for (mod, name), kind in plains.items():
+        setattr(mod, name, counted(saved[(mod, name)], kind))
     runs = {}
     try:
         ops.reset_launch_counts()
         runs["moe_greedy_dynamic"] = engine.generate(batch,
                                                      max_new_tokens=MAX_NEW)
-        greedy_k7 = ops.launch_counts()["int8_matmul_batched"]
+        greedy_counts = ops.launch_counts()
+        greedy_k7 = greedy_counts["int8_matmul_batched"]
+        ops.reset_launch_counts()
         runs["moe_beam4_dynamic"] = engine.generate_beam(
             batch, beam=BEAM, max_new_tokens=MAX_NEW)
         t0 = time.perf_counter()
@@ -1085,12 +1154,16 @@ def run_moe(device: str = "cuda", cfg=None):
         log(f"calibrate+quantize (static): "
             f"{time.perf_counter() - t0:.3f} s, {n_q}/{len(recs)} "
             f"calibrated sites quantizable")
+        before_static = ops.launch_counts()
         runs["moe_greedy_static"] = ServingEngine(
             model, sparams, quant=sctx, max_len=MOE_MAX_LEN,
             device=device).generate(batch, max_new_tokens=MAX_NEW)
-        counts = ops.launch_counts()
+        after = ops.launch_counts()
+        static_counts = {k: after[k] - before_static[k] for k in after}
+        counts = {k: greedy_counts[k] + after[k] for k in after}
     finally:
-        ref.ref_int8_matmul_batched = plain
+        for key, fn in saved.items():
+            setattr(*key, fn)
     for name, r in runs.items():
         log(f"e2e {name}: tokens={r.n_tokens} steps={r.steps} "
             f"tokens_per_s={r.tokens_per_s:.1f} prefill_s={r.prefill_s:.4f} "
@@ -1105,14 +1178,38 @@ def run_moe(device: str = "cuda", cfg=None):
     # decode steps (all MAX_NEW - 1 of them while any row runs)
     per_pass = 3 * cfg.n_layers
     greedy = runs["moe_greedy_dynamic"]
+    # one quantizer launch a quantized site and forward pass: q, k, v and o
+    # of the attention and the three expert sites, K2 with dynamic scales,
+    # K1 (or K2 where a site has no symmetric threshold) with static ones
+    quant_pass = (4 + 3) * cfg.n_layers
+    static = runs["moe_greedy_static"]
+    k2 = greedy_counts["quantize_rowwise"]
+    k1k2_static = (static_counts["quantize_static"]
+                   + static_counts["quantize_rowwise"])
     log(f"  launches: {json.dumps(counts)}; K7 in the greedy dynamic run: "
         f"{greedy_k7} ({per_pass} a forward pass, {greedy.steps} passes); "
-        f"plain K7 calls: {len(plain_calls)}")
-    if plain_calls or greedy_k7 < per_pass * greedy.steps or (
+        f"K2 {k2} and K1 {greedy_counts['quantize_static']} ({quant_pass} a "
+        f"pass); greedy static: K1 {static_counts['quantize_static']}, K2 "
+        f"{static_counts['quantize_rowwise']} ({static.steps} passes); plain "
+        f"K7 calls: {plain_calls['K7']}, plain (eager) quantizer calls: "
+        f"{plain_calls['quantize']}")
+    if plain_calls["K7"] or greedy_k7 < per_pass * greedy.steps or (
             greedy.steps == MAX_NEW and greedy_k7 != per_pass * MAX_NEW):
         raise AssertionError(f"K7 launched {greedy_k7} times in the greedy "
-                             f"run, its plain version {len(plain_calls)} "
+                             f"run, its plain version {plain_calls['K7']} "
                              "times")
+    def per_pass_ok(n, r):   # as K7: every pass ran, all MAX_NEW of them
+        return n >= quant_pass * r.steps and (
+            r.steps != MAX_NEW or n == quant_pass * MAX_NEW)
+
+    if plain_calls["quantize"] or greedy_counts["quantize_static"] or \
+            not per_pass_ok(k2, greedy) or \
+            not per_pass_ok(k1k2_static, static) or \
+            static_counts["quantize_static"] <= 0:
+        raise AssertionError(
+            f"MoE quantizers: K2 {k2} in the greedy dynamic run, K1 + K2 "
+            f"{k1k2_static} in the greedy static run, against {quant_pass} a "
+            f"forward pass; eager quantizer calls {plain_calls['quantize']}")
     path = ("int8_matmul_batched", "int8_matmul", "quantize_static",
             "quantize_rowwise", "decode_attention")
     if any(counts[k] <= 0 for k in path) or counts["int4_matmul"] or \
@@ -1172,7 +1269,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.configs import get_config
-    from repro_torch.data import make_corpus, pad_batch
+    from repro_torch.data import make_corpus
     from repro_torch.kernels import build, ops
     from repro_torch.models import EncDecLM
 
@@ -1197,11 +1294,9 @@ def main() -> int:
 
     cfg = get_config("transformer-base")
     corpus = make_corpus(N_REQUESTS + N_CALIB, cfg.vocab, seed=11)
-    s_enc = pad_batch([s.src for s in corpus[:N_REQUESTS]])[0].shape[1]
+    s_enc, s_moe, moe_cfg = path_dims()
     log(f"transformer-base: {N_REQUESTS} requests, S_enc={s_enc}, "
         f"max_len={MAX_LEN}, max_new_tokens={MAX_NEW}")
-    moe_cfg = get_config(MOE_ARCH)
-    s_moe = moe_prompts(moe_cfg.vocab)[0]["tokens"].shape[1]
 
     # 3. kernels vs plain
     phase("kernels vs plain")
@@ -1278,18 +1373,17 @@ def main() -> int:
         "int4_matmul": "src/repro_torch/csrc/int4_matmul.cu",
         "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
         "decode_attention_paged": "src/repro_torch/csrc/decode_attention.cu"}
-    # each kernel's launches on the path it was ported for
-    paths = {name: ("generate (greedy + beam-4 static, greedy dynamic)",
-                    counts[name]) for name in replaces}
-    paths["decode_attention_paged"] = (
-        "serve paged (fused, default pool)",
-        serve_counts["paged"]["decode_attention_paged"])
-    paths["int4_matmul"] = (
-        "INT4 weights: generate (greedy + beam-4 static) + paged serve",
-        int4_counts["int4_matmul"])
-    paths["int8_matmul_batched"] = (
-        f"MoE generate ({MOE_ARCH}: greedy + beam-4 dynamic, greedy static)",
-        moe_counts["int8_matmul_batched"])
+    # each kernel's launches over every path driven with the counts read
+    # from zero: generate, the four serves, the INT4 phase, the MoE phase
+    path_counts = {"generate": counts,
+                   **{f"serve {k}": v for k, v in serve_counts.items()},
+                   "INT4": int4_counts, "MoE": moe_counts}
+    paths = {}
+    for name in replaces:
+        per = {k: c[name] for k, c in path_counts.items() if c[name]}
+        paths[name] = ("; ".join(f"{k} {n}" for k, n in per.items()),
+                       sum(per.values()))
+        log(f"launches {name}: {paths[name][1]} ({paths[name][0]})")
     kernels = []
     for name in replaces:
         r = next(x for x in results[name] if x["shape"] == headline[name])
@@ -1301,8 +1395,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             "path": paths[name][0],
-            **{k: r[k] for k in ("k3_ms", "cold_ms", "tile", "plan")
-               if k in r}})
+            **{k: r[k] for k in ("k3_ms", "cold_ms", "tile", "plan",
+                                 "empty_ms") if k in r}})
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "

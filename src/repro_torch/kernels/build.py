@@ -43,8 +43,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "repro_quantize_static": [_P, _P, _L, _L, _F, _I, _I, _P],
-    "repro_quantize_rowwise": [_P, _P, _P, _L, _L, _I, _I, _P],
+    "repro_quantize_static": [_P, _P, _L, _F, _I, _I, _I, _I, _P],
+    "repro_quantize_rowwise": [_P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
     "repro_int8_matmul": [_P, _P, _P, _F, _I, _P, _P, _F, _I, _P, _P, _I, _I,
                           _I, _I, _I, _I, _I, _P, _I, _P],
     "repro_int8_matmul_batched": [_P, _P, _P, _F, _I, _P, _P, _I, _I, _I, _I,

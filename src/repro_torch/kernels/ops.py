@@ -204,18 +204,20 @@ def quantize_rowwise(x: torch.Tensor, *, impl: str = "auto") -> QTensor:
                    zero_point=0.0, axis=None)
 
 
-def quantize_static(x: torch.Tensor, amax: float, *,
-                    impl: str = "auto") -> QTensor:
+def quantize_static(x: torch.Tensor, amax: float, *, impl: str = "auto",
+                    clamp: bool = True) -> QTensor:
     """Calibrated symmetric quantization with a constant threshold.
 
     The returned scale is ``float32(amax) / 127`` without the kernel's eps
     clamp, exactly as the reference's ``ops.quantize_static`` returns it.
+    The codes take the threshold clamped at 1e-12, as the reference's
+    kernel does; ``clamp=False`` takes it as it is (the MoE expert sites).
     """
     x2 = x.reshape(-1, x.shape[-1])
     if use_kernel(impl, x2):
-        q = quantize_static_cuda(x2.contiguous(), amax)
+        q = quantize_static_cuda(x2.contiguous(), amax, clamp=clamp)
     else:
-        q = ref.ref_quantize_static(x2, float(np.float32(amax)))
+        q = ref.ref_quantize_static(x2, float(np.float32(amax)), clamp=clamp)
     scale = float(np.float32(amax) / np.float32(127.0))
     return QTensor(data=q.reshape(x.shape), scale=scale, zero_point=0.0,
                    axis=None)

@@ -155,16 +155,19 @@ def ref_quantize_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
-def ref_quantize_static(x: torch.Tensor, amax: Scale) -> torch.Tensor:
+def ref_quantize_static(x: torch.Tensor, amax: Scale, *,
+                        clamp: bool = True) -> torch.Tensor:
     """Static-scale symmetric quantization (calibrated threshold): the
     codes ``round(x · inv)`` with ``scale = max(amax, eps) / 127`` and
     ``inv = 1 / scale``, both IEEE divisions in float32, as the jitted
     reference computes them (a division by a constant becomes a multiply
-    by its reciprocal)."""
+    by its reciprocal).  ``clamp`` off takes ``scale = amax / 127``."""
     amax = (amax.to(device=x.device, dtype=torch.float32)
             if isinstance(amax, torch.Tensor)
             else torch.full((), float(amax), device=x.device))
-    inv = rdiv_exact(1.0, div_exact(torch.clamp_min(amax, _EPS), INT8_MAX))
+    if clamp:
+        amax = torch.clamp_min(amax, _EPS)
+    inv = rdiv_exact(1.0, div_exact(amax, INT8_MAX))
     q = torch.clamp(torch.round(x.to(torch.float32) * inv),
                     -INT8_MAX, INT8_MAX)
     return q.to(torch.int8)

@@ -26,7 +26,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.calibration import Taps, record
 from repro_torch.core.ptq import FP_CONTEXT, QuantContext
-from repro_torch.core.qtensor import INV_127, QTensor
+from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense, dense_init, top_k
 
@@ -63,36 +63,35 @@ def _expert_dense(node, x: torch.Tensor, *, site: str, quant: QuantContext,
                   taps: Optional[Taps]) -> torch.Tensor:
     """Batched per-expert linear: x (E, M, K) @ w (E, K, N).
 
-    The activations are quantized here in plain torch (not by K1/K2), in
-    the form the reference's jitted programs compute (``moe.py:57-71``
-    under XLA's rewrite of a division by a constant):
+    The activations are quantized by K1/K2 over the E·M rows
+    (``ops.quantize_static`` / ``ops.quantize_rowwise``), in the form the
+    reference's jitted programs compute (``moe.py:57-71`` under XLA's
+    rewrite of a division by a constant):
 
     * static: ``scale = float32(t_max) / 127`` (folded exactly), the
-      codes ``round(x · float32(1 / scale))``, and the epilogue
-      ``acc · (scale · b_scale)``: XLA multiplies the constant into the
-      weight scales first, so K7 gets the activation scale 1 and those
-      products as its weight scales;
+      codes ``round(x · float32(1 / scale))`` (K1's function with the
+      threshold unclamped: the reference does not clamp it at 1e-12), and
+      the epilogue ``acc · (scale · b_scale)``: XLA multiplies the
+      constant into the weight scales first, so K7 gets the activation
+      scale 1 and those products as its weight scales;
     * dynamic: ``scale = amax · float32(1/127)`` per (expert, row), the
-      codes ``round(x / scale)`` (an IEEE division by a tensor), and the
-      epilogue ``acc · scale · b_scale``.
+      codes ``round(x / scale)`` (an IEEE division by a tensor; K2's
+      function), and the epilogue ``acc · scale · b_scale``.
     """
     w = node["w"]
     record(taps, site, x)
     if isinstance(w, QTensor):
-        xf = x.to(torch.float32)
+        E, _, N = w.data.shape
         thr = quant.activation_thresholds(site)
         if thr is not None and thr.symmetric:
             scale = np.float32(thr.t_max) / np.float32(127.0)
-            inv = float(np.float32(1.0) / scale)
-            q = torch.clamp(torch.round(xf * inv), -127, 127)
-            a_scale, b_scale = 1.0, _folded_scale(w, float(scale))
+            q = ops.quantize_static(x, thr.t_max, impl=quant.impl,
+                                    clamp=False).data
+            xq = QTensor(q, 1.0, 0.0, None)
+            b_scale = _folded_scale(w, float(scale))
         else:
-            E, _, N = w.data.shape
+            xq = ops.quantize_rowwise(x, impl=quant.impl)
             b_scale = w.scale.reshape(E, 1, N)
-            amax = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-12)
-            a_scale = amax * INV_127
-            q = torch.clamp(torch.round(xf / a_scale), -127, 127)
-        xq = QTensor(q.to(torch.int8), a_scale, 0.0, None)
         wq = QTensor(w.data, b_scale, 0.0, None)
         return ops.int8_matmul_batched(xq, wq, out_dtype=x.dtype,
                                        impl=quant.impl)

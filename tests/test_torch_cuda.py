@@ -9,6 +9,7 @@ The first test builds the kernels from ``src/repro_torch/csrc`` (seconds).
 ``chip_smoke.py`` repeats these checks at the main path's shapes.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -52,15 +53,145 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def _quantizer_input(gen, M, K, dtype, offset):
+    """(M, K) values for K1 (threshold 127, so its multiplier is 1) and K2:
+    normal draws; row 0 all zero (scale 1e-12 · f32(1/127), codes 0); row 1
+    with abs-max 127 (scale exactly 1, so the codes are the values) holding
+    every half-integer in (-127, 127), which must round half to even; row 2
+    with values past the threshold (clip to ±127, never -128).  ``offset``
+    elements before the base make it unaligned (a slice, still
+    contiguous)."""
+    x = torch.randn((M, K), generator=gen, device="cuda") * 60
+    halves = torch.arange(-253, 254, device="cuda") / 2.0
+    if M > 1:
+        x[0] = 0.0
+        x[1] = halves.repeat(-(-K // halves.numel()))[:K]
+        x[1, 0] = 127.0
+    if M > 2:
+        x[2] = torch.tensor([-127.5, -128.0, 127.5, 300.0, -1e6, 128.5],
+                            device="cuda").repeat(-(-K // 6))[:K]
+        x[2, 0] = 127.0
+    flat = torch.zeros(M * K + offset, device="cuda", dtype=dtype)
+    flat[offset:] = x.reshape(-1).to(dtype)
+    return flat[offset:].view(M, K)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,K", [(1, 64), (12, 200), (300, 512)])
-def test_quantizers_exact(gen, dtype, M, K):
-    x = (torch.randn((M, K), generator=gen, device="cuda") * 3).to(dtype)
-    q = quantize_static_cuda(x, 2.5)
-    assert torch.equal(q, ref.ref_quantize_static(x, 2.5))
-    q, s = quantize_rowwise_cuda(x)
+@pytest.mark.parametrize("K", [64, 130, 200, 512, 1024, 2048, 8192])
+def test_quantizers_exact(gen, dtype, K):
+    """K1 and K2 bit for bit against their plain versions (codes, and K2's
+    scales) under the plan and under every plan forced, aligned and offset
+    by one element (the scalar path), at 1, 12, 160 and 2944 rows."""
+    from repro_torch.kernels.quantize import (is_aligned, plan,
+                                              rowwise_plans, static_plans)
+    for M in (1, 12, 160, 2944):
+        for offset in (0, 1):
+            x = _quantizer_input(gen, M, K, dtype, offset)
+            aligned = is_aligned(x)
+            assert aligned == (offset == 0)
+            want = ref.ref_quantize_static(x, 127.0)
+            rq, rs = ref.ref_quantize_rowwise(x)
+            default = plan(M, K, dtype, aligned)
+            for p in [None, default.static] + static_plans(M, K, dtype,
+                                                           aligned):
+                assert torch.equal(quantize_static_cuda(x, 127.0, tile=p),
+                                   want), (M, K, offset, p)
+            assert torch.equal(quantize_static_cuda(x, 2.5),
+                               ref.ref_quantize_static(x, 2.5))
+            for p in [None, default.rowwise] + rowwise_plans(M, K, dtype,
+                                                             aligned):
+                q, s = quantize_rowwise_cuda(x, tile=p)
+                assert torch.equal(q, rq) and torch.equal(s, rs), \
+                    (M, K, offset, p)
+            if M > 2:
+                assert int(want.min()) == -127 and int(rq.min()) == -127
+                assert (rq[0] == 0).all() and float(rs[0]) == float(
+                    np.float32(1e-12) * (np.float32(1) / np.float32(127)))
+                assert float(rs[1]) == 1.0
+                row = x[1].float()
+                assert int((row.frac().abs() == 0.5).sum()) >= \
+                    (min(K, 507) - 1) // 2
+                assert torch.equal(rq[1].long(),
+                                   torch.round(row).clamp(-127, 127).long())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_rowwise_every_bf16_value(gen, dtype):
+    """K2 (the IEEE division, then the clip and the low-byte rounding)
+    equals the plain version for every finite bf16 value, in rows of 8192
+    whose abs-max is one of several bf16 values (127: scale exactly 1), under
+    the plan and every plan forced."""
+    from repro_torch.kernels.quantize import is_aligned, rowwise_plans
+    bits = (torch.arange(1 << 16, dtype=torch.int32) << 16).view(
+        torch.float32)
+    bits = bits[torch.isfinite(bits)]
+    K, rows = 8192, []
+    for amax in (127.0, 1.0, 2.5, 0.0117, 3e-13, 1e30):
+        a = float(torch.tensor(amax).to(torch.bfloat16).float())
+        vals = bits[bits.abs() <= a]
+        for i in range(0, vals.numel(), K - 1):
+            row = torch.zeros(K)
+            row[0] = a
+            chunk = vals[i:i + K - 1]
+            row[1:1 + chunk.numel()] = chunk
+            rows.append(row)
+    x = torch.stack(rows).to(dtype).cuda()
     rq, rs = ref.ref_quantize_rowwise(x)
-    assert torch.equal(q, rq) and torch.equal(s, rs)
+    M = x.shape[0]
+    for p in [None] + rowwise_plans(M, K, dtype, is_aligned(x)):
+        q, s = quantize_rowwise_cuda(x, tile=p)
+        assert torch.equal(q, rq) and torch.equal(s, rs), p
+
+
+def test_quantizer_plans_refused(gen):
+    """A forced vector plan on an unaligned input is refused, not run."""
+    from repro_torch.kernels.quantize import RowwisePlan, StaticPlan
+    x = _quantizer_input(gen, 16, 512, torch.bfloat16, 1)
+    with pytest.raises(ValueError):
+        quantize_static_cuda(x, 1.0, tile=StaticPlan(True, 4))
+    with pytest.raises(ValueError):
+        quantize_rowwise_cuda(x, tile=RowwisePlan(2, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_static_unclamped_threshold(gen, dtype):
+    """K1 with the threshold's clamp off (the MoE expert sites) equals the
+    plain version's unclamped form below 1e-12, under every plan, and the
+    clamped form at and above it."""
+    from repro_torch.kernels.quantize import is_aligned, static_plans
+    M, K = 160, 1024
+    for offset in (0, 1):
+        x = _quantizer_input(gen, M, K, dtype, offset) * 1e-15
+        for t in (1e-13, 3.3e-13, 1e-12, 2.5):
+            want = ref.ref_quantize_static(x, t, clamp=False)
+            for p in [None] + static_plans(M, K, dtype, is_aligned(x)):
+                assert torch.equal(quantize_static_cuda(x, t, clamp=False,
+                                                        tile=p), want), (t, p)
+            if t >= 1e-12:
+                assert torch.equal(want, ref.ref_quantize_static(x, t))
+        assert not torch.equal(quantize_static_cuda(x, 1e-13, clamp=False),
+                               quantize_static_cuda(x, 1e-13))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_rowwise_ignores_nan_in_max(gen, dtype):
+    """K2's row max drops NaNs (the scale is that of the row's other
+    elements, whichever lanes the NaNs fall on, a whole lane's included),
+    and a NaN's code is -127, as K1 gives it: the same bits under the plan
+    and every plan forced, aligned and offset."""
+    from repro_torch.kernels.quantize import is_aligned, rowwise_plans
+    M, K = 12, 2048
+    for offset in (0, 1):
+        x = _quantizer_input(gen, M, K, dtype, offset)
+        x[3, :512] = float("nan")               # whole lanes of NaNs
+        x[4, ::7] = float("nan")                # NaNs across the lanes
+        x[5] = float("nan")                     # a row of NaNs
+        nan = torch.isnan(x)
+        rq, rs = ref.ref_quantize_rowwise(torch.where(nan, 0.0, x))
+        rq = torch.where(nan, -127, rq).to(torch.int8)
+        for p in [None] + rowwise_plans(M, K, dtype, is_aligned(x)):
+            q, s = quantize_rowwise_cuda(x, tile=p)
+            assert torch.equal(q, rq) and torch.equal(s, rs), p
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 64, 48), (16, 130, 130),

@@ -110,9 +110,14 @@ def kernel_times(cs, dev, gen):
     return rows
 
 
-def profiled(cs, label, fn):
+ATTENTION_KERNELS = (("k4", "decode_attention_kernel"),
+                     ("k5", "decode_attention_paged_kernel"))
+
+
+def profiled(cs, label, fn, kernels=ATTENTION_KERNELS):
     """One profiled call of ``fn`` (which returns a generation or serve
-    result): busy and idle, K4's and K5's device time, the counters."""
+    result): busy and idle, the device time and launches of each of
+    ``kernels`` (name, a substring of its kernels' names), the counters."""
     out = {}
 
     def call():
@@ -124,8 +129,7 @@ def profiled(cs, label, fn):
            "tokens": r.n_tokens,
            "steps": getattr(r, "steps", None) or r.decode_steps,
            "host_syncs": r.host_syncs}
-    for name, key in (("k4", "decode_attention_kernel"),
-                      ("k5", "decode_attention_paged_kernel")):
+    for name, key in kernels:
         res[f"{name}_ms"] = sum(ms for ms, k, _ in rows if key in k)
         res[f"{name}_launches"] = sum(n for _, k, n in rows if key in k)
     return res
@@ -192,6 +196,32 @@ def one(src: str) -> dict:
     return res
 
 
+def run_trees(tool: str, srcs, timeout: int = 900):
+    """Run ``tool --one SRC`` for each tree, in the order given, each in a
+    fresh process that builds that tree's kernels; return (the card's name
+    and power limit, the runs' ``AB`` objects), or (None, None) without a
+    CUDA device."""
+    import torch
+    if not torch.cuda.is_available():
+        print(f"{Path(tool).name}: no CUDA device", file=sys.stderr)
+        return None, None
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    runs = []
+    for src in srcs:
+        proc = subprocess.run([sys.executable, tool, "--one", src],
+                              capture_output=True, text=True, timeout=timeout)
+        lines = [l for l in proc.stdout.splitlines() if l.startswith("AB ")]
+        if proc.returncode or not lines:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"{src}: exit {proc.returncode}")
+        runs.append(json.loads(lines[-1][3:]))
+        print(lines[-1], flush=True)
+    return card, runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("src", nargs="+")
@@ -201,24 +231,9 @@ def main(argv=None) -> int:
     if args.one:
         print("AB " + json.dumps(one(args.src[0])), flush=True)
         return 0
-    import torch
-    if not torch.cuda.is_available():
-        print("attention_ab: no CUDA device", file=sys.stderr)
+    card, runs = run_trees(__file__, args.src)
+    if runs is None:
         return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    print(card, flush=True)
-    runs = []
-    for src in args.src:
-        proc = subprocess.run([sys.executable, __file__, "--one", src],
-                              capture_output=True, text=True, timeout=900)
-        lines = [l for l in proc.stdout.splitlines() if l.startswith("AB ")]
-        if proc.returncode or not lines:
-            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-            raise RuntimeError(f"{src}: exit {proc.returncode}")
-        runs.append(json.loads(lines[-1][3:]))
-        print(lines[-1], flush=True)
     for i, r in enumerate(runs):
         print(f"run {i} {r['src']} build {r['build_s']:.1f} s")
         for k in r["kernels"]:
