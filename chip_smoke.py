@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's INT8 and INT4-weight translation and serving
-paths, and its decoder-only MoE generation, on one NVIDIA GPU.
+paths (greedy and beam), and its decoder-only MoE generation, on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -23,11 +24,12 @@ final line):
    under every forced plan (the same bits, and each plan's time), at a
    long cache of 4096 positions that the plan splits over a cluster,
    warm and cold, with a row's output the same bits alone and in its
-   batch, and K5 against K4
-   on the linearized cache, bit for bit; K6 (the INT4-weight matmul, K3's
-   tile on packed nibbles) bit for bit, f32 and bf16, also at shapes that
-   reach each tile and its group-ordered split, warm and cold, beside K3's
-   time at the same shape;
+   batch, and K5 against K4 on the linearized cache, bit for bit, also
+   over block tables shared within beam groups (the state a paged beam
+   reorder leaves); K6 (the INT4-weight matmul, K3's tile on packed
+   nibbles) bit for bit, f32 and bf16, also at shapes that reach each tile
+   and its group-ordered split, warm and cold, beside K3's time at the
+   same shape;
    K7 (the grouped expert GEMM, K3's tile) bit for bit at the rows per
    expert of every MoE forward pass (greedy and beam-4 decode and
    prefill), f32 and bf16, warm and cold;
@@ -45,13 +47,24 @@ final line):
    tokens must be identical, every page returned, K5 launched on the paged
    runs only and its plain version never; then a profiled paged serve
    (with K4's and K5's device time);
+5b. continuous beam serving — the first 24 of those requests at
+   ``beam=4`` (4 groups of 4 rows): contiguous fused, paged fused, paged
+   unfused, paged with mixed widths (1–4), paged with
+   ``burst_len="auto"``, and paged with dynamic activation scales (K2).
+   Every request finishes, paged tokens equal contiguous tokens, every
+   page is returned, the reorder bytes a step equal the reference's
+   formula, K4 launches on the contiguous run and K5 on the paged ones,
+   K2 on the dynamic one, and neither plain attention runs; then the agreement with per-request ``generate_beam``
+   (logged), and a profiled contiguous and paged beam serve of 12 requests
+   (device only) with one reorder of each cache profiled alone;
 6. INT4 weights — the same model quantized with ``weight_bits=4`` (decoder
    FFN and attention output projections block-wise INT4, group 128, f16
-   scales; static activation scales): greedy and beam-4 ``generate`` and one
-   paged ``serve`` of the 48 requests; K6 must launch and its plain version
-   run 0 times, and the first decode steps' logits with the kernels must
-   match those with ``impl="torch"``; then a profiled greedy run (busy
-   time, idle share, K6's time and kernels);
+   scales; static activation scales): greedy and beam-4 ``generate``, a
+   greedy paged ``serve`` of the 48 requests and a beam-4 one of the first
+   24; K6 must launch and its plain version run 0 times, and the first
+   decode steps' logits with the kernels must match those with
+   ``impl="torch"``; then a profiled greedy run (busy time, idle share,
+   K6's time and kernels);
 7. the decoder-only MoE family — granite-moe-1b-a400m at its published
    widths and depth (24 layers, 32 experts top-8; random weights from
    ``torch.Generator`` seed 0, bf16 activations) on 16 right-padded
@@ -66,8 +79,9 @@ final line):
    with static scales, and a profiled greedy run (busy time, idle share,
    K7's share, K4's device time);
 8. the serving driver ``python -m repro_torch.launch.serve`` once per mode
-   (continuous paged, static, continuous paged with ``--weight-bits 4``),
-   each a subprocess that must exit 0;
+   (continuous paged, static, continuous paged with ``--weight-bits 4``,
+   continuous paged beam 4 with ``--burst-len auto``), each a subprocess
+   that must exit 0;
 9. launch counts of each path, and one JSON line describing each kernel
    (its launches summed over every path of phases 4-7);
 10. last line: ``{"ok": true, "device": {...}}``.
@@ -265,6 +279,7 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
                                               plan as quant_plan,
                                               quantize_rowwise_cuda,
                                               quantize_static_cuda)
+    from repro_torch.models import kv_cache as kvc
     from repro_torch.models.kv_cache import linearize_pages
 
     dev = torch.device("cuda")
@@ -648,6 +663,81 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
             f"warps, ms): "
             + " ".join(f"{k}:{v:.4f}" for k, v in r["plans_ms"].items()))
         results.setdefault("decode_attention_paged", []).append(r)
+
+    # K5 over block tables shared within beam groups, the state
+    # kv_cache.gather_beams_paged leaves at phase 5b's grid (16 rows in
+    # groups of BEAM, 4 pages of 16 a row): two reorders, each a random
+    # permutation within every group, so the siblings of a group map the
+    # same full pages and each row's write-slot page is its own (a copy of
+    # its source's partial page).  The plain version, and K4 on the
+    # linearized cache bit for bit, under every forced plan.
+    B, maxP = SERVE_SLOTS, MAX_LEN // PAGE
+    S, P = maxP * PAGE, SERVE_SLOTS * maxP
+    cpu = torch.Generator().manual_seed(20)
+    store = lambda *shape, dt: (
+        torch.randint(-127, 128, shape, generator=gen, device=dev,
+                      dtype=dt) if dt == torch.int8 else
+        torch.rand(shape, generator=gen, device=dev) * 0.02)
+    own = torch.randperm(P, generator=cpu).int().reshape(B, maxP).to(dev)
+    shared = kvc.PagedKVCache(
+        k_store=store(1, P + 1, PAGE, HKV, dh, dt=torch.int8),
+        v_store=store(1, P + 1, PAGE, HKV, dh, dt=torch.int8),
+        ks_store=store(1, P + 1, PAGE, HKV, dt=torch.float32),
+        vs_store=store(1, P + 1, PAGE, HKV, dt=torch.float32),
+        block_tables=own.clone(), own_pages=own,
+        lengths=torch.randint(1, S - 1, (B,), generator=cpu).int().to(dev))
+    for _ in range(2):
+        pick = torch.randint(0, BEAM, (B,), generator=cpu)
+        idx = (torch.arange(B) // BEAM * BEAM + pick).to(dev)
+        shared = kvc.gather_beams_paged(shared, idx)
+        shared = kvc.with_lengths(shared, shared.lengths + 1)
+    tables, lengths = shared.block_tables, shared.lengths
+    sibling_pages = sum(
+        len(set(tables[g * BEAM:(g + 1) * BEAM].flatten().tolist()))
+        for g in range(B // BEAM))
+    kq, vq = shared.k[0], shared.v[0]
+    ks, vs = shared.k_scale[0], shared.v_scale[0]
+    qf = torch.randn((B, H, dh), generator=gen, device=dev)
+    sm = 1.0 / dh ** 0.5
+    lin = lambda a: linearize_pages(a, tables).contiguous()
+    lin_cache = (lin(kq), lin(ks), lin(vq), lin(vs))
+    errs = []
+    for q in (qf, qf.to(torch.bfloat16)):
+        out = decode_attention_paged_cuda(q, kq, ks, vq, vs, tables, lengths,
+                                          sm_scale=sm)
+        out_ref = ref.ref_decode_attention_paged(q, kq, ks, vq, vs, tables,
+                                                 lengths, sm)
+        err = float((out.float() - out_ref.float()).abs().max())
+        rtol = 1e-5 if q.dtype == torch.float32 else 2.0 ** -7
+        if not torch.allclose(out.float(), out_ref.float(), atol=1e-5,
+                              rtol=rtol):
+            raise AssertionError(f"decode_attention_paged over shared "
+                                 f"tables ({q.dtype}): err {err}")
+        for p in all_plans(S):
+            got = decode_attention_paged_cuda(q, kq, ks, vq, vs, tables,
+                                              lengths, sm_scale=sm, tile=p)
+            k4 = decode_attention_cuda(q, *lin_cache, lengths, sm_scale=sm,
+                                       tile=p)
+            if not (torch.equal(got, out) and torch.equal(k4, out)):
+                raise AssertionError(
+                    f"decode_attention_paged over shared tables ({q.dtype}, "
+                    f"{p}): differs from K5 under its plan or from K4 on "
+                    f"the linearized cache")
+        errs.append(err)
+    tokens = int(lengths.sum())
+    b, o = bound(tokens * HKV * (2 * dh + 8) + B * maxP * 4
+                 + 2 * B * H * dh * 2, 4 * tokens * H * dh, F32_FLOPS_PER_S)
+    r = row("decode_attention_paged", [B, P, PAGE, HKV, dh, "shared"],
+            max(errs), time_ms(lambda: decode_attention_paged_cuda(
+                q, kq, ks, vq, vs, tables, lengths, sm_scale=sm)),
+            time_ms(lambda: ref.ref_decode_attention_paged(
+                q, kq, ks, vq, vs, tables, lengths, sm)), b, o, None)
+    log(f"  shared tables: {sibling_pages} distinct pages over "
+        f"{B // BEAM} groups' {B * maxP} table entries; max |K5 - K4 on the "
+        f"linearized cache| = 0 under every plan (f32 and bf16)")
+    if sibling_pages >= B * maxP:
+        raise AssertionError("the reorders left no page shared")
+    results["decode_attention_paged"].append(r)
     return results
 
 
@@ -761,36 +851,45 @@ def check_against_plain(model, qparams, qctx, batch, steps: int = 3, *,
     return worst
 
 
-def profile(label: str, fn):
-    """Device busy time of one call of ``fn``, from torch.profiler.
-    Returns (busy ms, [(device ms, kernel name, count)] largest first,
-    wall ms)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        steps = fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (operator rows repeat their kernels' time);
-    # one stream, so kernels do not overlap and their sum is the busy time
+def device_rows(prof):
+    """[(device ms, kernel name, count)] of a finished torch.profiler run,
+    largest first: device-side events only (operator rows repeat their
+    kernels' time); one stream, so kernels do not overlap and their sum is
+    the busy time."""
     from torch.autograd import DeviceType
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     field = ("self_device_time_total" if events
              and hasattr(events[0], "self_device_time_total")
              else "self_cuda_time_total")
-    rows = sorted(((getattr(e, field) / 1e3, e.key, e.count)
+    return sorted(((getattr(e, field) / 1e3, e.key, e.count)
                    for e in events if getattr(e, field) > 0), reverse=True)
+
+
+def profile(label: str, fn, cpu: bool = True):
+    """Device busy time of one call of ``fn``, from torch.profiler.
+    ``cpu=False`` records the device only: far fewer events to gather on a
+    long call, and no host-side recording in the wall time.  Returns (busy
+    ms, [(device ms, kernel name, count)] largest first, wall ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with tprofile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        steps = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows)
     if busy_ms <= 0:
         raise AssertionError("the profiler saw no device time")
-    log(f"profile {label} (profiled): wall_ms={wall_ms:.1f} "
-        f"device_busy_ms={busy_ms:.2f} idle_share={1 - busy_ms / wall_ms:.3f} "
-        f"steps={steps}")
+    log(f"profile {label} (profiled{'' if cpu else ', device only'}): "
+        f"wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.2f} "
+        f"idle_share={1 - busy_ms / wall_ms:.3f} steps={steps}")
     for ms, key, count in rows[:8]:
         log(f"  device {ms:8.3f} ms  x{count:<5d} {key[:70]}")
     return busy_ms, rows, wall_ms
@@ -957,6 +1056,257 @@ def profile_paged_serve(model, qparams, qctx) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: continuous beam serving over the contiguous and the paged cache
+# ---------------------------------------------------------------------------
+
+BEAM_REQUESTS = 24             # phase 5b: the first half of phase 5's
+MIXED_WIDTHS = [1, 2, 3, 4] * (BEAM_REQUESTS // 4)
+BEAM_SERVE_RUNS = (     # name, engine options, serve options, act scales
+    ("beam_contiguous", dict(paged=False), dict(), "static"),
+    ("beam_paged", dict(paged=True, page_size=PAGE), dict(), "static"),
+    ("beam_paged_unfused", dict(paged=True, page_size=PAGE),
+     dict(fused_admission=False), "static"),
+    ("beam_paged_mixed", dict(paged=True, page_size=PAGE),
+     dict(beam=MIXED_WIDTHS), "static"),
+    ("beam_paged_auto", dict(paged=True, page_size=PAGE, burst_len="auto"),
+     dict(), "static"),
+    ("beam_paged_dynamic", dict(paged=True, page_size=PAGE), dict(),
+     "dynamic"),
+)
+
+
+def reorder_bytes_formula(cfg, rows: int, enc_len: int, paged: bool) -> int:
+    """Bytes one beam step's reorder moves, from the reference's formulas:
+    contiguous, the INT8 slab and its scales (``KVCache.nbytes``) plus the
+    cross K/V in the activation dtype; paged
+    (``PagedKVCache.reorder_bytes_per_step``), one page of payload and
+    scales a row, the block tables and the cursors."""
+    L, HKV, dh = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    act = cfg.activation_dtype.itemsize
+    if paged:
+        maxP = MAX_LEN // PAGE
+        return (L * rows * PAGE * HKV * (dh + 4) * 2 + rows * maxP * 4
+                + rows * 4)
+    return (L * rows * MAX_LEN * HKV * (dh + 4) * 2
+            + 2 * L * rows * enc_len * HKV * dh * act)
+
+
+def beam_requests(vocab: int):
+    """Phase 5b's requests: the first ``BEAM_REQUESTS`` of phase 5's."""
+    corpus, budgets = serve_requests(vocab)
+    return corpus[:BEAM_REQUESTS], budgets[:BEAM_REQUESTS]
+
+
+def run_beam_serving(model, params, qparams, qctx):
+    """Serve phase 5b's requests at beam 4 once per run of
+    ``BEAM_SERVE_RUNS`` (INT8 weights; static scales ``qparams``/``qctx``,
+    dynamic ones quantized here from ``params``), each run's launch counts
+    read from zero.  Neither plain attention may run.  Returns (launch
+    counts per run, results)."""
+    import numpy as np
+    from repro_torch.core import QuantPolicy, quantize_model
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving import ServingEngine
+
+    weights = {"static": (qparams, qctx),
+               "dynamic": quantize_model(params, {},
+                                         QuantPolicy(act_quant="dynamic"))}
+    corpus, budgets = beam_requests(model.cfg.vocab)
+    # warm-up: the beam step's shapes (uncounted)
+    for scales, kw in (("static", dict(paged=False)),
+                       ("static", dict(paged=True, page_size=PAGE)),
+                       ("dynamic", dict(paged=True, page_size=PAGE))):
+        wparams, wctx = weights[scales]
+        ServingEngine(model, wparams, quant=wctx, max_len=MAX_LEN,
+                      burst_len=SERVE_BURST, **kw).serve(
+            corpus[:6], n_slots=SERVE_SLOTS, max_new_tokens=3, beam=BEAM)
+
+    plain = {"decode_attention": ref.ref_decode_attention,
+             "decode_attention_paged": ref.ref_decode_attention_paged}
+    plain_calls = []
+
+    def counted(name):
+        def fn(*args, **kwargs):
+            plain_calls.append(name)
+            return plain[name](*args, **kwargs)
+        return fn
+
+    ref.ref_decode_attention = counted("decode_attention")
+    ref.ref_decode_attention_paged = counted("decode_attention_paged")
+    counts, results = {}, {}
+    try:
+        for name, kw, serve_kw, scales in BEAM_SERVE_RUNS:
+            kw = dict(dict(burst_len=SERVE_BURST), **kw)
+            wparams, wctx = weights[scales]
+            engine = ServingEngine(model, wparams, quant=wctx,
+                                   max_len=MAX_LEN, **kw)
+            del plain_calls[:]
+            ops.reset_launch_counts()
+            res = engine.serve(corpus, n_slots=SERVE_SLOTS,
+                               max_new_tokens=budgets,
+                               **dict(dict(beam=BEAM), **serve_kw))
+            counts[name] = ops.launch_counts()
+            results[name] = res
+            m = res.metrics()
+            per_step = res.reorder_bytes // max(res.decode_steps, 1)
+            want = reorder_bytes_formula(model.cfg, res.n_slots,
+                                         engine._enc_bucket_hwm, res.paged)
+            log(f"serve {name}: tokens={res.n_tokens} "
+                f"tokens_per_s={res.tokens_per_s:.1f} "
+                f"decode_steps={res.decode_steps} "
+                f"host_syncs={res.host_syncs} "
+                f"utilization={res.utilization:.3f} "
+                f"admission_rounds={res.prefill_rounds} "
+                f"prefill_dispatches={res.prefill_dispatches} "
+                f"encoder_tokens={res.encoder_tokens} "
+                f"burst_len={res.burst_len}"
+                + (" (auto)" if res.auto_burst else "")
+                + f" reorder_bytes={res.reorder_bytes} "
+                f"({per_step} a step; formula {want}) "
+                f"first_token_mean_s={m['first_token_latency_mean_s']:.4f} "
+                f"first_token_p95_s={m['first_token_latency_p95_s']:.4f} "
+                f"total_mean_s={m['total_latency_mean_s']:.4f} "
+                f"total_p95_s={m['total_latency_p95_s']:.4f} "
+                f"peak_running={res.peak_running} page_hwm={res.page_hwm}")
+            log(f"  launches: {json.dumps(counts[name])}; plain attention "
+                f"calls: {len(plain_calls)}")
+            if len(res.requests) != BEAM_REQUESTS or any(
+                    r.status != "finished" for r in res.requests):
+                raise AssertionError(f"serve {name}: not every request "
+                                     f"finished")
+            for r, b in zip(res.requests, budgets):
+                t = np.asarray(r.tokens)
+                if len(t) > b or r.score is None or (len(t) and not (
+                        0 <= t.min() and t.max() < model.cfg.vocab)):
+                    raise AssertionError(f"serve {name}: bad output {t}")
+            if per_step != want or res.reorder_bytes != want * \
+                    res.decode_steps:
+                raise AssertionError(f"serve {name}: reorder bytes "
+                                     f"{res.reorder_bytes}, formula {want} "
+                                     f"a step")
+            if plain_calls:
+                raise AssertionError(f"serve {name}: plain attention ran "
+                                     f"{len(plain_calls)} times")
+            k4 = counts[name]["decode_attention"]
+            k5 = counts[name]["decode_attention_paged"]
+            if res.paged:
+                if res.pages_in_use != 0 or k5 <= 0:
+                    raise AssertionError(
+                        f"serve {name}: pages_in_use={res.pages_in_use}, "
+                        f"K5 launched {k5} times")
+            elif k5 or k4 <= 0:
+                raise AssertionError(f"serve {name}: launches "
+                                     f"{counts[name]}")
+            if scales == "dynamic" and counts[name]["quantize_rowwise"] <= 0:
+                raise AssertionError(f"serve {name}: K2 never launched")
+    finally:
+        ref.ref_decode_attention = plain["decode_attention"]
+        ref.ref_decode_attention_paged = plain["decode_attention_paged"]
+
+    toks = {name: [list(r.tokens) for r in res.requests]
+            for name, res in results.items()}
+    if toks["beam_paged"] != toks["beam_contiguous"]:
+        bad = sum(a != b for a, b in zip(toks["beam_paged"],
+                                         toks["beam_contiguous"]))
+        raise AssertionError(f"paged and contiguous beam serving differ on "
+                             f"{bad} of {BEAM_REQUESTS} requests")
+    agree = lambda a, b: sum(x == y for x, y in zip(toks[a], toks[b]))
+    log(f"beam serve agreement (of {BEAM_REQUESTS} requests): paged == "
+        f"contiguous {agree('beam_paged', 'beam_contiguous')}, fused == "
+        f"unfused {agree('beam_paged', 'beam_paged_unfused')}, auto burst "
+        f"== burst {SERVE_BURST} {agree('beam_paged', 'beam_paged_auto')}, "
+        f"dynamic == static scales "
+        f"{agree('beam_paged', 'beam_paged_dynamic')}")
+    return counts, results, toks
+
+
+def beam_serve_vs_generate_beam(model, qparams, qctx, toks) -> None:
+    """Per-request ``generate_beam(beam=4)`` of every served request,
+    logged, not asserted: a batch of one request reaches the f32 unembed
+    at another M than the serve grid's 16 rows."""
+    from repro_torch.data import pad_batch
+    from repro_torch.serving import ServingEngine
+    corpus, budgets = beam_requests(model.cfg.vocab)
+    engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN,
+                           burst_len=SERVE_BURST)
+    same = 0
+    for s, b, served in zip(corpus, budgets, toks["beam_contiguous"]):
+        src, lens = pad_batch([s.src])
+        res = engine.generate_beam({"src_tokens": src, "src_lengths": lens},
+                                   beam=BEAM, max_new_tokens=b)
+        same += list(res.tokens[0]) == served
+    log(f"beam serve agreement: serve == per-request generate_beam {same} "
+        f"of {BEAM_REQUESTS}")
+
+
+def reorder_ms(model, paged: bool):
+    """Device ms and kernels of one beam reorder of a phase-5b decode state
+    (16 rows, INT8 cache, cross K/V of the 64-token bucket) by a random
+    permutation within each group: contiguous, the slab and cross-K/V
+    gathers; paged, the table permutation and the copy-on-write page copy.
+    Summed from the profiler over 20 reorders, so launch gaps stay out."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.models import kv_cache as kvc
+    from repro_torch.serving import ServingEngine
+    R, maxP = SERVE_SLOTS, MAX_LEN // PAGE
+    state = model.init_decode_state(R, MAX_LEN, quantized=True, enc_len=64,
+                                    paged=paged, page_size=PAGE)
+    cache = state["cache"]
+    rng = np.random.default_rng(4)
+    lengths = torch.as_tensor(rng.integers(1, MAX_LEN, R), dtype=torch.int32,
+                              device="cuda")
+    if paged:
+        cache = kvc.assign_pages(cache, np.arange(R), np.arange(
+            R * maxP, dtype=np.int32).reshape(R, maxP))
+    state["cache"] = kvc.with_lengths(cache, lengths)
+    idx = torch.as_tensor(np.arange(R) // BEAM * BEAM
+                          + rng.integers(0, BEAM, R), device="cuda")
+    for _ in range(5):
+        ServingEngine._beam_gather_state(state, idx)
+    torch.cuda.synchronize()
+    n = 20
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            ServingEngine._beam_gather_state(state, idx)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    if not rows:
+        raise AssertionError("the profiler saw no reorder kernel")
+    return (sum(r[0] for r in rows) / n, sum(r[2] for r in rows) / n)
+
+
+def profile_beam_serves(model, qparams, qctx) -> None:
+    """A profiled contiguous and a profiled paged beam-4 serve of the first
+    half of phase 5b's requests (device only: busy time, idle share, K4's
+    and K5's device time), and one reorder of each cache profiled alone."""
+    from repro_torch.serving import ServingEngine
+    corpus, budgets = beam_requests(model.cfg.vocab)
+    half = BEAM_REQUESTS // 2
+    for paged in (False, True):
+        engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN,
+                               burst_len=SERVE_BURST, paged=paged,
+                               page_size=PAGE)
+        out = {}
+
+        def serve():
+            out["res"] = engine.serve(corpus[:half], n_slots=SERVE_SLOTS,
+                                      max_new_tokens=budgets[:half],
+                                      beam=BEAM)
+            return out["res"].decode_steps
+
+        kind = "paged" if paged else "contiguous"
+        busy, rows, _ = profile(f"serve_beam_{kind} {half} requests", serve,
+                                cpu=False)
+        ms, kernels = reorder_ms(model, paged)
+        steps = out["res"].decode_steps
+        log(f"  {attention_ms(rows)}; one reorder {ms:.4f} device ms in "
+            f"{kernels:.0f} kernels (profiled alone), × {steps} steps = "
+            f"{ms * steps:.2f} ms = {ms * steps / busy:.3f} of busy")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: INT4 weights through generate and serve
 # ---------------------------------------------------------------------------
 
@@ -999,10 +1349,14 @@ def run_int4(model, params, recs, batch, int8_greedy):
                     batch, max_new_tokens=MAX_NEW),
                 "int4_beam4_static": engine.generate_beam(
                     batch, beam=BEAM, max_new_tokens=MAX_NEW)}
-        served = ServingEngine(
+        paged_engine = ServingEngine(
             model, qparams, quant=qctx, max_len=MAX_LEN,
-            burst_len=SERVE_BURST, paged=True, page_size=PAGE).serve(
-            corpus, n_slots=SERVE_SLOTS, max_new_tokens=budgets)
+            burst_len=SERVE_BURST, paged=True, page_size=PAGE)
+        served = paged_engine.serve(corpus, n_slots=SERVE_SLOTS,
+                                    max_new_tokens=budgets)
+        served_beam = paged_engine.serve(
+            corpus[:BEAM_REQUESTS], n_slots=SERVE_SLOTS,
+            max_new_tokens=budgets[:BEAM_REQUESTS], beam=BEAM)
         counts = ops.launch_counts()
     finally:
         ref.ref_int4_matmul = plain
@@ -1029,14 +1383,27 @@ def run_int4(model, params, recs, batch, int8_greedy):
     if counts["int4_matmul"] <= 0 or plain_calls:
         raise AssertionError(f"K6 launched {counts['int4_matmul']} times, "
                              f"its plain version {len(plain_calls)} times")
-    if served.pages_in_use or any(r.status != "finished"
-                                  for r in served.requests):
-        raise AssertionError("INT4 serve: unfinished requests or pages held")
-    for r, b in zip(served.requests, budgets):
-        t = np.asarray(r.tokens)
-        if len(t) > b or (len(t) and not (0 <= t.min()
-                                          and t.max() < model.cfg.vocab)):
-            raise AssertionError(f"INT4 serve: bad output {t}")
+    m = served_beam.metrics()
+    log(f"serve int4_paged_beam4: tokens={served_beam.n_tokens} "
+        f"tokens_per_s={served_beam.tokens_per_s:.1f} "
+        f"decode_steps={served_beam.decode_steps} "
+        f"host_syncs={served_beam.host_syncs} "
+        f"utilization={served_beam.utilization:.3f} "
+        f"reorder_bytes={served_beam.reorder_bytes} "
+        f"first_token_mean_s={m['first_token_latency_mean_s']:.4f} "
+        f"total_mean_s={m['total_latency_mean_s']:.4f} "
+        f"page_hwm={served_beam.page_hwm}")
+    for label, res in (("INT4 serve", served),
+                       ("INT4 beam serve", served_beam)):
+        if res.pages_in_use or any(r.status != "finished"
+                                   for r in res.requests):
+            raise AssertionError(f"{label}: unfinished requests or pages "
+                                 f"held")
+        for r, b in zip(res.requests, budgets):
+            t = np.asarray(r.tokens)
+            if len(t) > b or (len(t) and not (
+                    0 <= t.min() and t.max() < model.cfg.vocab)):
+                raise AssertionError(f"{label}: bad output {t}")
     return counts, qparams, qctx
 
 
@@ -1245,6 +1612,8 @@ DRIVER_RUNS = (
      "--max-new-tokens", "8"],
     ["--weight-bits", "4", "--mode", "continuous", "--paged", "--requests",
      "16", "--slots", "4", "--max-new-tokens", "8"],
+    ["--mode", "continuous", "--paged", "--beam", "4", "--burst-len", "auto",
+     "--requests", "16", "--slots", "16", "--max-new-tokens", "8"],
 )
 
 
@@ -1322,6 +1691,15 @@ def main() -> int:
     phase("profiled paged serve")
     profile_paged_serve(model, qparams, qctx)
 
+    # 5b. continuous beam serving, contiguous and paged
+    phase("continuous beam serving")
+    beam_counts, _, beam_toks = run_beam_serving(model, params, qparams,
+                                                 qctx)
+    phase("beam serve vs per-request generate_beam")
+    beam_serve_vs_generate_beam(model, qparams, qctx, beam_toks)
+    phase("profiled beam serves")
+    profile_beam_serves(model, qparams, qctx)
+
     # 6. INT4 weights
     phase("INT4 weights")
     int4_counts, q4params, q4ctx = run_int4(model, params, recs, batch,
@@ -1374,9 +1752,11 @@ def main() -> int:
         "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
         "decode_attention_paged": "src/repro_torch/csrc/decode_attention.cu"}
     # each kernel's launches over every path driven with the counts read
-    # from zero: generate, the four serves, the INT4 phase, the MoE phase
+    # from zero: generate, the four serves, the six beam serves, the INT4
+    # phase, the MoE phase
     path_counts = {"generate": counts,
                    **{f"serve {k}": v for k, v in serve_counts.items()},
+                   **{f"serve {k}": v for k, v in beam_counts.items()},
                    "INT4": int4_counts, "MoE": moe_counts}
     paths = {}
     for name in replaces:

@@ -12,9 +12,13 @@ PTQ) → parallel stream workers, each running ``generate`` (or
 ``ServingEngine.serve``: admission order from the first-fit-decreasing
 token-budget bin-packer, a slot-refill decode loop over ``--slots`` rows,
 per-request first-token / total latency and decode-grid utilization.
-``--paged`` backs the KV cache with pages and block tables, and admission
-is paced by the page pool (``--n-pages``).  Admissions ride the burst by
-default; ``--unfused-admission`` runs them as separate prefills.
+``--beam B`` (B > 1) serves beam search there, each request on a group of
+B rows (``--slots // B`` groups).  ``--paged`` backs the KV cache with
+pages and block tables, and admission is paced by the page pool
+(``--n-pages``); a beam reorder then moves block tables and one partial
+page a row.  Admissions ride the burst by default; ``--unfused-admission``
+runs them as separate prefills.  ``--burst-len auto`` lets the adaptive
+controller move the burst cap between bursts.
 ``--weight-bits 4`` drops the decoder FFN and attention output projections
 to block-wise INT4 weights (``--weight-group-size`` rows per scale/min
 block).
@@ -22,7 +26,7 @@ block).
 The model runs on ``--device`` (``cuda`` unless the caller asks for the
 CPU), with random weights from ``torch.Generator`` seed 0.  Flags of
 features the port does not have yet exit with a message naming their
-ROADMAP item.
+ROADMAP item by title.
 """
 
 from __future__ import annotations
@@ -69,7 +73,9 @@ def _parser() -> argparse.ArgumentParser:
                              "conjugate"])
     ap.add_argument("--streams", type=int, default=2)
     ap.add_argument("--beam", type=int, default=1,
-                    help="beam width (1 = greedy; --mode static only)")
+                    help="beam width (1 = greedy); with --mode continuous, "
+                         "each request occupies a group of `beam` decode "
+                         "rows (--slots // beam groups)")
     ap.add_argument("--max-new-tokens", type=int, default=24)
     ap.add_argument("--sort", default="tokens",
                     choices=["none", "words", "tokens"])
@@ -82,7 +88,8 @@ def _parser() -> argparse.ArgumentParser:
                          "order in --mode continuous")
     ap.add_argument("--burst-len", default="8",
                     help="decode steps per host round trip (1 = per-step "
-                         "loop)")
+                         "loop), or 'auto' (the adaptive controller moves "
+                         "the cap between bursts of --mode continuous)")
     ap.add_argument("--unfused-admission", action="store_true",
                     help="serve admissions as separate prefills instead of "
                          "folding them into the burst")
@@ -124,28 +131,27 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    """Exit with the ROADMAP item of the first unported feature asked for."""
+    """Exit with the ROADMAP item, by title, of the first unported feature
+    asked for."""
     unported = [
-        (args.mode == "continuous" and args.beam > 1,
-         "--beam with --mode continuous: beam serving", "Queue 1, item 7"),
-        (args.burst_len == "auto", "--burst-len auto: the adaptive burst "
-         "controller", "Queue 1, item 7"),
         (args.prefix_cache or args.prefix_pages is not None,
-         "--prefix-cache: the prefix cache", "Queue 1, item 8"),
+         "--prefix-cache: the prefix cache",
+         "the prefix cache and chain pages"),
         (args.overcommit != 1.0, "--overcommit: preempt-by-page-spill",
-         "Queue 1, item 8"),
+         "overload handling"),
         (args.prefill_chunk is not None, "--prefill-chunk: chunked prefill",
-         "Queue 1, item 8"),
+         "overload handling"),
         (args.chaos_seed is not None, "--chaos-seed: the chaos harness",
-         "Queue 1, item 8"),
+         "overload handling"),
         (args.mesh is not None, "--mesh: tensor-parallel serving",
-         "Queue 1, item 10"),
+         "multi-GPU and the cost accounting"),
         (args.replicas > 1, "--replicas: the replica router",
-         "Queue 1, item 10"),
+         "multi-GPU and the cost accounting"),
     ]
     for asked, what, item in unported:
         if asked:
-            raise SystemExit(f"{what} is not ported yet (ROADMAP {item})")
+            raise SystemExit(f"{what} is not ported yet (ROADMAP Queue 1: "
+                             f"{item})")
 
 
 def _calibrate(model, params, sentences, mode: str, device, weight_bits: int,
@@ -178,7 +184,7 @@ def _calibrate(model, params, sentences, mode: str, device, weight_bits: int,
 
 def _serve_continuous(args, model, params, qctx, requests) -> None:
     engine = ServingEngine(model, params, quant=qctx, max_len=MAX_LEN,
-                           burst_len=int(args.burst_len), paged=args.paged,
+                           burst_len=args.burst_len, paged=args.paged,
                            page_size=args.page_size, n_pages=args.n_pages,
                            device=args.device)
     bins = pack_batches_token_budget(requests, args.token_budget)
@@ -189,9 +195,10 @@ def _serve_continuous(args, model, params, qctx, requests) -> None:
                         max_new_tokens=args.max_new_tokens,
                         deadline_s=args.deadline_ms / 1e3)
                 for k, s in enumerate(reqs)]
+    beam = args.beam if args.beam > 1 else None
     t0 = time.perf_counter()
     res = engine.serve(reqs, n_slots=args.slots,
-                       max_new_tokens=args.max_new_tokens,
+                       max_new_tokens=args.max_new_tokens, beam=beam,
                        fused_admission=not args.unfused_admission)
     dt = time.perf_counter() - t0
     met = res.metrics()
@@ -199,7 +206,15 @@ def _serve_continuous(args, model, params, qctx, requests) -> None:
           f"({res.tokens_per_s:.1f} tok/s, "
           f"slot utilization {res.utilization:.2f}, "
           f"{res.prefill_rounds} admission rounds)")
-    print(f"burst_len={res.burst_len}: {res.host_syncs} host syncs for "
+    if beam:
+        print(f"beam={res.beam}: {res.n_groups} groups of {res.beam} "
+              f"rows in a {res.n_slots}-row grid"
+              + (f" ({args.slots - res.n_slots} rows stranded — "
+                 f"beam does not divide --slots)"
+                 if res.n_slots != args.slots else ""))
+    print(f"burst_len={res.burst_len}"
+          + (" (auto)" if res.auto_burst else "")
+          + f": {res.host_syncs} host syncs for "
           f"{res.decode_steps} decode steps "
           f"({res.decode_steps_per_s:.0f} steps/s)")
     print(("fused admission" if res.fused_admission
@@ -210,7 +225,10 @@ def _serve_continuous(args, model, params, qctx, requests) -> None:
         print(f"paged KV: page_size={res.page_size}, "
               f"peak {res.page_hwm} pages "
               f"({res.page_hwm * res.page_size} tokens), "
-              f"{res.pages_in_use} leaked")
+              f"{res.pages_in_use} leaked, "
+              f"beam-reorder bytes {res.reorder_bytes}")
+    elif beam:
+        print(f"beam-reorder bytes {res.reorder_bytes}")
     if args.deadline_ms is not None:
         print(f"deadlines: {res.rejected} shed, "
               f"{res.deadline_misses} deadline misses")
@@ -253,7 +271,7 @@ def _serve_static(args, model, params, qctx, requests) -> None:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = _parser().parse_args(argv)
     if args.burst_len != "auto":
-        args.burst_len = str(int(args.burst_len))
+        args.burst_len = int(args.burst_len)
     _refuse_unported(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -1,6 +1,6 @@
 """GELU feed-forward block of the enc-dec family (port of
 ``repro/models/ffn.py``; the SwiGLU branch of the dense decoder-only
-family is not ported yet, ROADMAP Queue 1, item 11).
+family is not ported yet, ROADMAP Queue 1: the rest of the model zoo).
 
 Both matmuls route through :func:`repro_torch.models.layers.dense`, so the
 FFN picks up the INT8 path when its weights are quantized.
@@ -21,7 +21,8 @@ from repro_torch.models.layers import dense, dense_init
 def ffn_init(gen: torch.Generator, cfg, *, dtype=torch.float32, device=None):
     if cfg.ffn != "gelu":
         raise NotImplementedError(f"the port has the GELU FFN only, not "
-                                  f"{cfg.ffn!r} (ROADMAP Queue 1, item 11)")
+                                  f"{cfg.ffn!r} (ROADMAP Queue 1: the rest "
+                                  "of the model zoo)")
     d, f = cfg.d_model, cfg.d_ff
     return {
         "in": dense_init(gen, d, f, bias=cfg.attn_bias, dtype=dtype,

@@ -1,8 +1,9 @@
 """KV cache with an optional INT8 payload (paper §5.3): port of
 ``repro/models/kv_cache.py`` — the contiguous cache, the paged cache with
-its host-side ``PageAllocator``, and the slot operations continuous serving
-needs (beam reorders of the paged cache and prefix chains are not ported
-yet).
+its host-side ``PageAllocator``, the slot and group operations continuous
+greedy and beam serving need, and the paged cache's zero-copy beam reorder
+(``gather_beams_paged``).  The prefix chains are not ported yet (ROADMAP
+Queue 1: the prefix cache and chain pages).
 
 Keeping the cache int8 (per-token per-head symmetric scales, computed when
 the token is appended) cuts the bytes every decode step reads, and that a
@@ -56,6 +57,13 @@ class KVCache:
     @property
     def capacity(self) -> int:
         return self.k.shape[2]
+
+    def nbytes(self) -> int:
+        """Bytes of payload and scales: what :func:`gather_beams` moves."""
+        n = self.k.numel() * self.k.element_size() * 2
+        if self.quantized:
+            n += self.k_scale.numel() * 4 * 2
+        return int(n)
 
 
 def init_cache(n_layers: int, batch: int, max_len: int, n_kv: int, dh: int,
@@ -237,6 +245,19 @@ def group_rows(base_slots, group: int) -> np.ndarray:
     return (base[:, None] + np.arange(group)[None, :]).reshape(-1)
 
 
+def insert_at_groups(cache: KVCache, sub: KVCache, base_slots,
+                     group: int) -> KVCache:
+    """Group-strided :func:`insert_at_slots`: ``sub`` holds ``group``
+    contiguous rows per base slot, spliced into ``[base, base + group)``."""
+    return insert_at_slots(cache, sub, group_rows(base_slots, group))
+
+
+def free_groups(cache: KVCache, base_slots, group: int) -> KVCache:
+    """Group-strided :func:`free_slots`: a finished beam group frees all
+    ``group`` of its rows at once (cursor reset only)."""
+    return free_slots(cache, group_rows(base_slots, group))
+
+
 # ---------------------------------------------------------------------------
 # paged cache: fixed-size pages + per-row block tables
 # ---------------------------------------------------------------------------
@@ -328,6 +349,18 @@ class PagedKVCache:
             n += self.ks_store.numel() * 4 * 2
         n += (self.block_tables.numel() + self.own_pages.numel()) * 4
         return int(n)
+
+    def reorder_bytes_per_step(self) -> int:
+        """Bytes one beam reorder moves (the reference's count, which has
+        no sink page): the block-table and cursor permutation plus one
+        page copy per row; compare ``KVCache.nbytes()``, which
+        :func:`gather_beams` moves."""
+        L, _, ps, HKV, dh = self.k_store.shape
+        B = self.block_tables.shape[0]
+        page = L * B * ps * HKV * dh * self.k_store.element_size() * 2
+        if self.quantized:
+            page += L * B * ps * HKV * 4 * 2
+        return int(page + self.block_tables.numel() * 4 + B * 4)
 
 
 def pages_per_row(n_tokens: int, page_size: int) -> int:
@@ -522,6 +555,52 @@ def insert_rows_paged(cache: PagedKVCache, sub: KVCache, slots,
         own_pages=cache.own_pages.index_put((rows,), pg),
         lengths=cache.lengths.index_put(
             (rows,), lengths.to(torch.int32)))
+
+
+def cow_write_slot(cache: PagedKVCache) -> PagedKVCache:
+    """Copy-on-write of each row's current write-slot page.
+
+    For every row, the page its block table maps for the next write
+    position is copied into the row's own page for that slot
+    (``own_pages``), and the table entry is pointed there, so the next
+    append lands in a page no other row maps.  A row whose entry is already
+    its own page copies the page onto itself.  A row whose own slot is the
+    sentinel copies into the sink page, which nothing reads; several such
+    rows in one call all write the sink.
+
+    The whole payload is gathered before the scatter: a row's own page can
+    be another row's source in the same call.
+    """
+    P, ps, maxP = cache.n_pages, cache.page_size, cache.max_pages
+    B = cache.block_tables.shape[0]
+    rows = torch.arange(B, device=cache.lengths.device)
+    sp = torch.clamp(torch.div(cache.lengths, ps, rounding_mode="floor"),
+                     max=maxP - 1).long()                 # next write slot
+    src = cache.block_tables[rows, sp].long().clamp(0, P - 1)
+    dst = cache.own_pages[rows, sp].long()          # sentinel → the sink
+    for store in (cache.k_store, cache.v_store, cache.ks_store,
+                  cache.vs_store):
+        if store is not None:
+            store[:, dst] = store.index_select(1, src)
+    tables = cache.block_tables.clone()
+    tables[rows, sp] = cache.own_pages[rows, sp]
+    return dataclasses.replace(cache, block_tables=tables)
+
+
+def gather_beams_paged(cache: PagedKVCache,
+                       beam_idx: torch.Tensor) -> PagedKVCache:
+    """Zero-copy beam reorder: permute block tables, not payload.
+
+    The (B, maxP) block tables and (B,) cursors are gathered by
+    ``beam_idx``; then :func:`cow_write_slot` gives each row a private copy
+    of its source lineage's current partial page.  Full pages stay shared
+    between the beams of a group, read-only; a group's rows are freed
+    together, so no refcount is needed on the device.
+    """
+    idx = beam_idx.long()
+    return cow_write_slot(dataclasses.replace(
+        cache, block_tables=cache.block_tables.index_select(0, idx),
+        lengths=cache.lengths.index_select(0, idx)))
 
 
 class PageAllocator:

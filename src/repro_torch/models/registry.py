@@ -28,8 +28,8 @@ _NOT_PORTED = ("vlm", "hybrid", "ssm")
 def build_model(cfg, *, device: str = "cuda"):
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP Queue 1, "
-            "item 11)")
+            f"the {cfg.family!r} family is not ported yet (ROADMAP Queue 1: "
+            "the rest of the model zoo)")
     if cfg.family not in _FAMILIES:
         raise KeyError(f"unknown family {cfg.family}")
     return _FAMILIES[cfg.family](cfg, device=device)

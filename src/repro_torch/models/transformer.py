@@ -7,8 +7,8 @@ Rotary position embeddings, pre-norm blocks, and either the MoE FFN
 (``models/moe.py``) or the dense FFN.
 
 Inputs: ``tokens`` (B, S) int32, right-padded, with optional ``lengths``
-(B,).  The VLM stub's ``embeds`` input is not ported yet (ROADMAP Queue 1,
-item 11).
+(B,).  The VLM stub's ``embeds`` input is not ported yet (ROADMAP Queue 1:
+the rest of the model zoo).
 """
 
 from __future__ import annotations

@@ -1,19 +1,20 @@
 """Serving engine: prefill + auto-regressive decode (greedy, beam, and
-continuous greedy serving).
+continuous greedy and beam serving).
 
 Port of ``repro/serving/engine.py``: ``generate`` and ``generate_beam``
 over a contiguous KV cache (for the encoder-decoder model with a
 ``{"src_tokens", "src_lengths"}`` batch, and for the decoder-only model with
-``{"tokens", "lengths"}``), and greedy continuous batching (``serve``, the
-encoder-decoder model only) over a contiguous or paged KV cache with fused
-or unfused admission.  This is
-the paper's workload: batched NMT inference with a decoder loop, where beam
-search reorders the KV cache every step (``kv_cache.gather_beams``, the
-GatherNd the paper quantized in §5.3); with an INT8 cache the reorder moves
-4× fewer bytes.
+``{"tokens", "lengths"}``), and continuous batching (``serve``, the
+encoder-decoder model only), greedy or beam search, over a contiguous or
+paged KV cache with fused or unfused admission.  This is the paper's
+workload: batched NMT inference with a decoder loop, where beam search
+reorders the KV cache every step (``kv_cache.gather_beams``, the GatherNd
+the paper quantized in §5.3); with an INT8 cache the reorder moves 4× fewer
+bytes, and on the paged cache it moves block tables and one partial page a
+row (``kv_cache.gather_beams_paged``).
 
 Decode runs in bursts of up to ``burst_len`` steps: the token of each step
-goes into a ``(rows, burst_len)`` ring buffer on the device, and the host
+goes into a ``(rows, steps)`` ring buffer on the device, and the host
 drains the buffer once per burst.  PyTorch runs eagerly, so the loop itself
 is on the host, and it reads nothing from the device inside a burst.  The
 reference's ``lax.while_loop`` stops once no row is active; here the burst
@@ -22,7 +23,9 @@ outlive), rows that have finished only write EOS, and the device counts
 the steps at whose start a row was still active.  That count is drained
 with the buffer in the same transfer, so ``steps``/``decode_steps`` and
 ``host_syncs`` (one device→host transfer per burst, plus the first tokens)
-equal the reference's.
+equal the reference's.  ``burst_len="auto"`` puts the cap of ``serve``'s
+bursts under ``burst_control.AdaptiveBurst``; ``generate`` and
+``generate_beam`` then use 8.
 
 ``serve`` keeps ``n_slots`` decode rows busy: a finished request's row is
 refilled from the waiting queue at the next burst edge.  With fused
@@ -30,11 +33,13 @@ admission (the default) a round's admitted sources are encoded, spliced
 into their rows (``encdec.splice_prefill``) and seeded with BOS just before
 the burst, whose first step is then their BOS step; unfused admission runs
 a separate prefill on a power-of-two side batch and splices its rows in.
-On the paged cache admission is paced by a page budget (``PageAllocator``)
-and INT8 decode reads the pages in place through K5.  Not ported yet
-(``NotImplementedError`` naming the ROADMAP item): beam serving, the prefix
-cache, overcommit, chunked prefill, chaos, speculation, ``burst_len="auto"``
-and meshes.
+``serve(beam=B)`` gives each request a group of ``B`` rows and runs the
+beam step with per-group budget and finished masks; a narrower request
+(``beam`` as a per-request sequence) parks its group's tail rows.  On the
+paged cache admission is paced by a page budget (``PageAllocator``) and
+INT8 decode reads the pages in place through K5.  Not ported yet
+(``NotImplementedError`` naming the ROADMAP item by title): the prefix
+cache, overcommit, chunked prefill, chaos, speculation and meshes.
 """
 
 from __future__ import annotations
@@ -51,15 +56,26 @@ from repro_torch.data.sorting import next_pow2
 from repro_torch.data.synthetic import EOS, pad_batch
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models.layers import top_k
+from repro_torch.serving.burst_control import AdaptiveBurst
 from repro_torch.serving.scheduler import (
     ContinuousScheduler,
     Request,
     pad_rows_pow2,
 )
 
-# ROADMAP items of the parts of ``serve`` this port does not have yet
-_BEAM_SERVE = "beam serving (ROADMAP Queue 1, item 7)"
-_OVERLOAD = "overload handling (ROADMAP Queue 1, item 8)"
+# ROADMAP items, by title, of the parts of ``serve`` not ported yet
+_PREFIX = "ROADMAP Queue 1: the prefix cache and chain pages"
+_OVERLOAD = "ROADMAP Queue 1: overload handling"
+_SPECULATION = "ROADMAP Queue 1: speculative decoding"
+_MESH = "ROADMAP Queue 1: multi-GPU and the cost accounting"
+
+# a new beam group's seed score: row 0 scores 0 and rows 1..B-1 this, so the
+# shared beam step's first top-k draws only row 0's candidates, which is
+# generate_beam's first step (top-k over the beam-0 log-probs)
+BEAM_SEED_NEG = np.float32(-1e30)
+
+# largest step cap of burst_len="auto"
+AUTO_MAX_BURST = 64
 
 
 @dataclasses.dataclass
@@ -90,8 +106,13 @@ class GenerationResult:
 
 @dataclasses.dataclass
 class ServeResult:
-    """Outcome of one continuous-batching serve (greedy: one row per
-    request)."""
+    """Outcome of one continuous-batching serve.
+
+    With ``beam > 1`` every request occupied a group of ``beam`` rows:
+    ``n_slots`` counts rows, ``busy_slot_steps`` counts a busy group's
+    live rows, and each ``Request.tokens`` holds the group's winning
+    hypothesis (``Request.score`` its length-penalized log-prob).
+    """
 
     requests: List[Request]           # submission order, lifecycle filled in
     n_slots: int
@@ -100,17 +121,25 @@ class ServeResult:
     prefill_rounds: int               # admission rounds (fused or not)
     wall_s: float
     host_syncs: int = 0               # device→host transfers (drains)
-    burst_len: int = 1
+    burst_len: int = 1                # final step cap (adapts when auto)
+    beam: int = 1                     # rows per request group (1 = greedy)
     prefill_dispatches: int = 0       # separate prefill runs (0 when fused)
     encoder_tokens: int = 0           # encoder row-tokens of admissions
     fused_admission: bool = True
+    auto_burst: bool = False          # burst_len ran under AdaptiveBurst
     paged: bool = False               # KV cache was paged (block tables)
     page_size: int = 0
     pages_in_use: int = 0             # allocator pages still held at the end
     page_hwm: int = 0                 # peak concurrent pages over the serve
+    reorder_bytes: int = 0            # bytes the beam reorders moved
     peak_running: int = 0             # max concurrent running requests
     rejected: int = 0                 # requests shed (deadline unmeetable)
     deadline_misses: int = 0          # shed + finished past their deadline
+
+    @property
+    def n_groups(self) -> int:
+        """Request groups the decode grid holds (``n_slots`` for greedy)."""
+        return self.n_slots // self.beam
 
     @property
     def n_tokens(self) -> int:
@@ -145,6 +174,8 @@ class ServeResult:
         return {
             "n_requests": float(len(self.requests)),
             "n_tokens": float(self.n_tokens),
+            "beam": float(self.beam),
+            "n_groups": float(self.n_groups),
             "wall_s": self.wall_s,
             "tokens_per_s": self.tokens_per_s,
             "utilization": self.utilization,
@@ -158,6 +189,7 @@ class ServeResult:
             "paged": float(self.paged),
             "pages_in_use": float(self.pages_in_use),
             "page_hwm": float(self.page_hwm),
+            "reorder_bytes": float(self.reorder_bytes),
             "peak_running": float(self.peak_running),
             "rejected": float(self.rejected),
             "deadline_misses": float(self.deadline_misses),
@@ -172,21 +204,22 @@ class ServeResult:
 class ServingEngine:
     def __init__(self, model, params, *, quant: QuantContext = FP_CONTEXT,
                  max_len: int = 256, eos_id: int = EOS,
-                 burst_len: int = 8, paged: bool = False,
+                 burst_len: Union[int, str] = 8, paged: bool = False,
                  page_size: int = 16, n_pages: Optional[int] = None,
                  mesh=None, device: str = "cuda"):
         """``paged``/``page_size``/``n_pages`` choose ``serve``'s KV cache
         (``generate`` always uses the contiguous one); ``max_len`` must
         then be a page multiple, so the paged logical view has exactly the
-        contiguous shape."""
+        contiguous shape.  ``burst_len="auto"`` adapts ``serve``'s burst
+        cap (:class:`AdaptiveBurst`)."""
         self.device = torch.device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
         if mesh is not None:
             raise NotImplementedError(
-                "tensor-parallel serving on a mesh is not ported yet "
-                "(ROADMAP Queue 1, item 10)")
+                f"tensor-parallel serving on a mesh is not ported yet "
+                f"({_MESH})")
         self.model = model
         self.params = params
         self.quant = quant
@@ -209,22 +242,39 @@ class ServingEngine:
             raise ValueError(f"speculative_k must be >= 0, got {spec}")
         if spec:
             raise NotImplementedError(
-                f"{fn}(speculative_k=...): speculative decoding (ROADMAP "
-                "Queue 1, item 8) is not ported yet")
+                f"{fn}(speculative_k=...): speculative decoding is not "
+                f"ported yet ({_SPECULATION})")
 
     @staticmethod
-    def _check_burst(k) -> int:
+    def _check_burst(k) -> Union[int, str]:
+        """An int cap ≥ 1, or ``"auto"``."""
         if isinstance(k, str):
             if k == "auto":
-                raise NotImplementedError(
-                    "burst_len='auto' (the adaptive burst controller) is "
-                    "not ported yet (ROADMAP Queue 1, item 7)")
+                return k
             raise ValueError(f"burst_len must be an int ≥ 1 or 'auto', "
                              f"got {k!r}")
         k = int(k)
         if k < 1:
             raise ValueError(f"burst_len must be ≥ 1, got {k}")
         return k
+
+    def _resolve_burst(self, burst_len) -> Union[int, str]:
+        """A call's burst length: its own, else the engine's."""
+        return self._check_burst(self.burst_len if burst_len is None
+                                 else burst_len)
+
+    def _static_burst(self, burst_len) -> int:
+        """``generate``'s and ``generate_beam``'s cap: ``"auto"`` adapts
+        ``serve`` only, and static batches take a mid cap of 8."""
+        K = self._resolve_burst(burst_len)
+        return 8 if K == "auto" else K
+
+    def _burst_controller(self, K) -> Optional[AdaptiveBurst]:
+        """An :class:`AdaptiveBurst` when ``K == "auto"``, else None."""
+        if K != "auto":
+            return None
+        start = self.burst_len if isinstance(self.burst_len, int) else 8
+        return AdaptiveBurst(start=start, max_burst=AUTO_MAX_BURST)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -240,8 +290,19 @@ class ServingEngine:
 
     @staticmethod
     def _beam_gather_state(state: Dict[str, Any], idx: torch.Tensor):
-        """Reorder every batch-major leaf of the decode state (paper §5.3)."""
+        """Reorder every batch-major leaf of the decode state (paper §5.3).
+
+        Paged cache: the reorder is a block-table permutation plus one
+        partial-page copy a row (``kv_cache.gather_beams_paged``), and the
+        cross K/V and source lengths are left alone: a beam reorder only
+        permutes rows within a group, whose rows share one encoder memory.
+        """
         idx = idx.long()
+        cache = state["cache"]
+        if isinstance(cache, kvc.PagedKVCache):
+            out = dict(state)
+            out["cache"] = kvc.gather_beams_paged(cache, idx)
+            return out
         out = {}
         for k, v in state.items():
             if k == "cache":
@@ -313,10 +374,19 @@ class ServingEngine:
         return tokens, remaining, state, buf, live
 
     def _beam_step(self, beam: int, tokens, scores, finished, comp, state,
-                   buf, step: int):
+                   buf, step: int, act_r=None, parked=None):
         """One beam-search decode step — log-softmax, finished-beam EOS
         masking, per-group top-k, score update and the cache reorder
-        (``engine.py:1305-1361`` with every row active and none parked)."""
+        (``engine.py:1305-1361``).
+
+        ``act_r`` (R,) bool: rows of inactive groups gather themselves and
+        keep their tokens, scores, finished, ``comp`` and ring entries.
+        ``parked`` (R,) bool: the tail rows of a request narrower than the
+        group are pinned to EOS, ``BEAM_SEED_NEG`` and finished, so they
+        never enter the group's top-k ahead of a real hypothesis.  Both
+        ``None`` (``generate_beam``): every row active and none parked, and
+        the step skips the masking.
+        """
         model, quant, eos = self.model, self.quant, self.eos_id
         R = tokens.shape[0]
         G = R // beam
@@ -331,15 +401,27 @@ class ServingEngine:
         cand = (scores[:, None] + lp).reshape(G, beam * V)
         scores_new, flat_idx = top_k(cand, beam)
         src_beam = torch.div(flat_idx, V, rounding_mode="floor")
-        tokens = (flat_idx % V).reshape(R).to(torch.int32)
+        tok_new = (flat_idx % V).reshape(R).to(torch.int32)
         gidx = (src_beam + torch.arange(G, device=lp.device)[:, None]
                 * beam).reshape(R)
+        if act_r is None:
+            tokens, scores = tok_new, scores_new.reshape(R)
+            done, col = tokens == eos, tokens
+        else:
+            tok_new = torch.where(parked, eos, tok_new)
+            gidx = torch.where(act_r & ~parked, gidx,
+                               torch.arange(R, device=lp.device))
+            tokens = torch.where(act_r, tok_new, tokens)
+            scores = torch.where(act_r, scores_new.reshape(R), scores)
+            scores = torch.where(
+                parked, torch.full_like(scores, BEAM_SEED_NEG), scores)
+            done = (act_r & (tokens == eos)) | parked
+            col = torch.where(act_r, tokens, eos)
         state = self._beam_gather_state(state, gidx)
-        scores = scores_new.reshape(R)
-        finished = finished[gidx] | (tokens == eos)
+        finished = finished[gidx] | done
         comp = comp[gidx]
         buf = buf[gidx]
-        buf[:, step] = tokens
+        buf[:, step] = col
         return tokens, scores, finished, comp, state, buf
 
     def _beam_burst(self, beam: int, tokens, scores, finished, steps_cap: int,
@@ -365,6 +447,35 @@ class ServingEngine:
                 beam, tokens, scores, finished, comp, state, buf, step)
         return tokens, scores, finished, comp, state, buf, live
 
+    def _beam_serve_burst(self, beam: int, tokens, scores, finished,
+                          remaining, steps_cap: int, state, parked):
+        """``steps_cap`` group-masked beam steps of continuous beam serving
+        (``_beam_serve_while``, ``engine.py:1410-1470``).
+
+        The grid holds ``R // beam`` groups, each with its own step budget
+        ``remaining`` (G,).  A group is active while its budget is > 0 and
+        not all of its rows have finished; only active groups step their
+        search state and count their budget down.  Groups only deactivate
+        inside a burst, so a group active at step ``s`` has taken ``s``
+        steps, and the host recovers each group's steps as ``remaining``
+        in minus out.  ``live`` (a device scalar) counts the steps at whose
+        start a group was active, the reference's trip count.
+        """
+        R = tokens.shape[0]
+        G = R // beam
+        buf = torch.full((R, steps_cap), self.eos_id, dtype=torch.int32,
+                         device=self.device)
+        comp = torch.arange(R, device=self.device)
+        live = torch.zeros((), dtype=torch.int32, device=self.device)
+        for step in range(steps_cap):
+            act_g = (remaining > 0) & ~finished.reshape(G, beam).all(dim=1)
+            live = live + act_g.any()
+            tokens, scores, finished, comp, state, buf = self._beam_step(
+                beam, tokens, scores, finished, comp, state, buf, step,
+                act_g.repeat_interleave(beam), parked)
+            remaining = remaining - act_g.to(remaining.dtype)
+        return tokens, scores, finished, remaining, comp, state, buf, live
+
     # ---------------------------------------------------------------- greedy
     def generate(self, batch: Dict[str, np.ndarray], *,
                  max_new_tokens: int = 64,
@@ -373,8 +484,7 @@ class ServingEngine:
         """Greedy decode of a batch.  ``speculative_k`` (self-speculative
         decoding) raises ``NotImplementedError``: it is not ported yet."""
         self._check_speculative("generate", speculative_k)
-        K = self._check_burst(self.burst_len if burst_len is None
-                              else burst_len)
+        K = self._static_burst(burst_len)
         batch = self._device_batch(batch)
         B = next(iter(batch.values())).shape[0]
 
@@ -415,8 +525,7 @@ class ServingEngine:
                       max_new_tokens: int = 64, alpha: float = 0.6,
                       burst_len: Optional[int] = None) -> GenerationResult:
         """Beam search with per-step cache reordering (paper's GatherNd)."""
-        K = self._check_burst(self.burst_len if burst_len is None
-                              else burst_len)
+        K = self._static_burst(burst_len)
         batch = self._device_batch(batch)
         B = next(iter(batch.values())).shape[0]
         beam_batch = {k: torch.repeat_interleave(v, beam, dim=0)
@@ -512,19 +621,29 @@ class ServingEngine:
         n_pages = self.n_pages or n_rows * self._max_pages
         return kvc.PageAllocator(n_pages, self.page_size)
 
-    def _pages_per_request(self, req: Request) -> int:
-        """Worst-case reservation: the request's full decode budget."""
-        return kvc.pages_per_row(min(req.max_new_tokens, self.max_len),
-                                 self.page_size)
+    def _pages_per_request(self, req: Request, rows: int) -> int:
+        """Worst-case reservation: the request's full decode budget, for
+        each of its ``rows`` live rows (parked rows reserve nothing)."""
+        return rows * kvc.pages_per_row(
+            min(req.max_new_tokens, self.max_len), self.page_size)
 
-    def _page_rows(self, reqs: Sequence[Request], n_rows: int,
-                   sentinel: int) -> np.ndarray:
-        """Admitted requests' page reservations as a host (n_rows, maxP)
-        int32 matrix, sentinel-padded (padding rows and each row's tail past
-        its reservation)."""
-        out = np.full((n_rows, self._max_pages), sentinel, np.int32)
+    def _page_rows(self, reqs: Sequence[Request], rows_per_req: int,
+                   n_req_rows: int, sentinel: int,
+                   widths: Optional[Sequence[int]] = None) -> np.ndarray:
+        """Admitted requests' page reservations as a host
+        (n_req_rows × rows_per_req, maxP) int32 matrix, sentinel-padded:
+        padding requests, parked rows (past ``widths[i]`` live rows) and
+        each row's tail past its reservation."""
+        out = np.full((n_req_rows * rows_per_req, self._max_pages), sentinel,
+                      np.int32)
         for i, r in enumerate(reqs):
-            out[i, :len(r.pages)] = r.pages
+            live = widths[i] if widths is not None else rows_per_req
+            flat = np.asarray(r.pages, np.int32)
+            if flat.size == 0:
+                continue
+            per_row = flat.reshape(live, flat.size // live)
+            out[i * rows_per_req:i * rows_per_req + live,
+                :per_row.shape[1]] = per_row
         return out
 
     def _in_range_rows(self, rows: np.ndarray, n: int):
@@ -591,18 +710,35 @@ class ServingEngine:
                                            slots, pages)
         return self._insert_rows(state, sub, tokens, sub_tokens, slots)
 
+    def _free_released(self, state, rows):
+        """Sentinel the paged tables of rows released during unfused
+        admission.  Their pages went back to the allocator, and the rows
+        step on until refilled: their writes must go to the sink, not into
+        pages a later admission is handed.  The reference frees them only
+        when they are refilled, so its paged tokens can differ from its
+        contiguous ones here; the port's cannot.  Contiguous rows
+        own their slabs and need nothing."""
+        if not self.paged or not len(rows):
+            return state
+        state = dict(state)
+        state["cache"] = kvc.free_slots_paged(state["cache"],
+                                              np.asarray(rows, np.int32))
+        return state
+
     def _admission_prologue(self, state, tokens, live, adm_src, adm_lens,
-                            adm_rows, pages):
+                            adm_rows, pages, group: int = 1):
         """Fused admission, run just before the round's burst:
 
         1. reset dead rows (cursor only on the contiguous cache; cursor and
            sentinel tables on the paged one, as their pages may be handed
            to the rows this splice admits);
-        2. encode the admitted sources, splice their cross K/V into their
-           rows (paged: install their page reservations ``pages``) and seed
-           BOS, so the burst's first step is their BOS step.
+        2. encode the admitted sources, once per request, splice their
+           cross K/V into their rows (each source into the ``group`` rows
+           from its base row; paged: install the rows' page reservations
+           ``pages``) and seed BOS, so the burst's first step is their BOS
+           step.
 
-        ``adm_rows`` entries ≥ n_slots are padding and are dropped.
+        ``adm_rows`` entries ≥ the row count are padding and are dropped.
         """
         state = dict(state)
         free = kvc.free_inactive_paged if self.paged else kvc.free_inactive
@@ -612,8 +748,9 @@ class ServingEngine:
                                              "src_lengths": adm_lens}),
             quant=self.quant)
         state = self.model.splice_prefill(state, ck, cv, slens, adm_rows,
-                                          pages=pages)
-        _, rows = self._in_range_rows(adm_rows, tokens.shape[0])
+                                          group=group, pages=pages)
+        _, rows = self._in_range_rows(kvc.group_rows(adm_rows, group),
+                                      tokens.shape[0])
         tokens = tokens.index_put((rows,), torch.zeros_like(tokens[rows]))
         return state, tokens
 
@@ -622,7 +759,7 @@ class ServingEngine:
               prefill_token_budget: Optional[int] = None,
               admit_min_free: int = 1,
               pad_to_multiple: int = 8,
-              burst_len: Optional[int] = None,
+              burst_len: Optional[Union[int, str]] = None,
               beam: Optional[Union[int, Sequence[int]]] = None,
               alpha: float = 0.6,
               fused_admission: bool = True,
@@ -631,83 +768,130 @@ class ServingEngine:
               prefill_chunk: Optional[int] = None,
               chaos: Any = None,
               speculative_k: Optional[int] = None) -> ServeResult:
-        """Greedy continuous batching over a request stream.
+        """Continuous batching over a request stream.
 
         ``requests`` may be ``Sentence``s, raw token arrays or ``Request``
         objects (which carry their own ``max_new_tokens``); submission
         order is arrival order.  All ``n_slots`` rows share one decode
         burst of up to ``burst_len`` steps; at each burst edge finished
         rows are released and refilled, in queue order, from the waiting
-        requests.  Greedy
-        decode is token-identical to per-request :meth:`generate` for every
-        ``burst_len``, fused or unfused, contiguous or paged (on the CPU;
-        on the card see ROADMAP Queue 3).
+        requests.  Greedy decode is token-identical to per-request
+        :meth:`generate` for every ``burst_len``, fused or unfused,
+        contiguous or paged (on the CPU; on the card see ROADMAP Queue 3).
+
+        ``beam`` switches to continuous beam search (:meth:`_serve_beam`):
+        each request takes a group of ``beam`` rows, and its ``tokens`` are
+        the winning hypothesis under the ``alpha`` length penalty.
+        ``beam`` may also be a per-request sequence (mixed widths).
 
         ``fused_admission=False`` runs each admission round as a separate
         prefill plus a first-token drain (``prefill_dispatches`` counts
-        them); the token streams are the same.
+        them); the token streams are the same.  ``burst_len="auto"`` lets
+        :class:`AdaptiveBurst` move the step cap between bursts; the
+        tokens are the same.
 
         As in the reference: ``prefill_token_budget`` caps the source
-        tokens a round admits (the scheduler's token budget);
+        row-tokens a round admits (the scheduler's token budget);
         ``admit_min_free`` is admission hysteresis (a round waits until
-        that many slots are free, or as many as there are waiting requests);
-        ``pad_to_multiple`` rounds the admission ``enc_len`` before its
-        power-of-two bucket; ``alpha`` is beam serving's length penalty.
+        that many slot groups are free, or as many as there are waiting
+        requests); ``pad_to_multiple`` rounds the admission ``enc_len``
+        before its power-of-two bucket.
 
-        ``beam``, ``prefix_cache``, ``overcommit > 1``, ``prefill_chunk``,
-        ``chaos`` and ``speculative_k`` raise ``NotImplementedError``: they
-        are not ported yet.  So does a model without ``encode_cross_kv``
-        (the decoder-only family), which the reference's ``serve`` does not
-        take either.
+        ``prefix_cache``, ``overcommit > 1``, ``prefill_chunk``, ``chaos``
+        and ``speculative_k`` raise ``NotImplementedError`` naming their
+        ROADMAP item: they are not ported yet.  So does a model without
+        ``encode_cross_kv`` (the decoder-only family), whose ``serve`` the
+        reference does not have either.
         """
         if not hasattr(self.model, "encode_cross_kv"):
             raise NotImplementedError(
                 f"serve() needs an encoder-decoder model; "
                 f"{type(self.model).__name__} runs generate and "
-                "generate_beam only, as in the reference (ROADMAP Queue 1, "
-                "item 11)")
-        if beam is not None:
-            raise NotImplementedError(f"serve(beam=...): {_BEAM_SERVE} is "
-                                      "not ported yet")
+                "generate_beam only, as in the reference, and ROADMAP "
+                "Queue 1 holds no decoder-only serve")
+        if beam is not None and speculative_k:
+            raise ValueError("speculative decoding is greedy-only; beam and "
+                             "speculative_k cannot combine")
         if prefix_cache:
             raise NotImplementedError(
-                "serve(prefix_cache=True): the prefix cache (ROADMAP Queue "
-                "1, item 8) is not ported yet")
+                f"serve(prefix_cache=True): the prefix cache is not ported "
+                f"yet ({_PREFIX})")
         if overcommit < 1.0:
             raise ValueError(f"overcommit must be >= 1.0, got {overcommit}")
         for name, value in (("overcommit", overcommit > 1.0),
                             ("prefill_chunk", prefill_chunk is not None),
                             ("chaos", chaos is not None)):
             if value:
-                raise NotImplementedError(f"serve({name}=...): {_OVERLOAD} "
-                                          "is not ported yet")
+                raise NotImplementedError(
+                    f"serve({name}=...): overload handling is not ported "
+                    f"yet ({_OVERLOAD})")
+        admission = dict(prefill_token_budget=prefill_token_budget,
+                         admit_min_free=admit_min_free,
+                         pad_to_multiple=pad_to_multiple,
+                         burst_len=burst_len,
+                         fused_admission=fused_admission)
+        if beam is not None:
+            return self._serve_beam(requests, n_slots=n_slots, beam=beam,
+                                    alpha=alpha,
+                                    max_new_tokens=max_new_tokens,
+                                    **admission)
         self._check_speculative("serve", speculative_k)
-        K = self._check_burst(self.burst_len if burst_len is None
-                              else burst_len)
+        return self._serve_greedy(requests, n_slots=n_slots,
+                                  max_new_tokens=max_new_tokens, **admission)
+
+    def _check_budgets(self, reqs: Sequence[Request]) -> None:
+        if max(r.max_new_tokens for r in reqs) > self.max_len:
+            raise ValueError("a request's max_new_tokens exceeds the "
+                             f"engine KV capacity {self.max_len}")
+
+    def _serve_allocator(self, n_rows: int, reqs: Sequence[Request],
+                         rows_of) -> Optional[kvc.PageAllocator]:
+        """The serve's page pool (None unpaged), refusing a request whose
+        reservation (``rows_of(r)`` live rows) exceeds the whole pool."""
+        if not self.paged:
+            return None
+        allocator = self._make_allocator(n_rows)
+        for r in reqs:
+            need = self._pages_per_request(r, rows_of(r))
+            if need > allocator.n_pages:
+                raise ValueError(f"request {r.req_id} needs {need} pages "
+                                 f"but the pool holds {allocator.n_pages}")
+        return allocator
+
+    @staticmethod
+    def _deadline_misses(sched: ContinuousScheduler,
+                         reqs: Sequence[Request]) -> int:
+        """Shed requests plus those that finished past their deadline."""
+        return len(sched.rejected) + sum(
+            1 for r in reqs
+            if (r.status == "finished" and r.deadline_s is not None
+                and r.finish_s is not None and r.finish_s > r.deadline_s))
+
+    def _serve_greedy(self, requests: Sequence[Any], *, n_slots: int,
+                      max_new_tokens: Union[int, Sequence[int]],
+                      prefill_token_budget: Optional[int],
+                      admit_min_free: int, pad_to_multiple: int,
+                      burst_len: Optional[Union[int, str]],
+                      fused_admission: bool) -> ServeResult:
+        """Greedy continuous batching: one row per request."""
+        K = self._resolve_burst(burst_len)
+        ctrl = self._burst_controller(K)
         reqs = self._as_requests(requests, max_new_tokens)
         if not reqs:
             return ServeResult(requests=[], n_slots=n_slots, decode_steps=0,
                                busy_slot_steps=0, prefill_rounds=0,
-                               wall_s=0.0, burst_len=K,
+                               wall_s=0.0, burst_len=ctrl.k if ctrl else K,
                                fused_admission=fused_admission,
+                               auto_burst=ctrl is not None,
                                paged=self.paged, page_size=self.page_size)
-        if max(r.max_new_tokens for r in reqs) > self.max_len:
-            raise ValueError("a request's max_new_tokens exceeds the "
-                             f"engine KV capacity {self.max_len}")
+        self._check_budgets(reqs)
         enc_len = self._enc_bucket(reqs, pad_to_multiple)
-        allocator = None
-        if self.paged:
-            allocator = self._make_allocator(n_slots)
-            for r in reqs:
-                need = self._pages_per_request(r)
-                if need > allocator.n_pages:
-                    raise ValueError(
-                        f"request {r.req_id} needs {need} pages but the "
-                        f"pool holds {allocator.n_pages}")
+        allocator = self._serve_allocator(n_slots, reqs, lambda r: 1)
         sched = ContinuousScheduler(
             n_slots, prefill_token_budget=prefill_token_budget,
             allocator=allocator,
-            pages_per_request=self._pages_per_request if allocator else None)
+            pages_per_request=((lambda r: self._pages_per_request(r, 1))
+                               if allocator else None))
         sched.submit_many(reqs)
         state = self.model.init_decode_state(
             n_slots, self.max_len, quantized=self.quant.quantize_kv,
@@ -728,7 +912,7 @@ class ServingEngine:
                                       length=enc_len)
             logits, sub, width = self._prefill_padded(src_pad, lens)
             first = torch.argmax(logits, dim=-1).to(torch.int32)
-            pages = (self._page_rows(admitted, width, allocator.n_pages)
+            pages = (self._page_rows(admitted, 1, width, allocator.n_pages)
                      if allocator else None)
             state, tokens = self._splice_rows(
                 state, tokens, sub, first,
@@ -736,16 +920,18 @@ class ServingEngine:
                 pages=pages)
             first_host = first.cpu().numpy()[:len(admitted)]
             t = now()
+            released = []
             for r, tok in zip(admitted, first_host):
                 r.first_token_s = t
                 tok = int(tok)
                 if r.max_new_tokens <= 0 or tok == self.eos_id:
-                    sched.release(r, t, step=decode_steps)
+                    released.append(sched.release(r, t, step=decode_steps))
                 else:
                     r.tokens.append(tok)
                     if r.max_new_tokens <= 1:
-                        sched.release(r, t, step=decode_steps)
-            return state, tokens
+                        released.append(sched.release(r, t,
+                                                      step=decode_steps))
+            return self._free_released(state, released), tokens
 
         while not sched.all_done:
             plan = None
@@ -775,18 +961,21 @@ class ServingEngine:
             remaining = np.zeros((n_slots,), np.int32)
             for slot, req in sched.slot_map.items():
                 remaining[slot] = req.max_new_tokens - len(req.tokens)
+            cap = ctrl.k if ctrl else K
+            t_dispatch = time.perf_counter()
             remaining_dev = torch.as_tensor(remaining, device=self.device)
             if plan is not None and plan.width:
-                pages = (self._page_rows(plan.requests, plan.width,
+                pages = (self._page_rows(plan.requests, 1, plan.width,
                                          allocator.n_pages)
                          if allocator else None)
                 state, tokens = self._admission_prologue(
                     state, tokens, remaining_dev > 0, plan.src_tokens,
                     plan.src_lengths, plan.base_rows, pages)
             tokens, _, state, buf, live = self._greedy_burst(
-                tokens, remaining_dev, min(K, int(remaining.max())), state)
+                tokens, remaining_dev, min(cap, int(remaining.max())), state)
             buf_host, steps = self._drain(buf, live)
             steps = int(steps)
+            burst_wall = time.perf_counter() - t_dispatch
             host_syncs += 1                           # one drain per burst
             step_base = decode_steps
             decode_steps += steps
@@ -795,6 +984,7 @@ class ServingEngine:
             # the burst edge, finish steps exactly
             t = now()
             freed = []
+            wasted_row_steps = 0
             for slot, req in list(sched.slot_map.items()):
                 if req.first_token_s is None:
                     req.first_token_s = t   # fused: emitted by this burst
@@ -813,6 +1003,9 @@ class ServingEngine:
                                                    step=step_base + s + 1))
                         break
                 busy_slot_steps += used
+                wasted_row_steps += steps - used
+            if ctrl:
+                ctrl.observe(burst_wall, steps, wasted_row_steps, n_slots)
             if freed and not fused_admission:
                 # fused rounds reset dead rows in the next prologue instead
                 state = dict(state)
@@ -820,18 +1013,320 @@ class ServingEngine:
                 state["cache"] = free(state["cache"],
                                       np.asarray(freed, np.int32))
 
-        misses = len(sched.rejected) + sum(
-            1 for r in reqs
-            if (r.status == "finished" and r.deadline_s is not None
-                and r.finish_s is not None and r.finish_s > r.deadline_s))
         return ServeResult(
             requests=reqs, n_slots=n_slots, decode_steps=decode_steps,
             busy_slot_steps=busy_slot_steps, prefill_rounds=prefill_rounds,
-            wall_s=now(), host_syncs=host_syncs, burst_len=K,
+            wall_s=now(), host_syncs=host_syncs,
+            burst_len=ctrl.k if ctrl else K,
             prefill_dispatches=prefill_dispatches,
             encoder_tokens=encoder_tokens, fused_admission=fused_admission,
+            auto_burst=ctrl is not None,
             paged=self.paged, page_size=self.page_size,
             pages_in_use=allocator.in_use if allocator else 0,
             page_hwm=allocator.hwm if allocator else 0,
             peak_running=peak_running, rejected=len(sched.rejected),
-            deadline_misses=misses)
+            deadline_misses=self._deadline_misses(sched, reqs))
+
+    # ------------------------------------------------- continuous beam search
+    def _beam_widths(self, reqs: Sequence[Request], beam
+                     ) -> Tuple[Dict[int, int], int]:
+        """Each request's beam width, by ``req_id``, and the grid's group
+        width (their largest).  A ``beam`` sequence wins, then a request's
+        own ``Request.beam``, then the scalar ``beam``; the caller's
+        ``Request`` objects are never written."""
+        if isinstance(beam, (list, tuple, np.ndarray)):
+            seq = [int(b) for b in beam]
+            if len(seq) != len(reqs):
+                raise ValueError(f"beam sequence length {len(seq)} != "
+                                 f"{len(reqs)} requests")
+            width_of = {r.req_id: b for r, b in zip(reqs, seq)}
+            default = max(seq) if seq else 1
+        else:
+            default = int(beam)
+            if default < 1:
+                raise ValueError(f"beam must be ≥ 1, got {default}")
+            width_of = {r.req_id: (int(r.beam) if r.beam is not None
+                                   else default) for r in reqs}
+        for r in reqs:
+            if width_of[r.req_id] < 1:
+                raise ValueError(f"beam must be ≥ 1, got "
+                                 f"{width_of[r.req_id]} (request "
+                                 f"{r.req_id})")
+        return width_of, max(list(width_of.values()) + [default])
+
+    def _serve_beam(self, requests: Sequence[Any], *, n_slots: int,
+                    beam: Union[int, Sequence[int]], alpha: float,
+                    max_new_tokens: Union[int, Sequence[int]],
+                    prefill_token_budget: Optional[int],
+                    admit_min_free: int, pad_to_multiple: int,
+                    burst_len: Optional[Union[int, str]],
+                    fused_admission: bool) -> ServeResult:
+        """Continuous beam search (``engine.py:2264-2942``, without the
+        prefix cache and the overload machinery).
+
+        A request is admitted into a group of ``beam`` contiguous rows.
+        Unfused, its source is prefilled tiled over the group (as
+        ``generate_beam`` tiles its batch) and its first ``beam`` tokens
+        come from one top-k over the group's beam-0 log-probs, taken on
+        the host.  Fused, the source is encoded once and broadcast over the
+        group, whose scores are seeded ``[0, BEAM_SEED_NEG, …]``: the
+        burst's first beam step is then ``generate_beam``'s first step.
+        Each burst runs :meth:`_beam_serve_burst`; at its edge the host
+        replays each group's composed beam permutation over its token
+        history, appends the new ring columns, and once the group's budget
+        is spent or all its rows have finished, picks the winner and
+        releases the group.  Scores and finished masks go to the device and
+        back every burst, bit for bit (``_drain``).
+
+        Mixed widths: the grid's groups are as wide as the widest request,
+        and a narrower request runs only the first ``beam_req`` rows of its
+        group; the rest are parked (``_beam_step``), so each step is a
+        ``beam_req``-wide beam step.  On the paged cache, parked rows
+        reserve no pages.
+        """
+        reqs = self._as_requests(requests, max_new_tokens)
+        width_of, beam = self._beam_widths(reqs, beam)
+        K = self._resolve_burst(burst_len)
+        ctrl = self._burst_controller(K)
+        n_groups = n_slots // beam
+        if n_groups < 1:
+            raise ValueError(f"n_slots={n_slots} rows cannot hold a "
+                             f"beam-{beam} group")
+        R = n_groups * beam                 # rows in the grid
+        if not reqs:
+            return ServeResult(requests=[], n_slots=R, decode_steps=0,
+                               busy_slot_steps=0, prefill_rounds=0,
+                               wall_s=0.0, burst_len=ctrl.k if ctrl else K,
+                               beam=beam, fused_admission=fused_admission,
+                               auto_burst=ctrl is not None,
+                               paged=self.paged, page_size=self.page_size)
+        self._check_budgets(reqs)
+        enc_len = self._enc_bucket(reqs, pad_to_multiple)
+        allocator = self._serve_allocator(R, reqs,
+                                          lambda r: width_of[r.req_id])
+        sched = ContinuousScheduler(
+            R, group_size=beam, prefill_token_budget=prefill_token_budget,
+            allocator=allocator,
+            pages_per_request=(
+                (lambda r: self._pages_per_request(r, width_of[r.req_id]))
+                if allocator else None))
+        sched.submit_many(reqs)
+        state = self.model.init_decode_state(
+            R, self.max_len, quantized=self.quant.quantize_kv,
+            enc_len=enc_len, paged=self.paged, page_size=self.page_size,
+            n_pages=allocator.n_pages if allocator else None)
+        tokens = torch.zeros((R,), dtype=torch.int32, device=self.device)
+        # bytes one beam step's reorder moves: paged, the table permutation
+        # and one page a row; contiguous, the whole KV slab and cross K/V
+        if self.paged:
+            reorder_step_bytes = state["cache"].reorder_bytes_per_step()
+        else:
+            ck = state["cross_k"]
+            reorder_step_bytes = (state["cache"].nbytes()
+                                  + 2 * ck.numel() * ck.element_size())
+        # host-side per-row beam state, sent up and drained every burst
+        scores_np = np.zeros((R,), np.float32)
+        finished_np = np.ones((R,), bool)        # unoccupied rows are inert
+        histories: Dict[int, List[np.ndarray]] = {}  # base → (beam,) columns
+        budget_left: Dict[int, int] = {}             # base → steps left
+
+        t0 = time.perf_counter()
+        now = lambda: time.perf_counter() - t0
+        decode_steps = busy_slot_steps = prefill_rounds = host_syncs = 0
+        prefill_dispatches = encoder_tokens = peak_running = 0
+
+        def seed_group(req: Request, budget: int) -> None:
+            """A fused admission's search state: row 0 at score 0, the
+            other rows at ``BEAM_SEED_NEG``, parked rows finished."""
+            base, b = req.slot, width_of[req.req_id]
+            scores_np[base] = 0.0
+            scores_np[base + 1:base + beam] = BEAM_SEED_NEG
+            finished_np[base:base + b] = False
+            finished_np[base + b:base + beam] = True
+            histories[base] = []
+            budget_left[base] = budget
+
+        def finalize(req: Request, base: int, t: float, step: int) -> int:
+            """The group's winner among the request's own rows, then its
+            release (returns the freed base row)."""
+            b = width_of[req.req_id]
+            grid = np.stack(histories.pop(base), axis=1)[:b]   # (b, T)
+            toks, score = self._winner(grid, scores_np[base:base + b],
+                                       alpha, self.eos_id)
+            req.tokens = [int(x) for x in toks]
+            req.score = score
+            budget_left.pop(base, None)
+            finished_np[base:base + beam] = True
+            return sched.release(req, t, step=step)
+
+        def prefill_groups(admitted, state, tokens):
+            """Unfused admission: prefill the sources tiled ``beam×``,
+            splice the groups in, and take each group's first ``beam``
+            tokens on the host (the first-token drain)."""
+            g = len(admitted)
+            rows = g * beam
+            src_pad, lens = pad_batch([r.src for r in admitted],
+                                      length=enc_len)
+            logits, sub, width = self._prefill_padded(
+                np.repeat(src_pad, beam, axis=0),
+                np.repeat(lens, beam, axis=0))
+            lp = torch.log_softmax(logits.to(torch.float32),
+                                   dim=-1).cpu().numpy()
+            first = lp[:rows].reshape(g, beam, -1)[:, 0]     # (g, V)
+            # a stable argsort of the negated log-probs is top-k: values
+            # descending, ties toward the lower index
+            tok_host = np.argsort(-first, axis=-1,
+                                  kind="stable")[:, :beam].astype(np.int32)
+            sc_host = np.take_along_axis(first, tok_host, axis=-1)
+            for i, r in enumerate(admitted):
+                b = width_of[r.req_id]          # parked rows: EOS, floor
+                tok_host[i, b:] = self.eos_id
+                sc_host[i, b:] = BEAM_SEED_NEG
+            sub_np = np.full((width,), self.eos_id, np.int32)
+            sub_np[:rows] = tok_host.reshape(rows)
+            pages = None
+            if allocator:
+                pages = np.full((width, self._max_pages), allocator.n_pages,
+                                np.int32)
+                pages[:rows] = self._page_rows(
+                    admitted, beam, g, allocator.n_pages,
+                    widths=[width_of[r.req_id] for r in admitted])
+            state, tokens = self._splice_rows(
+                state, tokens, sub,
+                torch.as_tensor(sub_np, device=self.device),
+                kvc.group_rows([r.slot for r in admitted], beam), width,
+                pages=pages)
+            t = now()
+            released = []
+            for i, r in enumerate(admitted):
+                base, b = r.slot, width_of[r.req_id]
+                r.first_token_s = t
+                if r.max_new_tokens <= 0:
+                    finished_np[base:base + beam] = True
+                    released.append(sched.release(r, t, step=decode_steps))
+                    continue                     # zero budget: empty output
+                scores_np[base:base + beam] = sc_host[i]
+                fin = tok_host[i] == self.eos_id
+                fin[b:] = True
+                finished_np[base:base + beam] = fin
+                histories[base] = [tok_host[i].copy()]
+                budget_left[base] = r.max_new_tokens - 1
+                if fin.all() or budget_left[base] <= 0:
+                    released.append(finalize(r, base, t, step=decode_steps))
+            return self._free_released(
+                state, kvc.group_rows(released, beam)), tokens
+
+        while not sched.all_done:
+            plan = None
+            want_admit = (sched.n_waiting and sched.n_free >=
+                          min(max(admit_min_free, 1), sched.n_waiting,
+                              n_groups))
+            if want_admit and fused_admission:
+                plan = sched.plan_admission(now(), step=decode_steps,
+                                            enc_len=enc_len, oob_row=R)
+                if plan.n_admitted:
+                    prefill_rounds += 1
+                encoder_tokens += len(plan.requests) * enc_len
+                for r in plan.requests:
+                    seed_group(r, r.max_new_tokens)
+            elif want_admit:
+                admitted = sched.admit(now(), step=decode_steps)
+                if admitted:
+                    prefill_rounds += 1
+                    prefill_dispatches += 1
+                    host_syncs += 1           # the first-token drain
+                    # the side batch tiles each source beam× through the
+                    # encoder
+                    encoder_tokens += len(admitted) * beam * enc_len
+                    state, tokens = prefill_groups(admitted, state, tokens)
+            peak_running = max(peak_running, sched.n_running)
+            if not sched.slot_map:
+                continue        # every admitted group finished on token 1
+
+            remaining_in = np.zeros((n_groups,), np.int32)
+            parked_np = np.zeros((R,), bool)
+            for base, req in sched.slot_map.items():
+                remaining_in[base // beam] = budget_left[base]
+                parked_np[base + width_of[req.req_id]:base + beam] = True
+            cap = ctrl.k if ctrl else K
+            t_dispatch = time.perf_counter()
+            dev = lambda a: torch.as_tensor(a, device=self.device)
+            remaining_dev = dev(remaining_in)
+            if plan is not None and plan.width:
+                pages = (self._page_rows(
+                    plan.requests, beam, plan.width, allocator.n_pages,
+                    widths=[width_of[r.req_id] for r in plan.requests])
+                    if allocator else None)
+                state, tokens = self._admission_prologue(
+                    state, tokens, (remaining_dev > 0).repeat_interleave(beam),
+                    plan.src_tokens, plan.src_lengths, plan.base_rows, pages,
+                    group=beam)
+            (tokens, scores, finished, remaining, comp, state, buf,
+             live) = self._beam_serve_burst(
+                beam, tokens, dev(scores_np), dev(finished_np),
+                remaining_dev, min(cap, int(remaining_in.max())), state,
+                dev(parked_np))
+            (buf_host, comp_host, scores_np, finished_np, remaining_out,
+             steps) = self._drain(buf, comp, scores, finished, remaining,
+                                  live)
+            scores_np = scores_np.copy()
+            finished_np = finished_np.astype(bool)
+            steps = int(steps)
+            burst_wall = time.perf_counter() - t_dispatch
+            host_syncs += 1                           # one drain per burst
+            step_base = decode_steps
+            decode_steps += steps
+
+            # replay each group's composed permutation over its history,
+            # append its new ring columns, finalize the groups that finished
+            # or spent their budget
+            t = now()
+            freed = []
+            wasted_row_steps = 0
+            for base, req in list(sched.slot_map.items()):
+                gi = base // beam
+                s_g = int(remaining_in[gi] - remaining_out[gi])
+                if req.first_token_s is None:
+                    req.first_token_s = t   # fused: emitted by this burst
+                if s_g:
+                    local = comp_host[base:base + beam] - base
+                    hist = [c[local] for c in histories[base]]
+                    hist.extend(buf_host[base:base + beam, j]
+                                for j in range(s_g))
+                    histories[base] = hist
+                    budget_left[base] -= s_g
+                # parked rows of a narrow request are computed but idle
+                b_req = width_of[req.req_id]
+                busy_slot_steps += s_g * b_req
+                wasted_row_steps += (steps - s_g) * beam + \
+                    s_g * (beam - b_req)
+                if finished_np[base:base + beam].all() or \
+                        budget_left[base] <= 0:
+                    freed.append(finalize(req, base, t,
+                                          step=step_base + s_g))
+            if ctrl:
+                ctrl.observe(burst_wall, steps, wasted_row_steps, R)
+            if freed and not fused_admission:
+                # fused rounds reset dead rows in the next prologue instead
+                state = dict(state)
+                if self.paged:
+                    state["cache"] = kvc.free_slots_paged(
+                        state["cache"], kvc.group_rows(freed, beam))
+                else:
+                    state["cache"] = kvc.free_groups(state["cache"], freed,
+                                                     beam)
+
+        return ServeResult(
+            requests=reqs, n_slots=R, decode_steps=decode_steps,
+            busy_slot_steps=busy_slot_steps, prefill_rounds=prefill_rounds,
+            wall_s=now(), host_syncs=host_syncs,
+            burst_len=ctrl.k if ctrl else K, beam=beam,
+            prefill_dispatches=prefill_dispatches,
+            encoder_tokens=encoder_tokens, fused_admission=fused_admission,
+            auto_burst=ctrl is not None,
+            paged=self.paged, page_size=self.page_size,
+            pages_in_use=allocator.in_use if allocator else 0,
+            page_hwm=allocator.hwm if allocator else 0,
+            reorder_bytes=reorder_step_bytes * decode_steps,
+            peak_running=peak_running, rejected=len(sched.rejected),
+            deadline_misses=self._deadline_misses(sched, reqs))

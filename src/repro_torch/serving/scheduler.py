@@ -9,15 +9,18 @@ Port of ``repro/serving/scheduler.py`` (host-side numpy; no torch):
 
 * ``ContinuousScheduler`` — the request lifecycle behind
   ``ServingEngine.serve``: requests flow *waiting → running → finished*
-  through a fixed pool of decode **slots**.  Admission is FIFO (EDF with
-  aging once a request carries a deadline or a priority) with an optional
-  per-round prefill token budget and, on the paged cache, a page budget
-  against a ``PageAllocator``; a slot freed by a finished sequence is
-  refilled mid-decode.  Per-request arrival / first-token / finish times
-  feed the latency metrics.
+  through a fixed pool of decode **slots**, one row per request (greedy)
+  or one group of ``group_size`` rows (beam search).  Admission is FIFO
+  (EDF with aging once a request carries a deadline or a priority) with an
+  optional per-round prefill token budget and, on the paged cache, a page
+  budget against a ``PageAllocator``; a group freed by a finished request
+  is refilled mid-decode.  Per-request arrival / first-token / finish
+  times feed the latency metrics.
 
-Not ported yet: the prefix-cache routing, preemption and chunked-prefill
-staging of the reference's ``ContinuousScheduler`` (ROADMAP Queue 1, item 8).
+Not ported yet: the prefix-cache routing (ROADMAP Queue 1: the prefix
+cache and chain pages), and the preemption and chunked-prefill staging
+(ROADMAP Queue 1: overload handling) of the reference's
+``ContinuousScheduler``.
 """
 
 from __future__ import annotations
@@ -92,7 +95,7 @@ class Request:
 
     # lifecycle (scheduler/engine-maintained)
     status: str = "waiting"             # waiting | running | finished | rejected
-    slot: Optional[int] = None          # decode row of the request
+    slot: Optional[int] = None          # base row of the request's group
     admitted_s: Optional[float] = None
     first_token_s: Optional[float] = None
     finish_s: Optional[float] = None
@@ -101,6 +104,11 @@ class Request:
     # edges, the step counters carry the exact position
     admitted_step: Optional[int] = None
     finish_step: Optional[int] = None
+    # beam serving: the winning hypothesis' length-penalized log-prob
+    score: Optional[float] = None
+    # mixed-width beam serving: this request's own beam width (None = the
+    # serve call's default).  Caller-owned: the engine never writes it.
+    beam: Optional[int] = None
     # paged KV cache: flat page ids reserved for this request
     pages: Optional[List[int]] = None
     reject_reason: Optional[str] = None
@@ -178,39 +186,56 @@ class ContinuousScheduler:
     """Admission control + slot lifecycle for continuous batching.
 
     ``n_slots`` decode rows exist for the whole serve; a request occupies
-    one row from admission to finish (greedy serving; the reference's beam
-    groups of several rows are not ported yet).  ``admit`` hands out free
-    rows to waiting requests in queue order, bounded per round by
-    ``prefill_token_budget`` (source tokens prefilled in one round) and by
-    the page pool; the head of the queue is always admitted when a row and
-    its pages are free, so no request starves.
+    one group of ``group_size`` contiguous rows from admission to finish
+    (``group_size=1``, greedy serving, makes a group one row).
+    ``Request.slot`` and the ``slot_map`` keys are group base rows, always
+    multiples of ``group_size``; rows past ``n_groups × group_size`` are
+    never assigned.  ``admit`` hands out free groups to waiting requests in
+    queue order, bounded per round by ``prefill_token_budget`` and by the
+    page pool; the head of the queue is always admitted when a group and
+    its pages are free, so no request starves.  The budget counts prefilled
+    row-tokens: a request charges ``group_size × n_src_tokens``, whether
+    the engine encodes its source once (fused) or once a row (unfused), so
+    admission, and with it the token stream, is the same either way.
 
     Paged cache: ``allocator`` and ``pages_per_request`` go together; a
     request's full-budget worst case is reserved and physically allocated
     at admission, so decode never runs out of pages.
+
+    Not ported yet: prefix routing (ROADMAP Queue 1: the prefix cache and
+    chain pages), preemption and staging (ROADMAP Queue 1: overload
+    handling).
     """
 
     _NO_DEADLINE = 1e6                 # best-effort = very late deadline
 
-    def __init__(self, n_slots: int, *,
+    def __init__(self, n_slots: int, *, group_size: int = 1,
                  prefill_token_budget: Optional[int] = None,
                  allocator=None,
                  pages_per_request: Optional[Callable[[Request], int]] = None,
                  starvation_aging: float = 0.5):
         if n_slots < 1:
             raise ValueError(f"need at least one slot, got {n_slots}")
+        if group_size < 1:
+            raise ValueError(f"group_size must be ≥ 1, got {group_size}")
+        if n_slots < group_size:
+            raise ValueError(f"{n_slots} rows cannot hold a group of "
+                             f"{group_size}")
         if (allocator is None) != (pages_per_request is None):
             raise ValueError("allocator and pages_per_request go together")
         if starvation_aging < 0:
             raise ValueError(f"starvation_aging must be >= 0, "
                              f"got {starvation_aging}")
         self.n_slots = n_slots
+        self.group_size = group_size
+        self.n_groups = n_slots // group_size
         self.prefill_token_budget = prefill_token_budget
         self.allocator = allocator
         self.pages_per_request = pages_per_request
         self.starvation_aging = float(starvation_aging)
         self._waiting: Deque[Request] = collections.deque()
-        self._free: List[int] = list(range(n_slots))
+        self._free: List[int] = [g * group_size
+                                 for g in range(self.n_groups)]
         self.slot_map: Dict[int, Request] = {}
         self.finished: List[Request] = []
         self.rejected: List[Request] = []
@@ -226,6 +251,7 @@ class ContinuousScheduler:
         req.tokens = []
         req.admitted_step = None
         req.finish_step = None
+        req.score = None
         req.pages = None
         req.reject_reason = None
         req.wait_rounds = 0
@@ -277,7 +303,7 @@ class ContinuousScheduler:
 
     def admit(self, now: float = 0.0, *,
               step: Optional[int] = None) -> List[Request]:
-        """Move waiting requests into free slots (one prefill round).
+        """Move waiting requests into free slot groups (one prefill round).
 
         ``step`` records the global decode-step count at this burst edge.
         Order: shed provably-late requests, sort by urgency (a no-op for
@@ -291,7 +317,7 @@ class ContinuousScheduler:
         used = 0
         while self._waiting and self._free:
             req = self._waiting[0]
-            cost = req.n_src_tokens
+            cost = req.n_src_tokens * self.group_size   # row-tokens
             if admitted and budget is not None and used + cost > budget:
                 break                    # next round; queue order preserved
             pages = None
@@ -349,8 +375,9 @@ class ContinuousScheduler:
 
     def release(self, req: Request, now: float = 0.0, *,
                 step: Optional[int] = None) -> int:
-        """Finish a running request and return its freed slot; its pages go back to the pool.  ``step``: the exact global decode
-        step the request finished at."""
+        """Finish a running request and return its freed group base row
+        (the whole group is freed); its pages go back to the pool.
+        ``step``: the exact global decode step the request finished at."""
         if req.status != "running" or req.slot is None:
             raise ValueError(f"request {req.req_id} is not running "
                              f"(status={req.status})")
@@ -374,6 +401,7 @@ class ContinuousScheduler:
     # ------------------------------------------------------------ inspection
     @property
     def n_free(self) -> int:
+        """Free slot groups (free rows when ``group_size == 1``)."""
         return len(self._free)
 
     @property

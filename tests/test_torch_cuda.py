@@ -9,6 +9,8 @@ The first test builds the kernels from ``src/repro_torch/csrc`` (seconds).
 ``chip_smoke.py`` repeats these checks at the main path's shapes.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -40,6 +42,7 @@ from repro_torch.kernels.quantize import (
     quantize_static_cuda,
 )
 from repro_torch.models import DecoderLM, EncDecLM
+from repro_torch.models import kv_cache as kvc
 from repro_torch.models.kv_cache import linearize_pages
 from repro_torch.serving import ServingEngine
 
@@ -725,3 +728,102 @@ def test_engine_runs_through_every_kernel(gen):
         {"tokens": src, "lengths": lens}, max_new_tokens=4)
     assert all(n > 0 for n in ops.launch_counts().values()), \
         ops.launch_counts()
+
+
+def _shared_table_cache(gen, B=8, group=4, maxP=5, ps=4, HKV=4, dh=64):
+    """A one-layer paged INT8 cache after two beam reorders within groups
+    of ``group`` rows (``kv_cache.gather_beams_paged``): siblings map the
+    same full pages, each row's write-slot page is its own."""
+    P = B * maxP
+    cpu = torch.Generator().manual_seed(B + maxP)
+    own = torch.randperm(P, generator=cpu).int().reshape(B, maxP).cuda()
+    rand8 = lambda *s: torch.randint(-127, 128, s, generator=gen,
+                                     device="cuda", dtype=torch.int8)
+    randf = lambda *s: torch.rand(s, generator=gen, device="cuda") * 0.02
+    cache = kvc.PagedKVCache(
+        k_store=rand8(1, P + 1, ps, HKV, dh),
+        v_store=rand8(1, P + 1, ps, HKV, dh),
+        ks_store=randf(1, P + 1, ps, HKV), vs_store=randf(1, P + 1, ps, HKV),
+        block_tables=own.clone(), own_pages=own,
+        lengths=torch.randint(1, maxP * ps - 1, (B,),
+                              generator=cpu).int().cuda())
+    for _ in range(2):
+        pick = torch.randint(0, group, (B,), generator=cpu)
+        idx = (torch.arange(B) // group * group + pick).cuda()
+        cache = kvc.gather_beams_paged(cache, idx)
+        cache = kvc.with_lengths(cache, cache.lengths + 1)
+    return cache
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_paged_over_shared_tables(gen, dtype):
+    """K5 over block tables shared within beam groups equals its plain
+    version, and K4 on the linearized cache bit for bit, under every
+    plan."""
+    cache = _shared_table_cache(gen)
+    tables, lengths = cache.block_tables, cache.lengths
+    assert len(set(tables.flatten().tolist())) < tables.numel()
+    kq, vq, ks, vs = cache.k[0], cache.v[0], cache.k_scale[0], \
+        cache.v_scale[0]
+    q = torch.randn((tables.shape[0], 8, 64), generator=gen,
+                    device="cuda").to(dtype)
+    got = decode_attention_paged_cuda(q, kq, ks, vq, vs, tables, lengths,
+                                      sm_scale=0.125)
+    want = ref.ref_decode_attention_paged(q, kq, ks, vq, vs, tables,
+                                          lengths, 0.125)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    lin = lambda a: linearize_pages(a, tables).contiguous()
+    for p in all_plans(tables.shape[1] * cache.page_size):
+        assert torch.equal(decode_attention_paged_cuda(
+            q, kq, ks, vq, vs, tables, lengths, sm_scale=0.125, tile=p), got)
+        assert torch.equal(decode_attention_cuda(
+            q, lin(kq), lin(ks), lin(vq), lin(vs), lengths, sm_scale=0.125,
+            tile=p), got)
+
+
+def test_cow_write_slot_on_card_equals_cpu(gen):
+    """The copy-on-write page copy and the table repoint on the card equal
+    the CPU's, with rows whose write slot is a sentinel (the sink)."""
+    cache = _shared_table_cache(gen)
+    own = cache.own_pages.clone()
+    own[1, 2:] = cache.n_pages          # rows reserving part of a row
+    own[6, :] = cache.n_pages
+    cache = dataclasses.replace(cache, own_pages=own)
+    idx = torch.tensor([1, 1, 0, 3, 4, 4, 7, 6], device="cuda")
+    to_cpu = lambda c: dataclasses.replace(c, **{
+        f.name: None if getattr(c, f.name) is None
+        else getattr(c, f.name).cpu().clone()
+        for f in dataclasses.fields(c)})
+    cpu = kvc.gather_beams_paged(to_cpu(cache), idx.cpu())
+    card = kvc.gather_beams_paged(cache, idx)
+    for name in ("k", "v", "k_scale", "v_scale", "block_tables", "lengths"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name)), \
+            name
+
+
+def test_paged_beam_serve_equals_contiguous_on_card(gen):
+    """A reduced INT8 beam-4 serve with mixed admissions: the paged cache
+    (K5 over shared tables) gives the contiguous cache's (K4) tokens, and
+    each launches its own kernel."""
+    cfg = get_config("transformer-base").reduced(vocab=512, d_model=128,
+                                                  head_dim=32,
+                                                  dtype="bfloat16")
+    model = EncDecLM(cfg)
+    qp, ctx = quantize_model(model.init(gen), {},
+                             QuantPolicy(act_quant="dynamic"))
+    corpus = make_corpus(10, cfg.vocab, seed=2)
+    budgets = [int(b) for b in np.random.default_rng(2).integers(2, 15, 10)]
+    toks = {}
+    for paged in (False, True):
+        ops.reset_launch_counts()
+        res = ServingEngine(model, qp, quant=ctx, max_len=32, paged=paged,
+                            page_size=8, burst_len=4).serve(
+            corpus, n_slots=8, max_new_tokens=budgets, beam=4)
+        counts = ops.launch_counts()
+        own, other = (("decode_attention_paged", "decode_attention")
+                      if paged else
+                      ("decode_attention", "decode_attention_paged"))
+        assert counts[own] > 0 and counts[other] == 0, counts
+        assert res.pages_in_use == 0
+        toks[paged] = [list(r.tokens) for r in res.requests]
+    assert toks[True] == toks[False]

@@ -296,11 +296,12 @@ def test_pack_batches_token_budget_equals_reference():
 # what is not ported raises; the driver runs in both modes on the CPU
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw", [dict(beam=2), dict(prefix_cache=True),
+@pytest.mark.parametrize("kw", [dict(beam=2, overcommit=1.5),
+                                dict(prefix_cache=True),
                                 dict(overcommit=1.5),
                                 dict(prefill_chunk=8), dict(chaos=object()),
                                 dict(speculative_k=2),
-                                dict(burst_len="auto")])
+                                dict(beam=2, prefill_chunk=8)])
 def test_unported_serve_options_raise(kw):
     model = EncDecLM(get_config("transformer-base").reduced(), device="cpu")
     engine = ServingEngine(model, {}, max_len=16, device="cpu")
@@ -315,9 +316,11 @@ def test_generate_speculative_k_raises():
     engine = ServingEngine(model, {}, max_len=16, device="cpu")
     batch = {"src_tokens": np.ones((1, 4), np.int32),
              "src_lengths": np.array([4], np.int32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1: speculative decoding"):
         engine.generate(batch, speculative_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1: speculative decoding"):
         engine.serve([np.arange(3, 8)], speculative_k=2, alpha=0.8)
     with pytest.raises(ValueError, match="speculative_k"):
         engine.generate(batch, speculative_k=-1)
@@ -352,7 +355,8 @@ def test_serve_driver_runs_on_cpu(argv, capsys):
 
 @pytest.mark.parametrize("flag", [["--prefix-cache"], ["--overcommit", "2"],
                                   ["--mesh", "1,2"],
-                                  ["--mode", "continuous", "--beam", "4"]])
+                                  ["--mode", "continuous", "--beam", "4",
+                                   "--prefill-chunk", "8"]])
 def test_serve_driver_refuses_unported_flags(flag):
     with pytest.raises(SystemExit, match="ROADMAP"):
         serve_driver.main(["--device", "cpu", *flag])
