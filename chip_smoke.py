@@ -45,8 +45,9 @@ final line):
    cache, paged cache (default pool and a tight 32-page pool) with fused
    admission, and paged with unfused admission.  Paged and contiguous
    tokens must be identical, every page returned, K5 launched on the paged
-   runs only and its plain version never; then a profiled paged serve
-   (with K4's and K5's device time);
+   runs only and its plain version never; then the first 24 requests
+   again through per-request ``generate`` (logged) and a profiled paged
+   serve of the first 12 (with K4's and K5's device time);
 5b. continuous beam serving — the first 24 of those requests at
    ``beam=4`` (4 groups of 4 rows): contiguous fused, paged fused, paged
    unfused, paged with mixed widths (1–4), paged with
@@ -54,8 +55,9 @@ final line):
    Every request finishes, paged tokens equal contiguous tokens, every
    page is returned, the reorder bytes a step equal the reference's
    formula, K4 launches on the contiguous run and K5 on the paged ones,
-   K2 on the dynamic one, and neither plain attention runs; then the agreement with per-request ``generate_beam``
-   (logged), and a profiled contiguous and paged beam serve of 12 requests
+   K2 on the dynamic one, and neither plain attention runs; then the
+   agreement of the first 12 with per-request ``generate_beam`` (logged),
+   and a profiled contiguous and paged beam serve of 12 requests
    (device only) with one reorder of each cache profiled alone;
 6. INT4 weights — the same model quantized with ``weight_bits=4`` (decoder
    FFN and attention output projections block-wise INT4, group 128, f16
@@ -78,12 +80,26 @@ final line):
    first decode steps' logits against ``impl="torch"``, with dynamic and
    with static scales, and a profiled greedy run (busy time, idle share,
    K7's share, K4's device time);
+5c. the prefix cache and overload (run after phase 6, whose INT4 weights
+   it reuses) — 24 requests, phase 5's first 12 sources each twice with
+   their budgets, on 16 rows (INT8 static, burst 8, pages of 16): a cold
+   paged greedy serve, then fused with ``prefix_cache=True`` (at least 12
+   hits) and again on the same engine (24 hits, no chain page
+   allocated, no encoder work); with the cache also a contiguous (K4), an
+   unfused, a beam-4 paged and an INT4 paged (K6) serve; then overload:
+   a paged pool of half the unloaded serve's page high-water mark at
+   ``overcommit=1.5`` with ``make_chaos(5, n_rounds=256,
+   preempt_every=2)``, greedy and at beam 4 (against phase 5b's paged
+   serve): preemptions, every page returned and every spill restored.
+   The counts of requests whose tokens equal the cold or unloaded serve's
+   are logged; then one spill and one resume of a greedy row and of a
+   beam-4 group, profiled (device ms, host ms, bytes);
 8. the serving driver ``python -m repro_torch.launch.serve`` once per mode
    (continuous paged, static, continuous paged with ``--weight-bits 4``,
-   continuous paged beam 4 with ``--burst-len auto``), each a subprocess
-   that must exit 0;
+   continuous paged beam 4 with ``--burst-len auto``), four subprocesses
+   at once, each of which must exit 0;
 9. launch counts of each path, and one JSON line describing each kernel
-   (its launches summed over every path of phases 4-7);
+   (its launches summed over every path of phases 4-7 and 5c);
 10. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package.
@@ -1023,35 +1039,40 @@ def run_serving(model, qparams, qctx):
     return counts, results, toks
 
 
+GENERATE_CHECKS = 24           # served requests run again alone
+
+
 def serve_vs_generate(model, qparams, qctx, toks) -> None:
-    """Per-request ``generate`` of every served request (batch width 1
-    against the serve grid's 16 rows)."""
+    """Per-request ``generate`` of the first ``GENERATE_CHECKS`` served
+    requests (batch width 1 against the serve grid's 16 rows)."""
     from repro_torch.data import pad_batch
     from repro_torch.serving import ServingEngine
     corpus, budgets = serve_requests(model.cfg.vocab)
     engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN,
                            burst_len=SERVE_BURST)
     same = 0
-    for s, b, served in zip(corpus, budgets, toks["contiguous"]):
+    for s, b, served in list(zip(corpus, budgets,
+                                 toks["contiguous"]))[:GENERATE_CHECKS]:
         src, lens = pad_batch([s.src])
         res = engine.generate({"src_tokens": src, "src_lengths": lens},
                               max_new_tokens=b)
         same += list(res.tokens[0]) == served
     log(f"serve agreement: serve == per-request generate {same} of "
-        f"{SERVE_REQUESTS}")
+        f"{GENERATE_CHECKS}")
 
 
 def profile_paged_serve(model, qparams, qctx) -> None:
-    """The first half of the requests through a profiled paged serve (the
-    profiler's own cost grows with the number of events)."""
+    """The first quarter of the requests through a profiled paged serve
+    (the profiler's own cost grows with the number of events)."""
     from repro_torch.serving import ServingEngine
     corpus, budgets = serve_requests(model.cfg.vocab)
-    half = SERVE_REQUESTS // 2
+    quarter = SERVE_REQUESTS // 4
     engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN,
                            burst_len=SERVE_BURST, paged=True, page_size=PAGE)
-    _, rows, _ = profile(f"serve_paged {half} requests", lambda: engine.serve(
-        corpus[:half], n_slots=SERVE_SLOTS,
-        max_new_tokens=budgets[:half]).decode_steps)
+    _, rows, _ = profile(
+        f"serve_paged {quarter} requests", lambda: engine.serve(
+            corpus[:quarter], n_slots=SERVE_SLOTS,
+            max_new_tokens=budgets[:quarter]).decode_steps)
     log(f"  {attention_ms(rows)}")
 
 
@@ -1220,23 +1241,28 @@ def run_beam_serving(model, params, qparams, qctx):
     return counts, results, toks
 
 
+GENERATE_BEAM_CHECKS = 12      # beam-served requests run again alone
+
+
 def beam_serve_vs_generate_beam(model, qparams, qctx, toks) -> None:
-    """Per-request ``generate_beam(beam=4)`` of every served request,
-    logged, not asserted: a batch of one request reaches the f32 unembed
-    at another M than the serve grid's 16 rows."""
+    """Per-request ``generate_beam(beam=4)`` of the first
+    ``GENERATE_BEAM_CHECKS`` served requests, logged, not asserted: a
+    batch of one request reaches the f32 unembed at another M than the
+    serve grid's 16 rows."""
     from repro_torch.data import pad_batch
     from repro_torch.serving import ServingEngine
     corpus, budgets = beam_requests(model.cfg.vocab)
     engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN,
                            burst_len=SERVE_BURST)
     same = 0
-    for s, b, served in zip(corpus, budgets, toks["beam_contiguous"]):
+    for s, b, served in list(zip(corpus, budgets, toks["beam_contiguous"])
+                             )[:GENERATE_BEAM_CHECKS]:
         src, lens = pad_batch([s.src])
         res = engine.generate_beam({"src_tokens": src, "src_lengths": lens},
                                    beam=BEAM, max_new_tokens=b)
         same += list(res.tokens[0]) == served
     log(f"beam serve agreement: serve == per-request generate_beam {same} "
-        f"of {BEAM_REQUESTS}")
+        f"of {GENERATE_BEAM_CHECKS}")
 
 
 def reorder_ms(model, paged: bool):
@@ -1307,13 +1333,238 @@ def profile_beam_serves(model, qparams, qctx) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: the prefix cache and overload
+# ---------------------------------------------------------------------------
+
+PREFIX_SOURCES = 12            # phase 5's first 12 sources, each twice
+OVERCOMMIT = 1.5
+
+
+def prefix_requests(vocab: int):
+    """Phase 5c's 24 requests: the first ``PREFIX_SOURCES`` of phase 5's,
+    each twice, with their phase-5 budgets; request ``i + 12`` repeats
+    request ``i``."""
+    corpus, budgets = serve_requests(vocab)
+    return (corpus[:PREFIX_SOURCES] * 2, budgets[:PREFIX_SOURCES] * 2)
+
+
+def equal_count(a, b) -> int:
+    return sum(list(x.tokens) == list(y.tokens)
+               for x, y in zip(a.requests, b.requests))
+
+
+def check_serve(name, res, budgets, vocab, beam=False) -> None:
+    """Every request finished inside its budget with ids in the vocabulary
+    (and a score on beam serves), every page back in the pool, every spill
+    restored."""
+    import numpy as np
+    if any(r.status != "finished" for r in res.requests):
+        raise AssertionError(f"serve {name}: not every request finished")
+    for r, b in zip(res.requests, budgets):
+        t = np.asarray(r.tokens)
+        if len(t) > b or (beam and r.score is None) or (len(t) and not (
+                0 <= t.min() and t.max() < vocab)):
+            raise AssertionError(f"serve {name}: bad output {t}")
+    if res.pages_in_use or res.spill_events != res.restore_events:
+        raise AssertionError(
+            f"serve {name}: pages_in_use={res.pages_in_use}, "
+            f"{res.spill_events} spills, {res.restore_events} restores")
+
+
+def log_serve(name, res) -> None:
+    log(f"serve {name}: tokens={res.n_tokens} "
+        f"tokens_per_s={res.tokens_per_s:.1f} "
+        f"decode_steps={res.decode_steps} host_syncs={res.host_syncs} "
+        f"admission_rounds={res.prefill_rounds} "
+        f"encoder_tokens={res.encoder_tokens} "
+        f"prefix_hits={res.prefix_hits} prefix_misses={res.prefix_misses} "
+        f"prefix_hit_pages={res.prefix_hit_pages} "
+        f"prefix_pages_allocated={res.prefix_pages_allocated} "
+        f"preemptions={res.preemptions} spill_events={res.spill_events} "
+        f"restore_events={res.restore_events} "
+        f"spilled_bytes={res.spilled_bytes} "
+        f"peak_running={res.peak_running} page_hwm={res.page_hwm}")
+
+
+def run_prefix_and_overload(model, qparams, qctx, q4params, q4ctx,
+                            beam_paged, int4_paged):
+    """Phase 5c, each run's launch counts read from zero.
+
+    The prefix cache: a cold paged greedy serve of the 24 requests, then a
+    warm one (``prefix_cache=True``; at least the 12 repeats hit), a
+    re-serve on the same engine (all 24 hit, no chain page allocated) and
+    a second cold serve (the spread of the tokens/s);
+    with the cache also a contiguous (K4), an unfused, a beam-4 paged and
+    an INT4 paged (K6) serve.  Overload: a paged pool of half the pages
+    the unloaded serve's high-water mark needs, at ``overcommit=1.5`` with
+    a chaos schedule, greedy (against the cold serve) and at beam 4 (against
+    phase 5b's paged serve of 24 requests, ``beam_paged``).  Equal-token
+    counts are logged, not asserted: the cold and warm serves encode a
+    source in different rounds at different widths.  ``int4_paged`` is
+    phase 6's INT4 paged serve, whose first 12 requests are these sources
+    with these budgets.  Returns the launch counts per run."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServingEngine, make_chaos
+
+    vocab = model.cfg.vocab
+    corpus, budgets = prefix_requests(vocab)
+    beam_corpus, beam_budgets = beam_requests(vocab)
+    weights = {"int8": (qparams, qctx), "int4": (q4params, q4ctx)}
+
+    def engine(weights_of="int8", **kw):
+        wparams, wctx = weights[weights_of]
+        return ServingEngine(model, wparams, quant=wctx, max_len=MAX_LEN,
+                             burst_len=SERVE_BURST, **kw)
+
+    paged = dict(paged=True, page_size=PAGE)
+    # warm-up of the spill, resume and growth paths (uncounted)
+    engine(**paged, n_pages=8).serve(
+        corpus[:8], n_slots=SERVE_SLOTS, max_new_tokens=12,
+        overcommit=OVERCOMMIT, chaos=make_chaos(5, n_rounds=64,
+                                                preempt_every=1))
+
+    counts, results = {}, {}
+
+    def run(name, eng, reqs=corpus, want=budgets, **kw):
+        ops.reset_launch_counts()
+        res = eng.serve(reqs, n_slots=SERVE_SLOTS, max_new_tokens=want,
+                        **kw)
+        counts[name] = ops.launch_counts()
+        results[name] = res
+        log_serve(name, res)
+        log(f"  launches: {json.dumps(counts[name])}")
+        check_serve(name, res, want, vocab, beam="beam" in kw)
+        return res
+
+    cold = run("prefix_cold_paged", engine(**paged))
+    warm_engine = engine(**paged, prefix_cache=True)
+    warm = run("prefix_warm_paged", warm_engine)
+    again = run("prefix_again_paged", warm_engine)
+    # a second cold serve: the spread of a one-second serve on this host
+    cold2 = run("prefix_cold_paged_2", engine(**paged))
+    if warm.prefix_hits < PREFIX_SOURCES:
+        raise AssertionError(f"warm serve: {warm.prefix_hits} hits")
+    if again.prefix_hits != 2 * PREFIX_SOURCES or \
+            again.prefix_pages_allocated or again.encoder_tokens:
+        raise AssertionError(
+            f"re-serve: {again.prefix_hits} hits, "
+            f"{again.prefix_pages_allocated} chain pages allocated, "
+            f"{again.encoder_tokens} encoder tokens")
+    contiguous = run("prefix_contiguous", engine(prefix_cache=True))
+    unfused = run("prefix_unfused_paged", engine(**paged, prefix_cache=True),
+                  fused_admission=False)
+    beam = run("prefix_beam_paged", engine(**paged, prefix_cache=True),
+               beam=BEAM)
+    int4 = run("prefix_int4_paged", engine("int4", **paged,
+                                           prefix_cache=True))
+    for name in ("prefix_warm_paged", "prefix_contiguous",
+                 "prefix_unfused_paged", "prefix_beam_paged",
+                 "prefix_int4_paged"):
+        if results[name].prefix_hits < PREFIX_SOURCES:
+            raise AssertionError(f"serve {name}: "
+                                 f"{results[name].prefix_hits} hits")
+    if counts["prefix_contiguous"]["decode_attention"] <= 0 or \
+            counts["prefix_int4_paged"]["int4_matmul"] <= 0:
+        raise AssertionError("K4 or K6 never launched under the cache")
+
+    # request i + 12 repeats request i: the first 12 of a 48- or 24-request
+    # serve of phase 5, 5b or 6 are the same requests
+    def vs_first(res, tokens):
+        return sum(list(r.tokens) == list(tokens[i % PREFIX_SOURCES])
+                   for i, r in enumerate(res.requests))
+
+    log(f"prefix agreement (of {2 * PREFIX_SOURCES} requests): warm == "
+        f"cold {equal_count(warm, cold)}, re-serve == warm "
+        f"{equal_count(again, warm)}, cold == cold again "
+        f"{equal_count(cold2, cold)}, contiguous == cold paged "
+        f"{equal_count(contiguous, cold)}, unfused == cold "
+        f"{equal_count(unfused, cold)}, beam-4 warm == phase 5b's paged "
+        f"{vs_first(beam, [r.tokens for r in beam_paged.requests])}, "
+        f"INT4 warm == phase 6's INT4 paged "
+        f"{vs_first(int4, [r.tokens for r in int4_paged.requests])}")
+    log(f"prefix tokens/s: cold {cold.tokens_per_s:.1f}, warm "
+        f"{warm.tokens_per_s:.1f}, re-serve {again.tokens_per_s:.1f}, cold "
+        f"again {cold2.tokens_per_s:.1f}; hit "
+        f"rate warm {warm.metrics()['prefix_hit_rate']:.3f}, re-serve "
+        f"{again.metrics()['prefix_hit_rate']:.3f}")
+
+    # overload: half the unloaded high-water mark, overcommit and chaos
+    chaos = lambda: make_chaos(5, n_rounds=256, preempt_every=2)
+    for name, base, reqs, want, kw in (
+            ("overload_paged", cold, corpus, budgets, {}),
+            ("overload_beam_paged", beam_paged, beam_corpus, beam_budgets,
+             dict(beam=BEAM))):
+        n_pages = max(base.page_hwm // 2, 1)
+        res = run(name, engine(**paged, n_pages=n_pages), reqs, want,
+                  overcommit=OVERCOMMIT, chaos=chaos(), **kw)
+        if res.preemptions <= 0:
+            raise AssertionError(f"serve {name}: no preemption")
+        log(f"{name}: pool {n_pages} pages (unloaded page_hwm "
+            f"{base.page_hwm}), equal to the unloaded serve "
+            f"{equal_count(res, base)} of {len(reqs)}, "
+            f"preemptions={res.preemptions} "
+            f"spilled_bytes={res.spilled_bytes} "
+            f"peak_running={res.peak_running} (unloaded "
+            f"{base.peak_running}) tokens_per_s={res.tokens_per_s:.1f} "
+            f"(unloaded {base.tokens_per_s:.1f}) "
+            f"straggler_rounds={res.straggler_rounds}")
+    return counts
+
+
+def spill_resume_ms(model, qparams, qctx) -> None:
+    """One spill and one resume of a greedy row and of a beam-4 group of a
+    full paged decode state (16 rows, every row 48 positions in, cross K/V
+    of the 64-token bucket): device ms from the profiler, host ms around
+    the call ending in a synchronise, and the bytes moved (the spill's
+    host payload, which the resume uploads again)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import kv_cache as kvc
+    from repro_torch.serving import ServingEngine, SpilledRequest
+    R, maxP = SERVE_SLOTS, MAX_LEN // PAGE
+    eng = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN,
+                        paged=True, page_size=PAGE)
+    state = model.init_decode_state(R, MAX_LEN, quantized=True, enc_len=64,
+                                    paged=True, page_size=PAGE)
+    state["cache"] = kvc.with_lengths(
+        kvc.assign_pages(state["cache"], np.arange(R), np.arange(
+            R * maxP, dtype=np.int32).reshape(R, maxP)),
+        torch.full((R,), 48, dtype=torch.int32, device="cuda"))
+    tokens = torch.ones((R,), dtype=torch.int32, device="cuda")
+    for rows in (np.arange(1, dtype=np.int32),
+                 np.arange(BEAM, dtype=np.int32)):
+        # the resume scatters into other pages than the rows' own
+        pages = np.arange(len(rows) * maxP, dtype=np.int32).reshape(
+            len(rows), maxP)[::-1].copy()
+        sp = SpilledRequest(0, len(rows), *eng._spill(state, tokens, rows),
+                            n_pages=0)
+        for what, fn in (
+                ("spill", lambda: eng._spill(state, tokens, rows)),
+                ("resume", lambda: eng._resume(state, tokens, rows, pages,
+                                               sp))):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            _, prof_rows, _ = profile(f"{what} of {len(rows)} rows",
+                                      lambda: fn() and 0, cpu=False)
+            log(f"{what} of {len(rows)} rows: host {host_ms:.3f} ms, "
+                f"device {sum(r[0] for r in prof_rows):.4f} ms in "
+                f"{sum(r[2] for r in prof_rows)} kernels and copies, "
+                f"{sp.n_bytes} bytes of host payload")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: INT4 weights through generate and serve
 # ---------------------------------------------------------------------------
 
 def run_int4(model, params, recs, batch, int8_greedy):
     """The INT4-weight path with the launch counts read from zero; the plain
     INT4 matmul must not run.  Returns (launch counts, quantized params and
-    context)."""
+    context, the greedy paged serve's result)."""
     import numpy as np
     import torch
     from repro_torch.core import QuantPolicy, count_quantized, quantize_model
@@ -1404,7 +1655,7 @@ def run_int4(model, params, recs, batch, int8_greedy):
             if len(t) > b or (len(t) and not (
                     0 <= t.min() and t.max() < model.cfg.vocab)):
                 raise AssertionError(f"{label}: bad output {t}")
-    return counts, qparams, qctx
+    return counts, qparams, qctx, served
 
 
 def profile_int4(model, qparams, qctx, batch) -> None:
@@ -1618,18 +1869,30 @@ DRIVER_RUNS = (
 
 
 def run_driver() -> None:
+    """Every run of ``DRIVER_RUNS`` at once, one subprocess each (their
+    tokens/s share the card and the host, so they are not kept); every
+    process is waited for, or killed on the way out."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for argv in DRIVER_RUNS:
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *argv]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                              text=True, timeout=600)
-        log(f"driver {' '.join(argv[:4])} exit {proc.returncode} in "
-            f"{time.perf_counter() - t0:.1f} s")
-        for line in proc.stdout.strip().splitlines():
-            log(f"  | {line}")
-        if proc.returncode:
-            raise AssertionError(f"{' '.join(cmd)} failed:\n{proc.stderr}")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *argv], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for argv in DRIVER_RUNS]
+    try:
+        for argv, proc in zip(DRIVER_RUNS, procs):
+            out, err = proc.communicate(timeout=600)
+            log(f"driver {' '.join(argv[:4])} exit {proc.returncode} at "
+                f"{time.perf_counter() - t0:.1f} s")
+            for line in out.strip().splitlines():
+                log(f"  | {line}")
+            if proc.returncode:
+                raise AssertionError(f"{' '.join(proc.args)} failed:\n"
+                                     f"{err}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def main() -> int:
@@ -1693,8 +1956,8 @@ def main() -> int:
 
     # 5b. continuous beam serving, contiguous and paged
     phase("continuous beam serving")
-    beam_counts, _, beam_toks = run_beam_serving(model, params, qparams,
-                                                 qctx)
+    beam_counts, beam_results, beam_toks = run_beam_serving(
+        model, params, qparams, qctx)
     phase("beam serve vs per-request generate_beam")
     beam_serve_vs_generate_beam(model, qparams, qctx, beam_toks)
     phase("profiled beam serves")
@@ -1702,10 +1965,19 @@ def main() -> int:
 
     # 6. INT4 weights
     phase("INT4 weights")
-    int4_counts, q4params, q4ctx = run_int4(model, params, recs, batch,
-                                            runs["greedy_static"])
+    int4_counts, q4params, q4ctx, int4_paged = run_int4(
+        model, params, recs, batch, runs["greedy_static"])
     check_against_plain(model, q4params, q4ctx, batch)
     profile_int4(model, q4params, q4ctx, batch)
+
+    # 5c. the prefix cache and overload (after phase 6: its INT4 serve
+    # reuses phase 6's weights and is held to its paged serve)
+    phase("prefix cache and overload")
+    prefix_counts = run_prefix_and_overload(
+        model, qparams, qctx, q4params, q4ctx, beam_results["beam_paged"],
+        int4_paged)
+    phase("spill and resume")
+    spill_resume_ms(model, qparams, qctx)
     del model, params, qparams, q4params
 
     # 7. the decoder-only MoE family
@@ -1753,11 +2025,13 @@ def main() -> int:
         "decode_attention_paged": "src/repro_torch/csrc/decode_attention.cu"}
     # each kernel's launches over every path driven with the counts read
     # from zero: generate, the four serves, the six beam serves, the INT4
-    # phase, the MoE phase
+    # phase, the prefix-cache and overload serves, the MoE phase
     path_counts = {"generate": counts,
                    **{f"serve {k}": v for k, v in serve_counts.items()},
                    **{f"serve {k}": v for k, v in beam_counts.items()},
-                   "INT4": int4_counts, "MoE": moe_counts}
+                   "INT4": int4_counts,
+                   **{f"serve {k}": v for k, v in prefix_counts.items()},
+                   "MoE": moe_counts}
     paths = {}
     for name in replaces:
         per = {k: c[name] for k, c in path_counts.items() if c[name]}

@@ -21,7 +21,11 @@ runs them as separate prefills.  ``--burst-len auto`` lets the adaptive
 controller move the burst cap between bursts.
 ``--weight-bits 4`` drops the decoder FFN and attention output projections
 to block-wise INT4 weights (``--weight-group-size`` rows per scale/min
-block).
+block).  ``--prefix-cache`` shares encoded sources across requests (a
+chain pool of ``--prefix-pages`` pages); ``--overcommit`` admits past the
+worst-case page reservation, and ``--chaos-seed`` injects seeded forced
+preemptions (both ``--paged``), reported on the "prefix cache:" and
+"overload:" lines.
 
 The model runs on ``--device`` (``cuda`` unless the caller asks for the
 CPU), with random weights from ``torch.Generator`` seed 0.  Flags of
@@ -56,6 +60,7 @@ from repro_torch.serving import (
     Request,
     ServingEngine,
     TokenSortedScheduler,
+    make_chaos,
 )
 
 MAX_LEN = 96            # the reference driver's engine KV capacity
@@ -117,14 +122,27 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--weight-group-size", type=int, default=128,
                     help="rows per INT4 scale/min block along d_in "
                          "(--weight-bits 4)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share encoded cross-K/V across requests with "
+                         "identical sources: a hit splices a cached page "
+                         "chain instead of re-running the encoder (--mode "
+                         "continuous; the tokens are the same)")
+    ap.add_argument("--prefix-pages", type=int, default=256,
+                    help="prefix-cache chain-pool size in pages "
+                         "(--prefix-cache; LRU-evicted under pressure)")
+    ap.add_argument("--overcommit", type=float, default=1.0,
+                    help="KV page reservation cap as a multiple of the "
+                         "physical pool (--paged; > 1 admits past the "
+                         "worst-case reservation, and preempt-by-page-spill "
+                         "covers the shortfall when budgets collide)")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="inject a seeded forced-preemption schedule at "
+                         "burst edges (--paged); the tokens are those of "
+                         "an uninterrupted serve")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the model and the engine")
     # flags of features that are not ported yet (they exit with a message)
-    ap.add_argument("--prefix-cache", action="store_true")
-    ap.add_argument("--prefix-pages", type=int, default=None)
-    ap.add_argument("--overcommit", type=float, default=1.0)
     ap.add_argument("--prefill-chunk", type=int, default=None)
-    ap.add_argument("--chaos-seed", type=int, default=None)
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--replicas", type=int, default=1)
     return ap
@@ -134,15 +152,8 @@ def _refuse_unported(args) -> None:
     """Exit with the ROADMAP item, by title, of the first unported feature
     asked for."""
     unported = [
-        (args.prefix_cache or args.prefix_pages is not None,
-         "--prefix-cache: the prefix cache",
-         "the prefix cache and chain pages"),
-        (args.overcommit != 1.0, "--overcommit: preempt-by-page-spill",
-         "overload handling"),
         (args.prefill_chunk is not None, "--prefill-chunk: chunked prefill",
-         "overload handling"),
-        (args.chaos_seed is not None, "--chaos-seed: the chaos harness",
-         "overload handling"),
+         "chunked prefill"),
         (args.mesh is not None, "--mesh: tensor-parallel serving",
          "multi-GPU and the cost accounting"),
         (args.replicas > 1, "--replicas: the replica router",
@@ -186,6 +197,8 @@ def _serve_continuous(args, model, params, qctx, requests) -> None:
     engine = ServingEngine(model, params, quant=qctx, max_len=MAX_LEN,
                            burst_len=args.burst_len, paged=args.paged,
                            page_size=args.page_size, n_pages=args.n_pages,
+                           prefix_cache=args.prefix_cache,
+                           prefix_pages=args.prefix_pages,
                            device=args.device)
     bins = pack_batches_token_budget(requests, args.token_budget)
     order = [i for b in bins for i in b]         # FFD admission order
@@ -196,10 +209,13 @@ def _serve_continuous(args, model, params, qctx, requests) -> None:
                         deadline_s=args.deadline_ms / 1e3)
                 for k, s in enumerate(reqs)]
     beam = args.beam if args.beam > 1 else None
+    chaos = (make_chaos(args.chaos_seed, n_rounds=256, preempt_every=2)
+             if args.chaos_seed is not None else None)
     t0 = time.perf_counter()
     res = engine.serve(reqs, n_slots=args.slots,
                        max_new_tokens=args.max_new_tokens, beam=beam,
-                       fused_admission=not args.unfused_admission)
+                       fused_admission=not args.unfused_admission,
+                       overcommit=args.overcommit, chaos=chaos)
     dt = time.perf_counter() - t0
     met = res.metrics()
     print(f"served {args.requests} requests in {dt:.2f}s "
@@ -229,9 +245,25 @@ def _serve_continuous(args, model, params, qctx, requests) -> None:
               f"beam-reorder bytes {res.reorder_bytes}")
     elif beam:
         print(f"beam-reorder bytes {res.reorder_bytes}")
-    if args.deadline_ms is not None:
-        print(f"deadlines: {res.rejected} shed, "
-              f"{res.deadline_misses} deadline misses")
+    if res.prefix_cache:
+        print(f"prefix cache: {res.prefix_hits} hits / "
+              f"{res.prefix_hits + res.prefix_misses} admissions "
+              f"(hit rate {met['prefix_hit_rate']:.2f}), "
+              f"{res.prefix_hit_pages} chain pages reused, "
+              f"{res.prefix_pages_allocated} allocated, "
+              f"{res.prefix_evictions} evicted, "
+              f"{res.prefix_chains} chains resident")
+    if (res.preemptions or res.rejected or res.overcommit != 1.0
+            or chaos is not None or args.deadline_ms is not None):
+        print(f"overload: overcommit={res.overcommit} "
+              f"peak_running={res.peak_running}, "
+              f"{res.preemptions} preemptions "
+              f"({res.spill_events} spills / {res.restore_events} "
+              f"restores, {res.spilled_bytes / 1024:.1f} KiB to host), "
+              f"free_lwm={res.free_lwm}")
+        print(f"         {res.rejected} shed, "
+              f"{res.deadline_misses} deadline misses, "
+              f"{res.straggler_rounds} straggler rounds")
     print(f"latency: first-token mean "
           f"{met['first_token_latency_mean_s']:.3f}s "
           f"p95 {met['first_token_latency_p95_s']:.3f}s; total mean "

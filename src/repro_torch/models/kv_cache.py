@@ -1,9 +1,9 @@
 """KV cache with an optional INT8 payload (paper §5.3): port of
 ``repro/models/kv_cache.py`` — the contiguous cache, the paged cache with
 its host-side ``PageAllocator``, the slot and group operations continuous
-greedy and beam serving need, and the paged cache's zero-copy beam reorder
-(``gather_beams_paged``).  The prefix chains are not ported yet (ROADMAP
-Queue 1: the prefix cache and chain pages).
+greedy and beam serving need, the paged cache's zero-copy beam reorder
+(``gather_beams_paged``), and the prefix cache's chain pages
+(``insert_chain_pages``, ``gather_chain_pages``).
 
 Keeping the cache int8 (per-token per-head symmetric scales, computed when
 the token is appended) cuts the bytes every decode step reads, and that a
@@ -156,6 +156,30 @@ def append_tokens(
         else:
             _put(k_cache, k_new[:, t], pos)
             _put(v_cache, v_new[:, t], pos)
+    return k_cache, v_cache, ks_cache, vs_cache
+
+
+def fill_prefix(
+    k_cache: torch.Tensor,               # (B, S_max, HKV, dh)
+    v_cache: torch.Tensor,
+    ks_cache: Optional[torch.Tensor],
+    vs_cache: Optional[torch.Tensor],
+    k_new: torch.Tensor,                 # (B, T, HKV, dh) fp, prefill block
+    v_new: torch.Tensor,
+):
+    """Write a prefill's K/V at positions [0, T) of every row, in place
+    (right-padded batches)."""
+    T = k_new.shape[1]
+    if ks_cache is not None:
+        kq, ks = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+        k_cache[:, :T] = kq
+        v_cache[:, :T] = vq
+        ks_cache[:, :T] = ks
+        vs_cache[:, :T] = vs
+    else:
+        k_cache[:, :T] = k_new.to(k_cache.dtype)
+        v_cache[:, :T] = v_new.to(v_cache.dtype)
     return k_cache, v_cache, ks_cache, vs_cache
 
 
@@ -601,6 +625,60 @@ def gather_beams_paged(cache: PagedKVCache,
     return cow_write_slot(dataclasses.replace(
         cache, block_tables=cache.block_tables.index_select(0, idx),
         lengths=cache.lengths.index_select(0, idx)))
+
+
+# ---------------------------------------------------------------------------
+# prefix-chain pools: page-granular storage for cached cross-attention K/V
+# ---------------------------------------------------------------------------
+#
+# The prefix cache (serving/prefix_cache.py) keeps each cached source's
+# encoded cross-attention K/V as a chain of pages in a pool of its own,
+# (L, n_pages, page_size, HKV, dh), in the activation dtype: never
+# quantized, so a cached read is bit-identical to a fresh encode.  These
+# two functions are the only device operations it needs (torch indexing,
+# as the reference's ``.at[].set`` and ``jnp.take``).  The page matrices
+# come from the host scheduler, so sentinel entries are dropped on the host
+# before the upload and the pool needs no sink page.
+
+def insert_chain_pages(pool: torch.Tensor, part: torch.Tensor,
+                       pages) -> torch.Tensor:
+    """Scatter per-row payload into reserved page chains, in place.
+
+    ``pool``: (L, P, ps, …); ``part``: (L, B, S, …); ``pages``: host
+    (B, nP) int32 with ``nP = ceil(S / ps)``.  Sentinel entries (≥ P) drop
+    their chunk, so padding rows write nowhere.
+    """
+    L, B, S = part.shape[0], part.shape[1], part.shape[2]
+    P, ps = pool.shape[1], pool.shape[2]
+    pages = np.asarray(pages, np.int64).reshape(B, -1)
+    nP = pages.shape[1]
+    pad = nP * ps - S
+    if pad:
+        part = torch.cat([part, part.new_zeros(
+            (L, B, pad) + tuple(part.shape[3:]))], dim=2)
+    chunks = part.reshape((L, B * nP, ps) + tuple(part.shape[3:]))
+    keep, ids = in_range_rows(pages.reshape(-1), P)
+    dev = pool.device
+    pool[:, torch.as_tensor(ids, device=dev)] = chunks[
+        :, torch.as_tensor(keep, device=dev)].to(pool.dtype)
+    return pool
+
+
+def gather_chain_pages(pool: torch.Tensor, pages,
+                       seq_len: int) -> torch.Tensor:
+    """Read page chains back as contiguous rows.
+
+    ``pages``: host (B, nP) int32 → (L, B, seq_len, …).  Sentinel entries
+    clamp into the pool and read garbage past each chain's valid span;
+    callers mask by source length, as they mask a fresh encode's padding.
+    """
+    P = pool.shape[1]
+    pages = np.clip(np.asarray(pages, np.int64), 0, P - 1)
+    B, nP = pages.shape
+    got = pool[:, torch.as_tensor(pages, device=pool.device)]
+    got = got.reshape((pool.shape[0], B, nP * pool.shape[2])
+                      + tuple(pool.shape[3:]))
+    return got[:, :, :seq_len]
 
 
 class PageAllocator:

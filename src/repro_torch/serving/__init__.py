@@ -1,14 +1,25 @@
 """Serving (port of ``repro/serving``): static translation, continuous
-greedy and beam serving with the adaptive burst, the schedulers and the
-parallel streams.  Not ported yet: the prefix cache, the overload machinery
-(preemption, chunked prefill, chaos), speculation and the replica router
-(ROADMAP Queue 1)."""
+greedy and beam serving with the adaptive burst, the prefix cache, the
+overload machinery (overcommit, preempt-by-page-spill, the chaos harness),
+the schedulers and the parallel streams.  Not ported yet: chunked prefill,
+speculation and the replica router (ROADMAP Queue 1)."""
 
 from repro_torch.serving.burst_control import AdaptiveBurst  # noqa: F401
+from repro_torch.serving.chaos import ChaosSchedule, make_chaos  # noqa: F401
 from repro_torch.serving.engine import (  # noqa: F401
     GenerationResult,
     ServeResult,
     ServingEngine,
+)
+from repro_torch.serving.preemption import (  # noqa: F401
+    SpilledRequest,
+    SpillStore,
+    pick_victims,
+)
+from repro_torch.serving.prefix_cache import (  # noqa: F401
+    CachedChain,
+    PrefixCache,
+    PrefixCacheStats,
 )
 from repro_torch.serving.scheduler import (  # noqa: F401
     AdmissionPlan,

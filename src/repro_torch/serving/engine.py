@@ -37,9 +37,19 @@ a separate prefill on a power-of-two side batch and splices its rows in.
 beam step with per-group budget and finished masks; a narrower request
 (``beam`` as a per-request sequence) parks its group's tail rows.  On the
 paged cache admission is paced by a page budget (``PageAllocator``) and
-INT8 decode reads the pages in place through K5.  Not ported yet
-(``NotImplementedError`` naming the ROADMAP item by title): the prefix
-cache, overcommit, chunked prefill, chaos, speculation and meshes.
+INT8 decode reads the pages in place through K5.
+
+``serve(prefix_cache=True)`` shares encoded sources across requests and
+serves: a hit splices a cached cross-K/V chain from a page pool
+(``prefix_cache.PrefixCache``) instead of running the encoder.
+``overcommit > 1`` admits past the worst-case page reservation, grows rows
+page by page between bursts and, when the pool runs dry, preempts a victim
+by page spill: its pages, cursors, tokens and cross K/V go to the host in
+one transfer and come back later through the same paged splice admission
+uses.  ``chaos`` forces preemptions and slow rounds at round edges.  The
+tokens stay those of a cold, unloaded serve.  Not ported yet
+(``NotImplementedError`` naming the ROADMAP item by title): chunked
+prefill, speculation and meshes.
 """
 
 from __future__ import annotations
@@ -54,9 +64,17 @@ import torch
 from repro_torch.core.ptq import FP_CONTEXT, QuantContext
 from repro_torch.data.sorting import next_pow2
 from repro_torch.data.synthetic import EOS, pad_batch
+from repro_torch.distributed.fault import StepWatchdog
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models.layers import top_k
 from repro_torch.serving.burst_control import AdaptiveBurst
+from repro_torch.serving.chaos import ChaosSchedule
+from repro_torch.serving.preemption import (
+    SpilledRequest,
+    SpillStore,
+    pick_victims,
+)
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import (
     ContinuousScheduler,
     Request,
@@ -64,8 +82,7 @@ from repro_torch.serving.scheduler import (
 )
 
 # ROADMAP items, by title, of the parts of ``serve`` not ported yet
-_PREFIX = "ROADMAP Queue 1: the prefix cache and chain pages"
-_OVERLOAD = "ROADMAP Queue 1: overload handling"
+_CHUNKED = "ROADMAP Queue 1: chunked prefill"
 _SPECULATION = "ROADMAP Queue 1: speculative decoding"
 _MESH = "ROADMAP Queue 1: multi-GPU and the cost accounting"
 
@@ -132,9 +149,27 @@ class ServeResult:
     pages_in_use: int = 0             # allocator pages still held at the end
     page_hwm: int = 0                 # peak concurrent pages over the serve
     reorder_bytes: int = 0            # bytes the beam reorders moved
+    # the prefix cache (per-serve deltas; the cache persists on the engine)
+    prefix_cache: bool = False
+    prefix_hits: int = 0              # admissions that skipped the encoder
+    prefix_misses: int = 0
+    prefix_inserts: int = 0           # misses that cached their encode
+    prefix_evictions: int = 0
+    prefix_hit_pages: int = 0         # chain pages hits read instead of wrote
+    prefix_pages_allocated: int = 0   # chain pages reserved by this serve
+    prefix_chains: int = 0            # chains resident at serve end
+    # overload machinery (all zero on a serve that never hit pressure)
+    overcommit: float = 1.0           # reserve cap ÷ physical pool size
+    preemptions: int = 0              # evictions (chaos-forced + pressure)
+    spill_events: int = 0             # KV page sets copied to the host
+    restore_events: int = 0           # spills spliced back on re-admission
+    spilled_bytes: int = 0            # cumulative host bytes spilled
+    straggler_rounds: int = 0         # watchdog-flagged burst rounds
     peak_running: int = 0             # max concurrent running requests
     rejected: int = 0                 # requests shed (deadline unmeetable)
     deadline_misses: int = 0          # shed + finished past their deadline
+    free_lwm: int = 0                 # page free-list low-water mark
+    fragmentation: float = 0.0        # final free-list scatter in [0, 1]
 
     @property
     def n_groups(self) -> int:
@@ -190,9 +225,27 @@ class ServeResult:
             "pages_in_use": float(self.pages_in_use),
             "page_hwm": float(self.page_hwm),
             "reorder_bytes": float(self.reorder_bytes),
+            "prefix_cache": float(self.prefix_cache),
+            "prefix_hits": float(self.prefix_hits),
+            "prefix_misses": float(self.prefix_misses),
+            "prefix_inserts": float(self.prefix_inserts),
+            "prefix_evictions": float(self.prefix_evictions),
+            "prefix_hit_pages": float(self.prefix_hit_pages),
+            "prefix_pages_allocated": float(self.prefix_pages_allocated),
+            "prefix_chains": float(self.prefix_chains),
+            "prefix_hit_rate": (self.prefix_hits /
+                                max(self.prefix_hits + self.prefix_misses, 1)),
+            "overcommit": float(self.overcommit),
+            "preemptions": float(self.preemptions),
+            "spill_events": float(self.spill_events),
+            "restore_events": float(self.restore_events),
+            "spilled_bytes": float(self.spilled_bytes),
+            "straggler_rounds": float(self.straggler_rounds),
             "peak_running": float(self.peak_running),
             "rejected": float(self.rejected),
             "deadline_misses": float(self.deadline_misses),
+            "free_lwm": float(self.free_lwm),
+            "fragmentation": float(self.fragmentation),
             "first_token_latency_mean_s":
                 float(np.mean(first)) if first else 0.0,
             "first_token_latency_p95_s": pct(first, 95),
@@ -206,12 +259,18 @@ class ServingEngine:
                  max_len: int = 256, eos_id: int = EOS,
                  burst_len: Union[int, str] = 8, paged: bool = False,
                  page_size: int = 16, n_pages: Optional[int] = None,
+                 prefix_cache: bool = False, prefix_pages: int = 256,
+                 prefix_page_size: Optional[int] = None,
                  mesh=None, device: str = "cuda"):
         """``paged``/``page_size``/``n_pages`` choose ``serve``'s KV cache
         (``generate`` always uses the contiguous one); ``max_len`` must
         then be a page multiple, so the paged logical view has exactly the
         contiguous shape.  ``burst_len="auto"`` adapts ``serve``'s burst
-        cap (:class:`AdaptiveBurst`)."""
+        cap (:class:`AdaptiveBurst`).  ``prefix_cache`` is ``serve``'s
+        default for its own ``prefix_cache`` argument; the cache's chain
+        pool holds ``prefix_pages`` pages of ``prefix_page_size`` tokens
+        (default ``page_size``), built at first use and kept across
+        serves."""
         self.device = torch.device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
@@ -233,6 +292,11 @@ class ServingEngine:
             raise ValueError(f"paged cache needs max_len % page_size == 0, "
                              f"got {max_len} % {self.page_size}")
         self._enc_bucket_hwm = 0
+        self.prefix_cache_default = bool(prefix_cache)
+        self.prefix_pages = int(prefix_pages)
+        self.prefix_page_size = int(prefix_page_size or page_size)
+        self._prefix_cache_obj: Optional[PrefixCache] = None
+        self._prefix_pool: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     # ------------------------------------------------------------------ util
     @staticmethod
@@ -615,11 +679,26 @@ class ServingEngine:
     def _max_pages(self) -> int:
         return self.max_len // self.page_size
 
-    def _make_allocator(self, n_rows: int) -> kvc.PageAllocator:
+    def _make_allocator(self, n_rows: int,
+                        overcommit: float = 1.0) -> kvc.PageAllocator:
         """Page pool for one serve: ``n_pages`` from the constructor, or
-        contiguous-equivalent capacity when unset."""
+        contiguous-equivalent capacity when unset.  ``overcommit`` scales
+        the *virtual* reservation cap past the physical pool (preemption
+        by page spill covers the gap)."""
         n_pages = self.n_pages or n_rows * self._max_pages
-        return kvc.PageAllocator(n_pages, self.page_size)
+        return kvc.PageAllocator(n_pages, self.page_size,
+                                 overcommit_limit=overcommit)
+
+    def _initial_pages(self, req: Request, rows: int, hint: int) -> int:
+        """Pages allocated at (re-)admission under overcommit: enough for
+        what the request already decoded (its spill cursor when resuming)
+        plus one burst of ``hint`` steps; growth covers the rest."""
+        have = 0
+        if req.spill is not None:
+            have = int(np.max(req.spill.lengths))
+        cap_tok = min(req.max_new_tokens, self.max_len)
+        return rows * kvc.pages_per_row(min(have + hint, cap_tok),
+                                        self.page_size)
 
     def _pages_per_request(self, req: Request, rows: int) -> int:
         """Worst-case reservation: the request's full decode budget, for
@@ -725,34 +804,300 @@ class ServingEngine:
                                               np.asarray(rows, np.int32))
         return state
 
-    def _admission_prologue(self, state, tokens, live, adm_src, adm_lens,
-                            adm_rows, pages, group: int = 1):
+    # ------------------------------------------------------------ prefix cache
+    def _ensure_prefix_cache(self) -> PrefixCache:
+        """The engine-lifetime prefix cache and its chain pool on the
+        device: two (L, prefix_pages, ps, HKV, dh) tensors in the
+        *activation* dtype, not the decode cache's (possibly int8) one.  A
+        chain must read back bit-identical to a fresh ``encode_cross_kv``,
+        and an INT8 round trip would break the token identity.  Pool
+        writes go in place, so the pool lives here across serves."""
+        if self._prefix_cache_obj is None:
+            self._prefix_cache_obj = PrefixCache(
+                kvc.PageAllocator(self.prefix_pages, self.prefix_page_size))
+            cfg = self.model.cfg
+            shape = (cfg.n_layers, self.prefix_pages, self.prefix_page_size,
+                     cfg.n_kv_heads, cfg.hd)
+            self._prefix_pool = tuple(
+                torch.zeros(shape, dtype=cfg.activation_dtype,
+                            device=self.device) for _ in range(2))
+        return self._prefix_cache_obj
+
+    def _resolve_prefix_cache(self, prefix_cache: Optional[bool]
+                              ) -> Optional[PrefixCache]:
+        use = (self.prefix_cache_default if prefix_cache is None
+               else bool(prefix_cache))
+        return self._ensure_prefix_cache() if use else None
+
+    @staticmethod
+    def _prefix_result_fields(pc: Optional[PrefixCache],
+                              stats0) -> Dict[str, Any]:
+        """ServeResult fields: per-serve deltas of the persistent stats."""
+        if pc is None:
+            return {}
+        s = pc.stats
+        return dict(prefix_cache=True,
+                    prefix_hits=s.hits - stats0.hits,
+                    prefix_misses=s.misses - stats0.misses,
+                    prefix_inserts=s.inserts - stats0.inserts,
+                    prefix_evictions=s.evictions - stats0.evictions,
+                    prefix_hit_pages=s.hit_pages - stats0.hit_pages,
+                    prefix_pages_allocated=(s.pages_allocated
+                                            - stats0.pages_allocated),
+                    prefix_chains=pc.n_chains)
+
+    @staticmethod
+    def _overload_result_fields(overcommit, preempt_count, store, watchdog,
+                                sched, reqs, allocator,
+                                peak_running) -> Dict[str, Any]:
+        """ServeResult fields of the overload machinery."""
+        misses = len(sched.rejected) + sum(
+            1 for r in reqs
+            if (r.status == "finished" and r.deadline_s is not None
+                and r.finish_s is not None and r.finish_s > r.deadline_s))
+        return dict(
+            overcommit=overcommit,
+            preemptions=preempt_count,
+            spill_events=store.spill_events,
+            restore_events=store.restore_events,
+            spilled_bytes=store.spilled_bytes,
+            straggler_rounds=len(watchdog.straggler_steps),
+            peak_running=peak_running,
+            rejected=len(sched.rejected),
+            deadline_misses=misses,
+            free_lwm=allocator.free_lwm if allocator else 0,
+            fragmentation=allocator.fragmentation if allocator else 0.0)
+
+    def _pool_insert(self, cross_k, cross_v, pages) -> None:
+        """Scatter encoded cross K/V into reserved chain pages (host
+        ``pages`` (W, maxPP), sentinel rows drop)."""
+        pool_k, pool_v = self._prefix_pool
+        kvc.insert_chain_pages(pool_k, cross_k, pages)
+        kvc.insert_chain_pages(pool_v, cross_v, pages)
+
+    def _seed_bos(self, tokens, base_rows, group: int):
+        """BOS (id 0) into the ``group`` rows of each in-range base row:
+        the next burst's first step is those rows' prefill step."""
+        _, rows = self._in_range_rows(kvc.group_rows(base_rows, group),
+                                      tokens.shape[0])
+        return tokens.index_put((rows,), torch.zeros_like(tokens[rows]))
+
+    def _hit_splice(self, state, tokens, hit_pages, hit_lens, hit_rows,
+                    group: int, dec_pages):
+        """Splice cached chains into the hit rows, with no encoder: gather
+        them from the pool (host ``hit_pages`` (W, maxPP)) and splice like
+        a fresh encode (paged: ``dec_pages`` reservations), then seed BOS,
+        so the rows' first token comes from the next burst, as in fused
+        admission."""
+        enc_len = state["cross_k"].shape[2]
+        pool_k, pool_v = self._prefix_pool
+        hk = kvc.gather_chain_pages(pool_k, hit_pages, enc_len)
+        hv = kvc.gather_chain_pages(pool_v, hit_pages, enc_len)
+        state = self.model.splice_prefill(
+            state, hk, hv, torch.as_tensor(hit_lens, device=self.device),
+            hit_rows, group=group, pages=dec_pages)
+        return state, self._seed_bos(tokens, hit_rows, group)
+
+    def _admission_prologue(self, state, tokens, live, plan, *,
+                            pages=None, hit_pages=None, insert: bool = False,
+                            group: int = 1):
         """Fused admission, run just before the round's burst:
 
         1. reset dead rows (cursor only on the contiguous cache; cursor and
            sentinel tables on the paged one, as their pages may be handed
            to the rows this splice admits);
-        2. encode the admitted sources, once per request, splice their
-           cross K/V into their rows (each source into the ``group`` rows
-           from its base row; paged: install the rows' page reservations
-           ``pages``) and seed BOS, so the burst's first step is their BOS
-           step.
+        2. encode the plan's sources (the misses), once per request; with
+           ``insert``, scatter the fresh cross K/V into the reserved chains
+           (``plan.ins_pages``); splice them into their rows (each source
+           into the ``group`` rows from its base row; paged: the rows'
+           reservations ``pages``) and seed BOS, so the burst's first step
+           is their BOS step;
+        3. splice the prefix hits (``plan.hit_*``) from the pool, with no
+           encoder (paged: reservations ``hit_pages``).  The scatter of (2)
+           comes first, so a source admitted twice in one round reads the
+           pages its sibling wrote moments before.
 
-        ``adm_rows`` entries ≥ the row count are padding and are dropped.
+        Base rows ≥ the row count are padding and are dropped.
         """
         state = dict(state)
         free = kvc.free_inactive_paged if self.paged else kvc.free_inactive
         state["cache"] = free(state["cache"], live)
-        ck, cv, slens = self.model.encode_cross_kv(
-            self.params, self._device_batch({"src_tokens": adm_src,
-                                             "src_lengths": adm_lens}),
-            quant=self.quant)
-        state = self.model.splice_prefill(state, ck, cv, slens, adm_rows,
-                                          group=group, pages=pages)
-        _, rows = self._in_range_rows(kvc.group_rows(adm_rows, group),
-                                      tokens.shape[0])
-        tokens = tokens.index_put((rows,), torch.zeros_like(tokens[rows]))
+        if plan.width:
+            ck, cv, slens = self.model.encode_cross_kv(
+                self.params, self._device_batch(
+                    {"src_tokens": plan.src_tokens,
+                     "src_lengths": plan.src_lengths}), quant=self.quant)
+            if insert:
+                self._pool_insert(ck, cv, plan.ins_pages)
+            state = self.model.splice_prefill(state, ck, cv, slens,
+                                              plan.base_rows, group=group,
+                                              pages=pages)
+            tokens = self._seed_bos(tokens, plan.base_rows, group)
+        if plan.hit_width:
+            state, tokens = self._hit_splice(
+                state, tokens, plan.hit_pages, plan.hit_lengths,
+                plan.hit_rows, group, hit_pages)
         return state, tokens
+
+    # ------------------------------------------------- preempt-by-page-spill
+    @staticmethod
+    def _to_host(parts) -> List[Optional[np.ndarray]]:
+        """Copy device tensors (None entries kept) to host numpy arrays in
+        one transfer, bit for bit; bfloat16 comes back as its ``uint16``
+        bit pattern (numpy has no bfloat16)."""
+        live = [p.contiguous().reshape(-1).view(torch.uint8)
+                for p in parts if p is not None]
+        host = torch.cat(live).cpu().numpy()
+        out, i = [], 0
+        for p in parts:
+            if p is None:
+                out.append(None)
+                continue
+            n = p.numel() * p.element_size()
+            dt = (np.uint16 if p.dtype == torch.bfloat16 else
+                  torch.empty((), dtype=p.dtype).numpy().dtype)
+            out.append(host[i:i + n].copy().view(dt).reshape(tuple(p.shape)))
+            i += n
+        return out
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """Inverse of :meth:`_to_host` for one array."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if a.dtype == np.uint16:
+            t = t.view(torch.bfloat16)
+        return t.to(self.device)
+
+    def _spill(self, state, tokens, rows: np.ndarray) -> List:
+        """Gather ``rows`` of the paged decode state to the host in one
+        transfer: each row's pages linearized into its logical
+        ``(L, W, cap, …)`` view (INT8 payload and scales verbatim, no
+        requantization), then cursors, current tokens, cross K/V and
+        source lengths.  Junk past each cursor rides along and is masked on
+        restore like any partially filled row.  The live state is not
+        changed."""
+        cache = state["cache"]
+        P, cap = cache.n_pages, cache.capacity
+        r = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        tb = cache.block_tables[r].long().clamp(0, P - 1)
+
+        def lin(pool):
+            if pool is None:
+                return None
+            got = pool[:, tb]                       # (L, W, maxP, ps, …)
+            return got.reshape((pool.shape[0], len(rows), cap)
+                               + tuple(pool.shape[3:]))
+
+        # the stores hold the sink page past the pool; ``tb`` never reads it
+        return self._to_host([
+            lin(cache.k_store), lin(cache.v_store), lin(cache.ks_store),
+            lin(cache.vs_store), cache.lengths[r], tokens[r],
+            state["cross_k"][:, r], state["cross_v"][:, r],
+            state["src_lengths"][r]])
+
+    def _resume(self, state, tokens, rows: np.ndarray, pages: np.ndarray,
+                sp: SpilledRequest):
+        """Splice a spill back into ``rows``: its logical rows become a
+        contiguous side batch that re-enters through the paged splice
+        admission uses (``kv_cache.insert_rows_paged``, into the fresh
+        reservations ``pages``), with the cross K/V, source lengths and
+        current tokens written alongside, so a resumed request cannot be
+        told from one that was never preempted."""
+        dev = self._to_device
+        opt = lambda a: None if a is None else dev(a)
+        sub = kvc.KVCache(k=dev(sp.k), v=dev(sp.v), k_scale=opt(sp.k_scale),
+                          v_scale=opt(sp.v_scale), lengths=dev(sp.lengths))
+        out = dict(state)
+        out["cache"] = kvc.insert_rows_paged(state["cache"], sub, rows,
+                                             pages)
+        r = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        out["cross_k"][:, r] = dev(sp.cross_k).to(out["cross_k"].dtype)
+        out["cross_v"][:, r] = dev(sp.cross_v).to(out["cross_v"].dtype)
+        out["src_lengths"] = state["src_lengths"].index_put(
+            (r,), dev(sp.src_lengths).to(torch.int32))
+        return out, tokens.index_put((r,), dev(sp.tokens_row).to(
+            tokens.dtype))
+
+    def _grow(self, state, rows: np.ndarray, upd: np.ndarray):
+        """Install freshly allocated page ids into ``rows``' tables.
+        ``upd``: host (len(rows), maxP) int32, -1 = keep.  A new entry goes
+        into both ``block_tables`` and ``own_pages``: a grown slot is owned
+        by construction, the copy-on-write invariant of every paged beam
+        reorder."""
+        cache = state["cache"]
+        r = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        u = torch.as_tensor(np.asarray(upd, np.int32), device=self.device)
+        grow = lambda t: t.index_put((r,), torch.where(u >= 0, u, t[r]))
+        out = dict(state)
+        out["cache"] = dataclasses.replace(
+            cache, block_tables=grow(cache.block_tables),
+            own_pages=grow(cache.own_pages))
+        return out
+
+    @staticmethod
+    def _pages_held(req: Request) -> int:
+        return len(req.pages or [])
+
+    def _alloc_growth(self, allocator, sched, req: Request, n: int,
+                      preempt) -> List[int]:
+        """``n`` pages for ``req``'s growth, preempting (``preempt``) the
+        least urgent other running requests while the pool is dry.  A row
+        that cannot grow cannot take its next step, so a need that no set
+        of victims covers fails before anything is spilled."""
+        pages = allocator.alloc(n)
+        while pages is None:
+            victims, covered = pick_victims(
+                [r for r in sched.slot_map.values() if r is not req],
+                pages_needed=n - allocator.n_free, key_fn=sched.victim_key,
+                pages_held_fn=self._pages_held)
+            if not victims or not covered:
+                raise RuntimeError(
+                    "page growth wedged: no preemptable victim set covers "
+                    f"request {req.req_id}'s need ({n} pages)")
+            for v in victims:
+                preempt(v)
+            pages = allocator.alloc(n)
+        return pages
+
+    def _preempt_for_admission(self, sched, n_tries: int, preempt) -> None:
+        """Free pages for the most urgent waiting request by preempting
+        strictly less urgent running ones, and only when that lets it in
+        (equal urgency never evicts, so requests cannot evict each other in
+        turn)."""
+        for _ in range(n_tries):
+            short = sched.admission_shortfall()
+            if short is None:
+                return
+            victims, covered = pick_victims(
+                list(sched.slot_map.values()),
+                pages_needed=max(short["pages_short"], 1),
+                key_fn=sched.victim_key, pages_held_fn=self._pages_held,
+                min_key=short["head_key"])
+            if not victims or not covered:
+                return
+            for v in victims:
+                preempt(v)
+
+    def _check_overload_args(self, overcommit: float,
+                             prefill_chunk: Optional[int], chaos,
+                             fused_admission: bool) -> None:
+        if overcommit < 1.0:
+            raise ValueError(f"overcommit must be >= 1.0, got {overcommit}")
+        if overcommit > 1.0 and not self.paged:
+            raise ValueError("overcommit needs the paged KV cache "
+                             "(preempt-by-page-spill backs it)")
+        if chaos is not None and not self.paged:
+            raise ValueError("chaos preemption needs the paged KV cache "
+                             "(spill and restore move pages)")
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError(f"prefill_chunk must be >= 1, "
+                                 f"got {prefill_chunk}")
+            if not fused_admission:
+                raise ValueError("prefill_chunk requires fused_admission "
+                                 "(staged encodes ride the fused rounds)")
+            raise NotImplementedError(
+                f"serve(prefill_chunk=...): chunked prefill is not ported "
+                f"yet ({_CHUNKED})")
 
     def serve(self, requests: Sequence[Any], *, n_slots: int = 8,
               max_new_tokens: Union[int, Sequence[int]] = 64,
@@ -766,7 +1111,7 @@ class ServingEngine:
               prefix_cache: Optional[bool] = None,
               overcommit: float = 1.0,
               prefill_chunk: Optional[int] = None,
-              chaos: Any = None,
+              chaos: Optional[ChaosSchedule] = None,
               speculative_k: Optional[int] = None) -> ServeResult:
         """Continuous batching over a request stream.
 
@@ -777,7 +1122,8 @@ class ServingEngine:
         rows are released and refilled, in queue order, from the waiting
         requests.  Greedy decode is token-identical to per-request
         :meth:`generate` for every ``burst_len``, fused or unfused,
-        contiguous or paged (on the CPU; on the card see ROADMAP Queue 3).
+        contiguous or paged (on the CPU; on the card, PERF.md §6 counts
+        the equal requests).
 
         ``beam`` switches to continuous beam search (:meth:`_serve_beam`):
         each request takes a group of ``beam`` rows, and its ``tokens`` are
@@ -797,11 +1143,26 @@ class ServingEngine:
         requests); ``pad_to_multiple`` rounds the admission ``enc_len``
         before its power-of-two bucket.
 
-        ``prefix_cache``, ``overcommit > 1``, ``prefill_chunk``, ``chaos``
-        and ``speculative_k`` raise ``NotImplementedError`` naming their
-        ROADMAP item: they are not ported yet.  So does a model without
-        ``encode_cross_kv`` (the decoder-only family), whose ``serve`` the
-        reference does not have either.
+        ``prefix_cache`` (None: the engine's default) shares encoded
+        sources across requests and serves: an admission whose source
+        exactly matches a cached one skips the encoder and splices the
+        cached cross-K/V chain; a miss caches its encode.  The tokens are
+        those of a cold-cache serve.
+
+        Overload (the paged cache only; the tokens stay those of an
+        unloaded serve): ``overcommit > 1`` admits past the worst-case
+        page reservation (virtual, capped at ``overcommit × n_pages``),
+        allocates one burst's pages at admission and grows rows between
+        bursts; when growth or a more urgent admission comes up short, a
+        victim is preempted by page spill and resumes later.  ``chaos``
+        (``chaos.ChaosSchedule``) forces preemptions and synthetic slow
+        rounds (``StepWatchdog``) at round edges.
+
+        ``prefill_chunk`` and ``speculative_k`` raise
+        ``NotImplementedError`` naming their ROADMAP item: they are not
+        ported yet.  So does a model without ``encode_cross_kv`` (the
+        decoder-only family), whose ``serve`` the reference does not have
+        either.
         """
         if not hasattr(self.model, "encode_cross_kv"):
             raise NotImplementedError(
@@ -812,24 +1173,15 @@ class ServingEngine:
         if beam is not None and speculative_k:
             raise ValueError("speculative decoding is greedy-only; beam and "
                              "speculative_k cannot combine")
-        if prefix_cache:
-            raise NotImplementedError(
-                f"serve(prefix_cache=True): the prefix cache is not ported "
-                f"yet ({_PREFIX})")
-        if overcommit < 1.0:
-            raise ValueError(f"overcommit must be >= 1.0, got {overcommit}")
-        for name, value in (("overcommit", overcommit > 1.0),
-                            ("prefill_chunk", prefill_chunk is not None),
-                            ("chaos", chaos is not None)):
-            if value:
-                raise NotImplementedError(
-                    f"serve({name}=...): overload handling is not ported "
-                    f"yet ({_OVERLOAD})")
+        self._check_overload_args(overcommit, prefill_chunk, chaos,
+                                  fused_admission)
         admission = dict(prefill_token_budget=prefill_token_budget,
                          admit_min_free=admit_min_free,
                          pad_to_multiple=pad_to_multiple,
                          burst_len=burst_len,
-                         fused_admission=fused_admission)
+                         fused_admission=fused_admission,
+                         prefix_cache=prefix_cache, overcommit=overcommit,
+                         chaos=chaos)
         if beam is not None:
             return self._serve_beam(requests, n_slots=n_slots, beam=beam,
                                     alpha=alpha,
@@ -845,12 +1197,13 @@ class ServingEngine:
                              f"engine KV capacity {self.max_len}")
 
     def _serve_allocator(self, n_rows: int, reqs: Sequence[Request],
-                         rows_of) -> Optional[kvc.PageAllocator]:
+                         rows_of, overcommit: float
+                         ) -> Optional[kvc.PageAllocator]:
         """The serve's page pool (None unpaged), refusing a request whose
         reservation (``rows_of(r)`` live rows) exceeds the whole pool."""
         if not self.paged:
             return None
-        allocator = self._make_allocator(n_rows)
+        allocator = self._make_allocator(n_rows, overcommit)
         for r in reqs:
             need = self._pages_per_request(r, rows_of(r))
             if need > allocator.n_pages:
@@ -858,22 +1211,24 @@ class ServingEngine:
                                  f"but the pool holds {allocator.n_pages}")
         return allocator
 
-    @staticmethod
-    def _deadline_misses(sched: ContinuousScheduler,
-                         reqs: Sequence[Request]) -> int:
-        """Shed requests plus those that finished past their deadline."""
-        return len(sched.rejected) + sum(
-            1 for r in reqs
-            if (r.status == "finished" and r.deadline_s is not None
-                and r.finish_s is not None and r.finish_s > r.deadline_s))
-
     def _serve_greedy(self, requests: Sequence[Any], *, n_slots: int,
                       max_new_tokens: Union[int, Sequence[int]],
                       prefill_token_budget: Optional[int],
                       admit_min_free: int, pad_to_multiple: int,
                       burst_len: Optional[Union[int, str]],
-                      fused_admission: bool) -> ServeResult:
-        """Greedy continuous batching: one row per request."""
+                      fused_admission: bool, prefix_cache: Optional[bool],
+                      overcommit: float,
+                      chaos: Optional[ChaosSchedule]) -> ServeResult:
+        """Greedy continuous batching: one row per request
+        (``engine.py:1787-2261`` of the reference, without chunked
+        prefill).
+
+        Each round: (a) the chaos schedule's forced preemptions, (b) page
+        growth of overcommitted rows, evicting victims when the pool is
+        dry, (c) admission-driven preemption of less urgent rows, then
+        admission (resumed requests re-spliced from their spill, prefix
+        hits from the chain pool, misses encoded), the burst and its drain.
+        """
         K = self._resolve_burst(burst_len)
         ctrl = self._burst_controller(K)
         reqs = self._as_requests(requests, max_new_tokens)
@@ -886,12 +1241,22 @@ class ServingEngine:
                                paged=self.paged, page_size=self.page_size)
         self._check_budgets(reqs)
         enc_len = self._enc_bucket(reqs, pad_to_multiple)
-        allocator = self._serve_allocator(n_slots, reqs, lambda r: 1)
+        pc = self._resolve_prefix_cache(prefix_cache)
+        stats0 = pc.stats.snapshot() if pc else None
+        allocator = self._serve_allocator(n_slots, reqs, lambda r: 1,
+                                          overcommit)
+        # overcommit: admission allocates one burst's pages; the loop grows
+        # rows and preempts by spill under pressure
+        burst_hint = ctrl.max_burst if ctrl else K
+        initial_fn = None
+        if allocator is not None and overcommit > 1.0:
+            initial_fn = lambda r: self._initial_pages(r, 1, burst_hint)
         sched = ContinuousScheduler(
             n_slots, prefill_token_budget=prefill_token_budget,
             allocator=allocator,
             pages_per_request=((lambda r: self._pages_per_request(r, 1))
-                               if allocator else None))
+                               if allocator else None),
+            prefix_cache=pc, initial_pages=initial_fn)
         sched.submit_many(reqs)
         state = self.model.init_decode_state(
             n_slots, self.max_len, quantized=self.quant.quantize_kv,
@@ -904,14 +1269,81 @@ class ServingEngine:
         now = lambda: time.perf_counter() - t0
         decode_steps = busy_slot_steps = prefill_rounds = host_syncs = 0
         prefill_dispatches = encoder_tokens = peak_running = 0
+        store, watchdog = SpillStore(), StepWatchdog()
+        # with growth or preemption, freed pages can be handed to other
+        # rows before the next fused prologue: free dead rows at once
+        eager_free = overcommit > 1.0 or chaos is not None
+        preempt_count = round_idx = 0
+        maxP = self._max_pages
+
+        def preempt_req(req: Request) -> None:
+            """Spill one running request to the host and evict it."""
+            nonlocal state, host_syncs, preempt_count
+            slot = req.slot
+            k, v, ks, vs, lens, toks, ck, cv, slens = self._spill(
+                state, tokens, np.asarray([slot], np.int32))
+            host_syncs += 1
+            req.spill = SpilledRequest(
+                req_id=req.req_id, n_rows=1, k=k, v=v, k_scale=ks,
+                v_scale=vs, lengths=lens, tokens_row=toks, cross_k=ck,
+                cross_v=cv, src_lengths=slens, n_pages=len(req.pages or []))
+            store.put(req.spill)
+            sched.preempt(req, now())
+            preempt_count += 1
+            # sentinel the victim's table now: the next burst's masked
+            # writes would otherwise land in pages growth or a resume may
+            # already have handed on
+            state = dict(state)
+            state["cache"] = kvc.free_slots_paged(
+                state["cache"], np.asarray([slot], np.int32))
+
+        def grow_rows(k_cap: int) -> None:
+            """Pre-burst growth of overcommitted rows: pages for each
+            row's cursor plus the next burst."""
+            nonlocal state
+            for slot, req in list(sched.slot_map.items()):
+                if sched.slot_map.get(slot) is not req:
+                    continue       # a victim of an earlier growth this round
+                cap_tok = min(req.max_new_tokens, self.max_len)
+                need = kvc.pages_per_row(min(len(req.tokens) + k_cap,
+                                             cap_tok), self.page_size)
+                extra = need - len(req.pages)
+                if extra <= 0:
+                    continue
+                newp = self._alloc_growth(allocator, sched, req, extra,
+                                          preempt_req)
+                have = len(req.pages)
+                upd = np.full((1, maxP), -1, np.int32)
+                upd[0, have:have + extra] = newp
+                req.pages.extend(newp)
+                state = self._grow(state, np.asarray([slot], np.int32), upd)
+
+        def restore_resumed(resumed: List[Request]) -> None:
+            """Splice spilled payloads into the rows just admitted."""
+            nonlocal state, tokens
+            for req in resumed:
+                sp = req.spill
+                pages = np.full((1, maxP), allocator.n_pages, np.int32)
+                pages[0, :len(req.pages)] = req.pages
+                state, tokens = self._resume(
+                    state, tokens, np.asarray([req.slot], np.int32), pages,
+                    sp)
+                store.pop(req.req_id)
+                allocator.unspill(sp.n_pages)
+                req.spill = None
 
         def prefill_into_slots(admitted, state, tokens):
-            """Unfused admission: prefill a side batch, splice it in, and
-            drain its first tokens."""
+            """Unfused admission: prefill a side batch (caching the encodes
+            routed "insert"), splice it in, and drain its first tokens."""
             src_pad, lens = pad_batch([r.src for r in admitted],
                                       length=enc_len)
             logits, sub, width = self._prefill_padded(src_pad, lens)
             first = torch.argmax(logits, dim=-1).to(torch.int32)
+            if pc is not None and any(r.prefix_role == "insert"
+                                      for r in admitted):
+                self._pool_insert(sub["cross_k"], sub["cross_v"],
+                                  sched.chain_pages_matrix(admitted, width,
+                                                           enc_len))
             pages = (self._page_rows(admitted, 1, width, allocator.n_pages)
                      if allocator else None)
             state, tokens = self._splice_rows(
@@ -934,6 +1366,16 @@ class ServingEngine:
             return self._free_released(state, released), tokens
 
         while not sched.all_done:
+            rnd = round_idx
+            round_idx += 1
+            if chaos is not None and sched.slot_map:
+                by_id = {r.req_id: r for r in sched.slot_map.values()}
+                for rid in chaos.victims_for(rnd, list(by_id)):
+                    preempt_req(by_id[rid])
+            if initial_fn is not None:
+                grow_rows(ctrl.k if ctrl else K)
+                self._preempt_for_admission(sched, n_slots + len(reqs),
+                                            preempt_req)
             plan = None
             want_admit = (sched.n_waiting and sched.n_free >=
                           min(max(admit_min_free, 1), sched.n_waiting,
@@ -944,15 +1386,38 @@ class ServingEngine:
                 if plan.n_admitted:
                     prefill_rounds += 1
                 encoder_tokens += len(plan.requests) * enc_len
+                if plan.resumed:
+                    restore_resumed(plan.resumed)
             elif want_admit:
                 admitted = sched.admit(now(), step=decode_steps)
                 if admitted:
                     prefill_rounds += 1
-                    prefill_dispatches += 1
-                    host_syncs += 1           # the first-token drain
-                    encoder_tokens += len(admitted) * enc_len
-                    state, tokens = prefill_into_slots(admitted, state,
-                                                       tokens)
+                    resumed = [r for r in admitted if r.spill is not None]
+                    fresh = [r for r in admitted if r.spill is None]
+                    if resumed:
+                        restore_resumed(resumed)
+                    hits: List[Request] = []
+                    enc_list = fresh
+                    if pc is not None:
+                        # zero budgets skip the routing: they release in
+                        # prefill_into_slots before any chain could pair
+                        misses, hits = sched.assign_prefix(
+                            [r for r in fresh if r.max_new_tokens > 0])
+                        enc_list = misses + [r for r in fresh
+                                             if r.max_new_tokens <= 0]
+                    if enc_list:
+                        prefill_dispatches += 1
+                        host_syncs += 1       # the first-token drain
+                        encoder_tokens += len(enc_list) * enc_len
+                        state, tokens = prefill_into_slots(enc_list, state,
+                                                           tokens)
+                    if hits:
+                        hrows, hlens, hpages, hw = sched.shape_hits(
+                            hits, enc_len=enc_len, oob_row=n_slots)
+                        state, tokens = self._hit_splice(
+                            state, tokens, hpages, hlens, hrows, 1,
+                            self._page_rows(hits, 1, hw, allocator.n_pages)
+                            if allocator else None)
             peak_running = max(peak_running, sched.n_running)
             if not sched.slot_map:
                 continue        # every admitted request finished on token 1
@@ -964,13 +1429,16 @@ class ServingEngine:
             cap = ctrl.k if ctrl else K
             t_dispatch = time.perf_counter()
             remaining_dev = torch.as_tensor(remaining, device=self.device)
-            if plan is not None and plan.width:
-                pages = (self._page_rows(plan.requests, 1, plan.width,
-                                         allocator.n_pages)
-                         if allocator else None)
+            if plan is not None and (plan.width or plan.hit_width):
+                n = allocator.n_pages if allocator else 0
                 state, tokens = self._admission_prologue(
-                    state, tokens, remaining_dev > 0, plan.src_tokens,
-                    plan.src_lengths, plan.base_rows, pages)
+                    state, tokens, remaining_dev > 0, plan,
+                    pages=(self._page_rows(plan.requests, 1, plan.width, n)
+                           if allocator and plan.width else None),
+                    hit_pages=(self._page_rows(plan.hits, 1, plan.hit_width,
+                                               n)
+                               if allocator and plan.hit_width else None),
+                    insert=pc is not None)
             tokens, _, state, buf, live = self._greedy_burst(
                 tokens, remaining_dev, min(cap, int(remaining.max())), state)
             buf_host, steps = self._drain(buf, live)
@@ -1006,8 +1474,11 @@ class ServingEngine:
                 wasted_row_steps += steps - used
             if ctrl:
                 ctrl.observe(burst_wall, steps, wasted_row_steps, n_slots)
-            if freed and not fused_admission:
-                # fused rounds reset dead rows in the next prologue instead
+            watchdog.observe(burst_wall +
+                             (chaos.slow_for(rnd) if chaos else 0.0))
+            if freed and (not fused_admission or eager_free):
+                # fused rounds otherwise reset dead rows in the next
+                # prologue
                 state = dict(state)
                 free = kvc.free_slots_paged if self.paged else kvc.free_slots
                 state["cache"] = free(state["cache"],
@@ -1024,8 +1495,10 @@ class ServingEngine:
             paged=self.paged, page_size=self.page_size,
             pages_in_use=allocator.in_use if allocator else 0,
             page_hwm=allocator.hwm if allocator else 0,
-            peak_running=peak_running, rejected=len(sched.rejected),
-            deadline_misses=self._deadline_misses(sched, reqs))
+            **self._overload_result_fields(
+                overcommit, preempt_count, store, watchdog, sched, reqs,
+                allocator, peak_running),
+            **self._prefix_result_fields(pc, stats0))
 
     # ------------------------------------------------- continuous beam search
     def _beam_widths(self, reqs: Sequence[Request], beam
@@ -1060,9 +1533,11 @@ class ServingEngine:
                     prefill_token_budget: Optional[int],
                     admit_min_free: int, pad_to_multiple: int,
                     burst_len: Optional[Union[int, str]],
-                    fused_admission: bool) -> ServeResult:
-        """Continuous beam search (``engine.py:2264-2942``, without the
-        prefix cache and the overload machinery).
+                    fused_admission: bool, prefix_cache: Optional[bool],
+                    overcommit: float,
+                    chaos: Optional[ChaosSchedule]) -> ServeResult:
+        """Continuous beam search (``engine.py:2264-2942``, without chunked
+        prefill).
 
         A request is admitted into a group of ``beam`` contiguous rows.
         Unfused, its source is prefilled tiled over the group (as
@@ -1083,6 +1558,12 @@ class ServingEngine:
         group; the rest are parked (``_beam_step``), so each step is a
         ``beam_req``-wide beam step.  On the paged cache, parked rows
         reserve no pages.
+
+        The prefix cache and the overload machinery work on whole groups:
+        a hit splices its chain over the group's rows and seeds it as fused
+        admission does; a preemption spills all ``beam`` rows and the
+        group's host search state (scores, finished, history, budget
+        left), and a resume restores both.
         """
         reqs = self._as_requests(requests, max_new_tokens)
         width_of, beam = self._beam_widths(reqs, beam)
@@ -1102,14 +1583,23 @@ class ServingEngine:
                                paged=self.paged, page_size=self.page_size)
         self._check_budgets(reqs)
         enc_len = self._enc_bucket(reqs, pad_to_multiple)
+        pc = self._resolve_prefix_cache(prefix_cache)
+        stats0 = pc.stats.snapshot() if pc else None
         allocator = self._serve_allocator(R, reqs,
-                                          lambda r: width_of[r.req_id])
+                                          lambda r: width_of[r.req_id],
+                                          overcommit)
+        burst_hint = ctrl.max_burst if ctrl else K
+        initial_fn = None
+        if allocator is not None and overcommit > 1.0:
+            initial_fn = lambda r: self._initial_pages(
+                r, width_of[r.req_id], burst_hint)
         sched = ContinuousScheduler(
             R, group_size=beam, prefill_token_budget=prefill_token_budget,
             allocator=allocator,
             pages_per_request=(
                 (lambda r: self._pages_per_request(r, width_of[r.req_id]))
-                if allocator else None))
+                if allocator else None),
+            prefix_cache=pc, initial_pages=initial_fn)
         sched.submit_many(reqs)
         state = self.model.init_decode_state(
             R, self.max_len, quantized=self.quant.quantize_kv,
@@ -1134,6 +1624,10 @@ class ServingEngine:
         now = lambda: time.perf_counter() - t0
         decode_steps = busy_slot_steps = prefill_rounds = host_syncs = 0
         prefill_dispatches = encoder_tokens = peak_running = 0
+        store, watchdog = SpillStore(), StepWatchdog()
+        eager_free = overcommit > 1.0 or chaos is not None
+        preempt_count = round_idx = 0
+        maxP = self._max_pages
 
         def seed_group(req: Request, budget: int) -> None:
             """A fused admission's search state: row 0 at score 0, the
@@ -1159,10 +1653,84 @@ class ServingEngine:
             finished_np[base:base + beam] = True
             return sched.release(req, t, step=step)
 
+        def preempt_req(req: Request) -> None:
+            """Spill one running group (all ``beam`` rows and its host
+            search state) and evict it."""
+            nonlocal state, host_syncs, preempt_count
+            base = req.slot
+            rows = np.arange(base, base + beam, dtype=np.int32)
+            k, v, ks, vs, lens, toks, ck, cv, slens = self._spill(
+                state, tokens, rows)
+            host_syncs += 1
+            req.spill = SpilledRequest(
+                req_id=req.req_id, n_rows=beam, k=k, v=v, k_scale=ks,
+                v_scale=vs, lengths=lens, tokens_row=toks, cross_k=ck,
+                cross_v=cv, src_lengths=slens, n_pages=len(req.pages or []),
+                beam={"scores": scores_np[base:base + beam].copy(),
+                      "finished": finished_np[base:base + beam].copy(),
+                      "history": histories.pop(base, []),
+                      "budget_left": budget_left.pop(base, 0)})
+            store.put(req.spill)
+            sched.preempt(req, now())
+            finished_np[base:base + beam] = True     # rows now inert
+            preempt_count += 1
+            state = dict(state)
+            state["cache"] = kvc.free_slots_paged(state["cache"], rows)
+
+        def grow_rows(k_cap: int) -> None:
+            """Pre-burst growth of overcommitted groups: each live row
+            gets pages for its cursor plus the next burst."""
+            nonlocal state
+            for base, req in list(sched.slot_map.items()):
+                if sched.slot_map.get(base) is not req:
+                    continue       # a victim of an earlier growth this round
+                b = width_of[req.req_id]
+                cursor = req.max_new_tokens - budget_left[base]
+                cap_tok = min(req.max_new_tokens, self.max_len)
+                need = kvc.pages_per_row(min(cursor + k_cap, cap_tok),
+                                         self.page_size)
+                have_pr = len(req.pages) // b
+                extra_pr = need - have_pr
+                if extra_pr <= 0:
+                    continue
+                newp = self._alloc_growth(allocator, sched, req,
+                                          extra_pr * b, preempt_req)
+                upd = np.full((beam, maxP), -1, np.int32)
+                for i in range(b):
+                    upd[i, have_pr:have_pr + extra_pr] = \
+                        newp[i * extra_pr:(i + 1) * extra_pr]
+                # the flat page list is interleaved from here on: only its
+                # length (growth) and its release read it, and a resume
+                # allocates afresh
+                req.pages.extend(newp)
+                state = self._grow(
+                    state, np.arange(base, base + beam, dtype=np.int32), upd)
+
+        def restore_resumed(resumed: List[Request]) -> None:
+            """Splice spilled groups back: the device KV through the paged
+            splice, the host search state verbatim."""
+            nonlocal state, tokens
+            for req in resumed:
+                sp = req.spill
+                base, b = req.slot, width_of[req.req_id]
+                pages = self._page_rows([req], beam, 1, allocator.n_pages,
+                                        widths=[b])
+                state, tokens = self._resume(
+                    state, tokens, np.arange(base, base + beam,
+                                             dtype=np.int32), pages, sp)
+                scores_np[base:base + beam] = sp.beam["scores"]
+                finished_np[base:base + beam] = sp.beam["finished"]
+                histories[base] = list(sp.beam["history"])
+                budget_left[base] = sp.beam["budget_left"]
+                store.pop(req.req_id)
+                allocator.unspill(sp.n_pages)
+                req.spill = None
+
         def prefill_groups(admitted, state, tokens):
-            """Unfused admission: prefill the sources tiled ``beam×``,
-            splice the groups in, and take each group's first ``beam``
-            tokens on the host (the first-token drain)."""
+            """Unfused admission: prefill the sources tiled ``beam×``
+            (caching the encodes routed "insert" from each group's first
+            row), splice the groups in, and take each group's first
+            ``beam`` tokens on the host (the first-token drain)."""
             g = len(admitted)
             rows = g * beam
             src_pad, lens = pad_batch([r.src for r in admitted],
@@ -1170,6 +1738,11 @@ class ServingEngine:
             logits, sub, width = self._prefill_padded(
                 np.repeat(src_pad, beam, axis=0),
                 np.repeat(lens, beam, axis=0))
+            if pc is not None and any(r.prefix_role == "insert"
+                                      for r in admitted):
+                self._pool_insert(sub["cross_k"], sub["cross_v"],
+                                  sched.chain_pages_matrix(
+                                      admitted, width, enc_len, stride=beam))
             lp = torch.log_softmax(logits.to(torch.float32),
                                    dim=-1).cpu().numpy()
             first = lp[:rows].reshape(g, beam, -1)[:, 0]     # (g, V)
@@ -1217,6 +1790,16 @@ class ServingEngine:
                 state, kvc.group_rows(released, beam)), tokens
 
         while not sched.all_done:
+            rnd = round_idx
+            round_idx += 1
+            if chaos is not None and sched.slot_map:
+                by_id = {r.req_id: r for r in sched.slot_map.values()}
+                for rid in chaos.victims_for(rnd, list(by_id)):
+                    preempt_req(by_id[rid])
+            if initial_fn is not None:
+                grow_rows(ctrl.k if ctrl else K)
+                self._preempt_for_admission(sched, n_groups + len(reqs),
+                                            preempt_req)
             plan = None
             want_admit = (sched.n_waiting and sched.n_free >=
                           min(max(admit_min_free, 1), sched.n_waiting,
@@ -1227,18 +1810,46 @@ class ServingEngine:
                 if plan.n_admitted:
                     prefill_rounds += 1
                 encoder_tokens += len(plan.requests) * enc_len
-                for r in plan.requests:
+                if plan.resumed:
+                    restore_resumed(plan.resumed)
+                for r in plan.requests + plan.hits:
                     seed_group(r, r.max_new_tokens)
             elif want_admit:
                 admitted = sched.admit(now(), step=decode_steps)
                 if admitted:
                     prefill_rounds += 1
-                    prefill_dispatches += 1
-                    host_syncs += 1           # the first-token drain
-                    # the side batch tiles each source beam× through the
-                    # encoder
-                    encoder_tokens += len(admitted) * beam * enc_len
-                    state, tokens = prefill_groups(admitted, state, tokens)
+                    resumed = [r for r in admitted if r.spill is not None]
+                    fresh = [r for r in admitted if r.spill is None]
+                    if resumed:
+                        restore_resumed(resumed)
+                    hits: List[Request] = []
+                    enc_list = fresh
+                    if pc is not None:
+                        misses, hits = sched.assign_prefix(
+                            [r for r in fresh if r.max_new_tokens > 0])
+                        enc_list = misses + [r for r in fresh
+                                             if r.max_new_tokens <= 0]
+                    if enc_list:
+                        prefill_dispatches += 1
+                        host_syncs += 1       # the first-token drain
+                        # the side batch tiles each source beam× through
+                        # the encoder
+                        encoder_tokens += len(enc_list) * beam * enc_len
+                        state, tokens = prefill_groups(enc_list, state,
+                                                       tokens)
+                    if hits:
+                        # no encoder: splice the chains over each group
+                        # and seed it as fused admission does
+                        hrows, hlens, hpages, hw = sched.shape_hits(
+                            hits, enc_len=enc_len, oob_row=R)
+                        state, tokens = self._hit_splice(
+                            state, tokens, hpages, hlens, hrows, beam,
+                            self._page_rows(
+                                hits, beam, hw, allocator.n_pages,
+                                widths=[width_of[r.req_id] for r in hits])
+                            if allocator else None)
+                        for r in hits:
+                            seed_group(r, r.max_new_tokens)
             peak_running = max(peak_running, sched.n_running)
             if not sched.slot_map:
                 continue        # every admitted group finished on token 1
@@ -1252,15 +1863,20 @@ class ServingEngine:
             t_dispatch = time.perf_counter()
             dev = lambda a: torch.as_tensor(a, device=self.device)
             remaining_dev = dev(remaining_in)
-            if plan is not None and plan.width:
-                pages = (self._page_rows(
-                    plan.requests, beam, plan.width, allocator.n_pages,
-                    widths=[width_of[r.req_id] for r in plan.requests])
-                    if allocator else None)
+            if plan is not None and (plan.width or plan.hit_width):
+                n = allocator.n_pages if allocator else 0
+                widths = lambda rs: [width_of[r.req_id] for r in rs]
                 state, tokens = self._admission_prologue(
                     state, tokens, (remaining_dev > 0).repeat_interleave(beam),
-                    plan.src_tokens, plan.src_lengths, plan.base_rows, pages,
-                    group=beam)
+                    plan,
+                    pages=(self._page_rows(plan.requests, beam, plan.width,
+                                           n, widths=widths(plan.requests))
+                           if allocator and plan.width else None),
+                    hit_pages=(self._page_rows(plan.hits, beam,
+                                               plan.hit_width, n,
+                                               widths=widths(plan.hits))
+                               if allocator and plan.hit_width else None),
+                    insert=pc is not None, group=beam)
             (tokens, scores, finished, remaining, comp, state, buf,
              live) = self._beam_serve_burst(
                 beam, tokens, dev(scores_np), dev(finished_np),
@@ -1306,8 +1922,11 @@ class ServingEngine:
                                           step=step_base + s_g))
             if ctrl:
                 ctrl.observe(burst_wall, steps, wasted_row_steps, R)
-            if freed and not fused_admission:
-                # fused rounds reset dead rows in the next prologue instead
+            watchdog.observe(burst_wall +
+                             (chaos.slow_for(rnd) if chaos else 0.0))
+            if freed and (not fused_admission or eager_free):
+                # fused rounds otherwise reset dead rows in the next
+                # prologue
                 state = dict(state)
                 if self.paged:
                     state["cache"] = kvc.free_slots_paged(
@@ -1328,5 +1947,7 @@ class ServingEngine:
             pages_in_use=allocator.in_use if allocator else 0,
             page_hwm=allocator.hwm if allocator else 0,
             reorder_bytes=reorder_step_bytes * decode_steps,
-            peak_running=peak_running, rejected=len(sched.rejected),
-            deadline_misses=self._deadline_misses(sched, reqs))
+            **self._overload_result_fields(
+                overcommit, preempt_count, store, watchdog, sched, reqs,
+                allocator, peak_running),
+            **self._prefix_result_fields(pc, stats0))

@@ -14,13 +14,15 @@ Port of ``repro/serving/scheduler.py`` (host-side numpy; no torch):
   (EDF with aging once a request carries a deadline or a priority) with an
   optional per-round prefill token budget and, on the paged cache, a page
   budget against a ``PageAllocator``; a group freed by a finished request
-  is refilled mid-decode.  Per-request arrival / first-token / finish
+  is refilled mid-decode.  With a ``PrefixCache`` attached, admissions are
+  routed hit / insert / skip; under overcommit a request reserves its
+  worst case virtually and is allocated only its next burst's pages, and a
+  running request can be preempted back to the queue (its KV spilled to
+  the host by the engine).  Per-request arrival / first-token / finish
   times feed the latency metrics.
 
-Not ported yet: the prefix-cache routing (ROADMAP Queue 1: the prefix
-cache and chain pages), and the preemption and chunked-prefill staging
-(ROADMAP Queue 1: overload handling) of the reference's
-``ContinuousScheduler``.
+Not ported yet: the chunked-prefill staging of the reference's
+``plan_admission`` (ROADMAP Queue 1: chunked prefill).
 """
 
 from __future__ import annotations
@@ -111,9 +113,20 @@ class Request:
     beam: Optional[int] = None
     # paged KV cache: flat page ids reserved for this request
     pages: Optional[List[int]] = None
+    # prefix cache (scheduler-managed): how this admission was routed
+    # ("hit" | "insert" | "skip" | None when the cache is off) and the
+    # chain whose reference the request holds until release
+    prefix_role: Optional[str] = None
+    prefix_chain: Optional[object] = None
+    # overload machinery: why a shed request was rejected, how many times
+    # it was preempted, its host spill payload while preempted
+    # (``preemption.SpilledRequest``), the admission rounds it has waited
+    # (aging) and its worst-case page reservation
     reject_reason: Optional[str] = None
-    wait_rounds: int = 0                # admission rounds waited (aging)
-    reserved_pages: int = 0             # worst-case page reservation
+    preemptions: int = 0
+    spill: Optional[object] = None
+    wait_rounds: int = 0
+    reserved_pages: int = 0
 
     @property
     def n_src_tokens(self) -> int:
@@ -157,6 +170,10 @@ def _empty_i32() -> np.ndarray:
     return np.zeros((0,), np.int32)
 
 
+def _empty_i32_2d() -> np.ndarray:
+    return np.zeros((0, 0), np.int32)
+
+
 @dataclasses.dataclass
 class AdmissionPlan:
     """One admission round, shaped for the fused decode burst.
@@ -168,18 +185,40 @@ class AdmissionPlan:
     admission and reported in ``released``.  The array fields default to
     fresh empty arrays (``default_factory``): an ndarray class default is
     what stops the reference's module from importing on Python 3.12.
+
+    With a prefix cache, ``requests`` holds only the rows to *encode* (the
+    misses); hits skip the encoder and arrive in the ``hit_*`` fields,
+    padded to a power of two under the same row-0-replay contract, and
+    the misses routed "insert" carry their chain reservations in
+    ``ins_pages``.  ``resumed`` requests carry a host spill payload
+    (preempted earlier): the engine restores their KV instead of encoding.
     """
 
-    requests: List[Request]            # admitted, budget > 0, slot order
+    requests: List[Request]            # encode rows: budget > 0, slot order
     released: List[Request]            # zero-budget: finished at admission
     src_tokens: np.ndarray = dataclasses.field(default_factory=_empty_i32)
     src_lengths: np.ndarray = dataclasses.field(default_factory=_empty_i32)
     base_rows: np.ndarray = dataclasses.field(default_factory=_empty_i32)
     width: int = 0                     # pow2 batch width (0 = no device work)
+    hits: List[Request] = dataclasses.field(default_factory=list)
+    hit_rows: np.ndarray = dataclasses.field(default_factory=_empty_i32)
+    hit_lengths: np.ndarray = dataclasses.field(default_factory=_empty_i32)
+    hit_pages: np.ndarray = dataclasses.field(        # (hit_width, maxPP)
+        default_factory=_empty_i32_2d)
+    hit_width: int = 0                 # pow2 (0 = no hits)
+    ins_pages: np.ndarray = dataclasses.field(        # (width, maxPP)
+        default_factory=_empty_i32_2d)
+    resumed: List[Request] = dataclasses.field(default_factory=list)
 
     @property
     def n_admitted(self) -> int:
-        return len(self.requests) + len(self.released)
+        return (len(self.requests) + len(self.hits) + len(self.released)
+                + len(self.resumed))
+
+    @property
+    def prefix_hit_pages(self) -> int:
+        """Chain pages whose encode and store this round's hits skipped."""
+        return sum(r.prefix_chain.n_pages for r in self.hits)
 
 
 class ContinuousScheduler:
@@ -199,12 +238,18 @@ class ContinuousScheduler:
     admission, and with it the token stream, is the same either way.
 
     Paged cache: ``allocator`` and ``pages_per_request`` go together; a
-    request's full-budget worst case is reserved and physically allocated
-    at admission, so decode never runs out of pages.
+    request's full-budget worst case is reserved and, by default,
+    physically allocated at admission, so decode never runs out of pages.
+    With ``initial_pages`` (overcommit) the worst case is a *virtual*
+    reservation, capped at the allocator's ``overcommit_limit × n_pages``,
+    and only ``initial_pages(req)`` pages are allocated; the engine grows
+    rows between bursts and preempts when growth or admission comes up
+    short.
 
-    Not ported yet: prefix routing (ROADMAP Queue 1: the prefix cache and
-    chain pages), preemption and staging (ROADMAP Queue 1: overload
-    handling).
+    ``prefix_cache``: routes each admission "hit" / "insert" / "skip"
+    (:meth:`assign_prefix`).  Chain pages come from the cache's own
+    allocator, so a full prefix pool degrades to uncached admission and
+    never eats into the decode page budget.
     """
 
     _NO_DEADLINE = 1e6                 # best-effort = very late deadline
@@ -213,6 +258,8 @@ class ContinuousScheduler:
                  prefill_token_budget: Optional[int] = None,
                  allocator=None,
                  pages_per_request: Optional[Callable[[Request], int]] = None,
+                 prefix_cache=None,
+                 initial_pages: Optional[Callable[[Request], int]] = None,
                  starvation_aging: float = 0.5):
         if n_slots < 1:
             raise ValueError(f"need at least one slot, got {n_slots}")
@@ -232,6 +279,8 @@ class ContinuousScheduler:
         self.prefill_token_budget = prefill_token_budget
         self.allocator = allocator
         self.pages_per_request = pages_per_request
+        self.prefix_cache = prefix_cache
+        self.initial_pages = initial_pages
         self.starvation_aging = float(starvation_aging)
         self._waiting: Deque[Request] = collections.deque()
         self._free: List[int] = [g * group_size
@@ -253,7 +302,11 @@ class ContinuousScheduler:
         req.finish_step = None
         req.score = None
         req.pages = None
+        req.prefix_role = None
+        req.prefix_chain = None
         req.reject_reason = None
+        req.preemptions = 0
+        req.spill = None
         req.wait_rounds = 0
         req.reserved_pages = 0
         self._waiting.append(req)
@@ -270,25 +323,37 @@ class ContinuousScheduler:
         d = req.deadline_s if req.deadline_s is not None else self._NO_DEADLINE
         return d - req.priority - self.starvation_aging * req.wait_rounds
 
+    def victim_key(self, req: Request) -> float:
+        """Preemption key: deadline and priority only.  Aging moves a
+        waiting request up the queue; it must not let it evict an equally
+        urgent running one."""
+        d = req.deadline_s if req.deadline_s is not None else self._NO_DEADLINE
+        return d - req.priority
+
     def _sort_waiting(self) -> None:
-        """EDF-with-aging order.  Skipped when nothing in the queue carries
-        a deadline, a priority or aging credit: the default stays strict
+        """EDF-with-aging order, preempted (spilled) requests first among
+        equals.  Skipped when nothing in the queue carries a deadline, a
+        priority, aging credit or a spill: the default stays strict
         submission-order FIFO."""
         if len(self._waiting) < 2:
             return
-        if not any(r.deadline_s is not None or r.priority or r.wait_rounds
-                   for r in self._waiting):
+        if not any(r.deadline_s is not None or r.priority or r.spill
+                   is not None or r.wait_rounds for r in self._waiting):
             return
-        self._waiting = collections.deque(sorted(self._waiting,
-                                                 key=self.urgency_key))
+        self._waiting = collections.deque(sorted(
+            self._waiting,
+            key=lambda r: (self.urgency_key(r),
+                           0 if r.spill is not None else 1)))
 
     def _shed(self, now: float) -> List[Request]:
         """Reject waiting requests whose deadline has already passed (no
-        admission order can meet it)."""
+        admission order can meet it).  Preempted requests are exempt: their
+        spill is freed only by their resume."""
         shed: List[Request] = []
         keep: Deque[Request] = collections.deque()
         for req in self._waiting:
-            if req.deadline_s is not None and now > req.deadline_s:
+            if (req.deadline_s is not None and now > req.deadline_s
+                    and req.spill is None):
                 req.status = "rejected"
                 req.reject_reason = (
                     f"deadline {req.deadline_s:.3f}s already passed at "
@@ -308,7 +373,8 @@ class ContinuousScheduler:
         ``step`` records the global decode-step count at this burst edge.
         Order: shed provably-late requests, sort by urgency (a no-op for
         deadline-free traffic), then admit while slots, the prefill budget
-        and the page pool allow.
+        and the page pool allow.  Under overcommit a request reserves its
+        worst case virtually and is allocated ``initial_pages`` pages.
         """
         self._shed(now)
         self._sort_waiting()
@@ -326,7 +392,10 @@ class ContinuousScheduler:
                 worst = self.pages_per_request(req)
                 if not self.allocator.can_reserve(worst):
                     break
-                pages = self.allocator.alloc(worst)
+                n_pages = worst
+                if self.initial_pages is not None:
+                    n_pages = min(self.initial_pages(req), worst)
+                pages = self.allocator.alloc(n_pages)
                 if pages is None:
                     break                # pool short: the head waits
                 self.allocator.reserve(worst)
@@ -345,38 +414,176 @@ class ContinuousScheduler:
             req.wait_rounds += 1         # starvation aging
         return admitted
 
+    def admission_shortfall(self) -> Optional[Dict[str, object]]:
+        """Why the most urgent waiting request cannot be admitted now, in
+        pages, or None when nothing page-related blocks it.
+
+        ``pages_short``: physical pages missing for its initial allocation;
+        ``reserve_short``: virtual reservation room missing under the
+        overcommit cap; ``head_key``: its :meth:`victim_key`.  Preempting
+        running victims fixes both.
+        """
+        if not self._waiting or not self._free or self.allocator is None:
+            return None
+        self._sort_waiting()
+        req = self._waiting[0]
+        worst = self.pages_per_request(req)
+        n_pages = worst
+        if self.initial_pages is not None:
+            n_pages = min(self.initial_pages(req), worst)
+        reserve_short = max(
+            0, self.allocator.reserved + worst - self.allocator.reserve_cap)
+        pages_short = max(0, n_pages - self.allocator.n_free)
+        if not reserve_short and not pages_short:
+            return None
+        return {"reserve_short": reserve_short, "pages_short": pages_short,
+                "head_key": self.victim_key(req)}
+
+    def preempt(self, req: Request, now: float = 0.0) -> int:
+        """Evict a running request back to the front of the wait queue and
+        return its freed group base row.
+
+        The engine has already copied the victim's KV to the host
+        (``req.spill``), so its pages go back through the allocator's spill
+        accounting.  Its prefix chain reference is dropped: a resume
+        re-splices cross K/V from the spill, not from the pool.  It keeps
+        its emitted tokens, and spilled requests win ties in the queue.
+        """
+        if req.status != "running" or req.slot is None:
+            raise ValueError(f"request {req.req_id} is not running "
+                             f"(status={req.status})")
+        slot = req.slot
+        req.status = "waiting"
+        req.slot = None
+        req.preemptions += 1
+        if req.pages is not None:
+            if req.spill is not None:
+                self.allocator.spill(req.pages)
+            else:
+                self.allocator.release(req.pages)
+            req.pages = None
+        if req.reserved_pages:
+            self.allocator.unreserve(req.reserved_pages)
+            req.reserved_pages = 0
+        if req.prefix_chain is not None:
+            self.prefix_cache.finish(req.prefix_chain)
+            req.prefix_chain = None
+            req.prefix_role = None
+        del self.slot_map[slot]
+        self._free.append(slot)
+        self._free.sort()
+        self._waiting.appendleft(req)
+        return slot
+
+    def assign_prefix(self, reqs: Sequence[Request]
+                      ) -> "tuple[List[Request], List[Request]]":
+        """Route live admissions through the prefix cache; returns
+        ``(misses, hits)``.  Misses (roles "insert" and "skip") are
+        encoded; hits splice their cached chain.  Routing is sequential: a
+        source admitted twice in one round makes the first occurrence the
+        "insert" and the second a "hit" on the chain reserved moments
+        earlier (the engine scatters the pool before it gathers the hits).
+        """
+        if self.prefix_cache is None:
+            return list(reqs), []
+        misses: List[Request] = []
+        hits: List[Request] = []
+        for req in reqs:
+            role, chain = self.prefix_cache.admit(req.src)
+            req.prefix_role = role
+            req.prefix_chain = chain
+            (hits if role == "hit" else misses).append(req)
+        return misses, hits
+
+    def chain_pages_matrix(self, reqs: Sequence[Request], width: int,
+                           enc_len: int, stride: int = 1) -> np.ndarray:
+        """(width, maxPP) chain page ids, sentinel-padded.
+
+        ``maxPP`` is the chain length of a full ``enc_len`` source in the
+        prefix allocator's pages; rows without a chain (role "skip",
+        padding) are all sentinel, so their scatters drop and their
+        gathers clamp.  Request ``i``'s chain lands on row ``i × stride``
+        (the unfused beam side batch tiles each source ``beam×``, and only
+        a group's first row feeds the pool).
+        """
+        al = self.prefix_cache.allocator
+        maxPP = (enc_len + al.page_size - 1) // al.page_size
+        out = np.full((width, max(maxPP, 1)), al.n_pages, np.int32)
+        for i, req in enumerate(reqs):
+            if req.prefix_chain is not None:
+                out[i * stride, :req.prefix_chain.n_pages] = \
+                    req.prefix_chain.pages
+        return out
+
+    def shape_hits(self, hits: Sequence[Request], *, enc_len: int,
+                   oob_row: int
+                   ) -> "tuple[np.ndarray, np.ndarray, np.ndarray, int]":
+        """Shape prefix hits for a device splice: pow2-padded
+        ``(hit_rows, hit_lengths, hit_pages, hit_width)`` under the
+        :func:`pad_rows_pow2` contract (row-0 replays, ``oob_row``
+        destinations)."""
+        hlens = np.asarray([r.n_src_tokens for r in hits], np.int32)
+        hrows = np.asarray([r.slot for r in hits], np.int32)
+        hw = next_pow2(len(hits))
+        pad = hw - len(hits)
+        hit_lengths = np.concatenate(
+            [hlens, np.broadcast_to(hlens[:1], (pad,))])
+        hit_rows = np.concatenate(
+            [hrows, np.full((pad,), oob_row, np.int32)])
+        hit_pages = self.chain_pages_matrix(hits, hw, enc_len)
+        hit_pages[len(hits):] = hit_pages[0]         # padding replays row 0
+        return hit_rows, hit_lengths, hit_pages, hw
+
     def plan_admission(self, now: float = 0.0, *, step: Optional[int] = None,
                        enc_len: int, oob_row: int) -> AdmissionPlan:
         """Admit one round and shape it for the fused burst: runs
-        :meth:`admit`, finishes zero-budget requests on the spot, and pads
-        the rest (sources to ``enc_len``, rows to a power of two with row-0
-        replays, destinations with ``oob_row``)."""
+        :meth:`admit`, finishes zero-budget requests on the spot, sets
+        preempted requests aside as ``resumed`` (their KV comes back from
+        the host), routes the rest through the prefix cache and pads the
+        rows to encode (sources to ``enc_len``, rows to a power of two with
+        row-0 replays, destinations with ``oob_row``).  Zero-budget
+        requests are excluded before the routing: they never encode, so an
+        "insert" for one would cache garbage."""
         live: List[Request] = []
         released: List[Request] = []
+        resumed: List[Request] = []
         for req in self.admit(now, step=step):
             if req.max_new_tokens <= 0:
                 req.first_token_s = now          # observed: empty output
                 self.release(req, now, step=step)
                 released.append(req)
+            elif req.spill is not None:
+                resumed.append(req)
             else:
                 live.append(req)
-        if not live:
-            return AdmissionPlan(
-                requests=[], released=released,
-                src_tokens=np.zeros((0, enc_len), np.int32))
-        src, lens = pad_batch([r.src for r in live], length=enc_len)
-        src, lens, width = pad_rows_pow2(src, lens)
-        base = np.full((width,), oob_row, np.int32)
-        base[:len(live)] = [r.slot for r in live]
-        return AdmissionPlan(requests=live, released=released,
+        misses, hits = self.assign_prefix(live)
+        if misses:
+            src, lens = pad_batch([r.src for r in misses], length=enc_len)
+            src, lens, width = pad_rows_pow2(src, lens)
+            base = np.full((width,), oob_row, np.int32)
+            base[:len(misses)] = [r.slot for r in misses]
+        else:
+            width = 0
+            src = np.zeros((0, enc_len), np.int32)
+            lens = base = np.zeros((0,), np.int32)
+        plan = AdmissionPlan(requests=misses, released=released,
                              src_tokens=np.ascontiguousarray(src),
                              src_lengths=np.ascontiguousarray(lens),
-                             base_rows=base, width=width)
+                             base_rows=base, width=width, resumed=resumed)
+        if self.prefix_cache is not None:
+            plan.ins_pages = self.chain_pages_matrix(misses, width, enc_len)
+            if hits:
+                (plan.hit_rows, plan.hit_lengths, plan.hit_pages,
+                 plan.hit_width) = self.shape_hits(hits, enc_len=enc_len,
+                                                   oob_row=oob_row)
+                plan.hits = hits
+        return plan
 
     def release(self, req: Request, now: float = 0.0, *,
                 step: Optional[int] = None) -> int:
         """Finish a running request and return its freed group base row
-        (the whole group is freed); its pages go back to the pool.
+        (the whole group is freed); its pages go back to the pool and its
+        prefix chain reference is dropped.
         ``step``: the exact global decode step the request finished at."""
         if req.status != "running" or req.slot is None:
             raise ValueError(f"request {req.req_id} is not running "
@@ -392,6 +599,9 @@ class ContinuousScheduler:
         if req.reserved_pages:
             self.allocator.unreserve(req.reserved_pages)
             req.reserved_pages = 0
+        if req.prefix_chain is not None:
+            self.prefix_cache.finish(req.prefix_chain)
+            req.prefix_chain = None
         del self.slot_map[slot]
         self._free.append(slot)
         self._free.sort()

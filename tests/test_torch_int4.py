@@ -397,7 +397,8 @@ def test_bridge_refuses_an_unnamed_int4_triple(nmt_random):
 # ---------------------------------------------------------------------------
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Import every ``repro_torch`` module, ``chip_smoke`` and the chip
+    """Import every ``repro_torch`` module (the prefix cache, preemption,
+    chaos and watchdog modules among them), ``chip_smoke`` and the chip
     tools in a fresh interpreter: neither ``jax`` nor ``repro`` may be in
     ``sys.modules``."""
     code = (
@@ -411,8 +412,12 @@ def test_port_and_chip_smoke_import_no_jax():
         "import int4_ab, int8_tile_sweep\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+        "want = {'repro_torch.serving.prefix_cache', "
+        "'repro_torch.serving.preemption', 'repro_torch.serving.chaos', "
+        "'repro_torch.distributed.fault'}\n"
+        "missing = sorted(want - set(names))\n"
+        "print(len(names), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(names) < 20 else 0)\n")
     env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)

@@ -22,6 +22,8 @@ from repro.core import QuantPolicy as JQuantPolicy
 from repro.core import quantize_model as jquantize_model
 from repro.models import kv_cache as jkv
 
+import torch
+
 from repro_torch.checkpoint.bridge import (
     block_meta_of,
     calibrations_from_reference,
@@ -42,6 +44,7 @@ from repro_torch.serving import (
     ContinuousScheduler,
     Request,
     ServingEngine,
+    make_chaos,
 )
 
 from _torch_reference import import_reference_serving, reference_calibration
@@ -296,17 +299,52 @@ def test_pack_batches_token_budget_equals_reference():
 # what is not ported raises; the driver runs in both modes on the CPU
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw", [dict(beam=2, overcommit=1.5),
-                                dict(prefix_cache=True),
-                                dict(overcommit=1.5),
-                                dict(prefill_chunk=8), dict(chaos=object()),
+@pytest.mark.parametrize("kw", [dict(prefill_chunk=8),
                                 dict(speculative_k=2),
                                 dict(beam=2, prefill_chunk=8)])
 def test_unported_serve_options_raise(kw):
     model = EncDecLM(get_config("transformer-base").reduced(), device="cpu")
     engine = ServingEngine(model, {}, max_len=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: "
+                       "(chunked prefill|speculative decoding)"):
         engine.serve([np.arange(3, 8)], **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(beam=2, overcommit=1.5),
+                                dict(prefix_cache=True),
+                                dict(overcommit=1.5),
+                                dict(chaos=True)])
+def test_prefix_and_overload_options_run(kw):
+    """The options that used to be refused run on a tight paged pool, give
+    the unloaded serve's tokens and reclaim every page and spill.  (They
+    are held to the reference in ``test_torch_prefix_cache.py`` and
+    ``test_torch_preemption.py``.)"""
+    model = EncDecLM(get_config("transformer-base").reduced(), device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    engine = ServingEngine(model, params, max_len=16, paged=True,
+                           page_size=4, n_pages=4 * kw.get("beam", 1),
+                           device="cpu")
+    srcs = [np.arange(3, 8), np.arange(4, 10), np.arange(3, 8),
+            np.arange(5, 9)]
+    serve_kw = dict(n_slots=2 * kw.get("beam", 1), max_new_tokens=12,
+                    burst_len=2, beam=kw.get("beam"))
+    base = engine.serve(srcs, **serve_kw)
+    if kw.get("chaos"):
+        kw = dict(chaos=make_chaos(3, n_rounds=64, preempt_every=1))
+    res = engine.serve(srcs, **dict(serve_kw, **kw))
+    assert all(r.status == "finished" for r in res.requests)
+    assert [r.tokens for r in res.requests] == \
+        [r.tokens for r in base.requests]
+    assert res.pages_in_use == 0
+    assert res.spill_events == res.restore_events
+    if "prefix_cache" in kw:
+        assert res.prefix_hits == 1 and res.prefix_misses == 3
+    if "chaos" in kw:
+        assert res.preemptions > 0
+    if "overcommit" in kw:
+        # one request's worst case fills the pool: only overcommit runs two
+        assert res.overcommit == 1.5 and res.preemptions > 0
+        assert res.peak_running > base.peak_running == 1
 
 
 def test_generate_speculative_k_raises():
@@ -339,6 +377,11 @@ def test_generate_speculative_k_raises():
     ["--weight-bits", "4", "--mode", "continuous", "--paged", "--requests",
      "6", "--slots", "3", "--max-new-tokens", "4", "--weight-group-size",
      "64"],
+    ["--mode", "continuous", "--prefix-cache", "--prefix-pages", "32",
+     "--requests", "6", "--slots", "3", "--max-new-tokens", "4"],
+    ["--mode", "continuous", "--paged", "--overcommit", "1.5",
+     "--chaos-seed", "3", "--n-pages", "4", "--requests", "6", "--slots",
+     "3", "--max-new-tokens", "20", "--burst-len", "4"],
 ])
 def test_serve_driver_runs_on_cpu(argv, capsys):
     serve_driver.main(["--device", "cpu", *argv])
@@ -351,12 +394,18 @@ def test_serve_driver_runs_on_cpu(argv, capsys):
         # the reduced transformer-base: 2 decoder layers × 4 INT4 linears
         assert "INT4 weights: 8 decoder linears" in out
         assert "(group_size=64)" in out
+    if "--prefix-cache" in argv:
+        assert "prefix cache: 0 hits / 6 admissions" in out
+    if "--chaos-seed" in argv:
+        assert "overload: overcommit=1.5" in out
+        assert " 0 preemptions" not in out
 
 
-@pytest.mark.parametrize("flag", [["--prefix-cache"], ["--overcommit", "2"],
+@pytest.mark.parametrize("flag", [["--prefill-chunk", "8"],
                                   ["--mesh", "1,2"],
                                   ["--mode", "continuous", "--beam", "4",
                                    "--prefill-chunk", "8"]])
 def test_serve_driver_refuses_unported_flags(flag):
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="ROADMAP Queue 1: (chunked prefill"
+                       "|multi-GPU and the cost accounting)"):
         serve_driver.main(["--device", "cpu", *flag])
