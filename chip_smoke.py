@@ -90,10 +90,13 @@ final line):
    a paged pool of half the unloaded serve's page high-water mark at
    ``overcommit=1.5`` with ``make_chaos(5, n_rounds=256,
    preempt_every=2)``, greedy and at beam 4 (against phase 5b's paged
-   serve): preemptions, every page returned and every spill restored.
+   serve): preemptions, every page returned and every spill restored,
+   and in every serve of this phase no plain attention or INT4 call.
    The counts of requests whose tokens equal the cold or unloaded serve's
    are logged; then one spill and one resume of a greedy row and of a
-   beam-4 group, profiled (device ms, host ms, bytes);
+   beam-4 group, timed (device span between CUDA events, host ms, the
+   profiler's busy time with its events counted against the launches,
+   bytes);
 8. the serving driver ``python -m repro_torch.launch.serve`` once per mode
    (continuous paged, static, continuous paged with ``--weight-bits 4``,
    continuous paged beam 4 with ``--burst-len auto``), four subprocesses
@@ -1403,7 +1406,7 @@ def run_prefix_and_overload(model, qparams, qctx, q4params, q4ctx,
     source in different rounds at different widths.  ``int4_paged`` is
     phase 6's INT4 paged serve, whose first 12 requests are these sources
     with these budgets.  Returns the launch counts per run."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.serving import ServingEngine, make_chaos
 
     vocab = model.cfg.vocab
@@ -1424,16 +1427,40 @@ def run_prefix_and_overload(model, qparams, qctx, q4params, q4ctx,
                                                 preempt_every=1))
 
     counts, results = {}, {}
+    # count the plain attention and INT4 calls: on the card, shared,
+    # spilled, resumed and grown rows must all go through the kernels
+    plain = {name: getattr(ref, name) for name in (
+        "ref_decode_attention", "ref_decode_attention_paged",
+        "ref_int4_matmul")}
+    plain_calls = []
+
+    def counted(name):
+        def fn(*args, **kwargs):
+            plain_calls.append(name)
+            return plain[name](*args, **kwargs)
+        return fn
 
     def run(name, eng, reqs=corpus, want=budgets, **kw):
-        ops.reset_launch_counts()
-        res = eng.serve(reqs, n_slots=SERVE_SLOTS, max_new_tokens=want,
-                        **kw)
-        counts[name] = ops.launch_counts()
+        del plain_calls[:]
+        for fn_name in plain:
+            setattr(ref, fn_name, counted(fn_name))
+        try:
+            ops.reset_launch_counts()
+            res = eng.serve(reqs, n_slots=SERVE_SLOTS, max_new_tokens=want,
+                            **kw)
+            counts[name] = ops.launch_counts()
+        finally:
+            for fn_name, fn in plain.items():
+                setattr(ref, fn_name, fn)
         results[name] = res
         log_serve(name, res)
-        log(f"  launches: {json.dumps(counts[name])}")
+        log(f"  launches: {json.dumps(counts[name])}; plain attention and "
+            f"INT4 calls: {len(plain_calls)}")
         check_serve(name, res, want, vocab, beam="beam" in kw)
+        if plain_calls:
+            raise AssertionError(f"serve {name}: plain versions ran "
+                                 f"{len(plain_calls)} times "
+                                 f"({sorted(set(plain_calls))})")
         return res
 
     cold = run("prefix_cold_paged", engine(**paged))
@@ -1511,14 +1538,29 @@ def run_prefix_and_overload(model, qparams, qctx, q4params, q4ctx,
     return counts
 
 
+SPILL_REPS = 20                # phase 5c: calls timed of each spill/resume
+# the runtime's launch and copy calls, against which the profiler's device
+# events are counted
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def spill_resume_ms(model, qparams, qctx) -> None:
     """One spill and one resume of a greedy row and of a beam-4 group of a
     full paged decode state (16 rows, every row 48 positions in, cross K/V
-    of the 64-token bucket): device ms from the profiler, host ms around
-    the call ending in a synchronise, and the bytes moved (the spill's
-    host payload, which the resume uploads again)."""
+    of the 64-token bucket), each called ``SPILL_REPS`` times: the median
+    device span between CUDA events recorded around the call (the stream's
+    time from before its first launch to after its last copy, the gaps
+    while the host enqueues included), the median host ms around the call
+    ending in a synchronise, and the profiler's device busy time a call
+    over as many calls, with its device events counted against the
+    runtime's launch and copy calls (when it drops events, its busy time
+    is a lower bound); and the bytes moved (the spill's host payload,
+    which the resume uploads again)."""
     import numpy as np
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
     from repro_torch.models import kv_cache as kvc
     from repro_torch.serving import ServingEngine, SpilledRequest
     R, maxP = SERVE_SLOTS, MAX_LEN // PAGE
@@ -1545,16 +1587,37 @@ def spill_resume_ms(model, qparams, qctx) -> None:
             for _ in range(3):
                 fn()
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1e3
-            _, prof_rows, _ = profile(f"{what} of {len(rows)} rows",
-                                      lambda: fn() and 0, cpu=False)
-            log(f"{what} of {len(rows)} rows: host {host_ms:.3f} ms, "
-                f"device {sum(r[0] for r in prof_rows):.4f} ms in "
-                f"{sum(r[2] for r in prof_rows)} kernels and copies, "
-                f"{sp.n_bytes} bytes of host payload")
+            span, host = [], []
+            for _ in range(SPILL_REPS):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                e0.record()
+                fn()
+                e1.record()
+                e1.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+                span.append(e0.elapsed_time(e1))
+            with tprofile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                for _ in range(SPILL_REPS):
+                    fn()
+                torch.cuda.synchronize()
+            dev = device_rows(prof)
+            busy = sum(r[0] for r in dev) / SPILL_REPS
+            n_dev = sum(r[2] for r in dev)
+            n_api = sum(e.count for e in prof.key_averages()
+                        if e.device_type == DeviceType.CPU
+                        and e.key in LAUNCH_CALLS)
+            log(f"{what} of {len(rows)} rows: device span "
+                f"{float(np.median(span)):.4f} ms (CUDA events, median of "
+                f"{SPILL_REPS}; min {min(span):.4f}), host "
+                f"{float(np.median(host)):.3f} ms; profiler busy "
+                f"{busy:.4f} ms a call from {n_dev} device events for "
+                f"{n_api} launch and copy calls over {SPILL_REPS} calls"
+                + ("" if n_dev >= n_api else
+                   " (events dropped: the busy time is a lower bound)")
+                + f"; {sp.n_bytes} bytes of host payload")
 
 
 # ---------------------------------------------------------------------------

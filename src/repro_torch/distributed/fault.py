@@ -10,8 +10,7 @@ seconds) and reports the flags as ``ServeResult.straggler_rounds``.
 from __future__ import annotations
 
 import logging
-import time
-from typing import List, Optional
+from typing import List
 
 log = logging.getLogger("repro_torch.fault")
 
@@ -22,19 +21,7 @@ class StepWatchdog:
         self.window = window
         self.durations: List[float] = []
         self.straggler_steps: List[int] = []
-        self._t0: Optional[float] = None
         self.step = 0
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self) -> bool:
-        """Record the step; returns True if it was a straggler."""
-        if self._t0 is None:
-            raise RuntimeError("watchdog.stop() without start()")
-        dt = time.perf_counter() - self._t0
-        self._t0 = None
-        return self.observe(dt)
 
     def observe(self, dt: float) -> bool:
         """Record a step of ``dt`` seconds against the rolling median;
@@ -51,14 +38,3 @@ class StepWatchdog:
                             self.step, dt, med)
                 return True
         return False
-
-    def summary(self) -> dict:
-        if not self.durations:
-            return {"steps": 0}
-        d = sorted(self.durations)
-        return {
-            "steps": len(d),
-            "median_s": d[len(d) // 2],
-            "p95_s": d[int(len(d) * 0.95)],
-            "stragglers": len(self.straggler_steps),
-        }

@@ -159,30 +159,6 @@ def append_tokens(
     return k_cache, v_cache, ks_cache, vs_cache
 
 
-def fill_prefix(
-    k_cache: torch.Tensor,               # (B, S_max, HKV, dh)
-    v_cache: torch.Tensor,
-    ks_cache: Optional[torch.Tensor],
-    vs_cache: Optional[torch.Tensor],
-    k_new: torch.Tensor,                 # (B, T, HKV, dh) fp, prefill block
-    v_new: torch.Tensor,
-):
-    """Write a prefill's K/V at positions [0, T) of every row, in place
-    (right-padded batches)."""
-    T = k_new.shape[1]
-    if ks_cache is not None:
-        kq, ks = quantize_kv(k_new)
-        vq, vs = quantize_kv(v_new)
-        k_cache[:, :T] = kq
-        v_cache[:, :T] = vq
-        ks_cache[:, :T] = ks
-        vs_cache[:, :T] = vs
-    else:
-        k_cache[:, :T] = k_new.to(k_cache.dtype)
-        v_cache[:, :T] = v_new.to(v_cache.dtype)
-    return k_cache, v_cache, ks_cache, vs_cache
-
-
 def gather_beams(cache: KVCache, beam_idx: torch.Tensor) -> KVCache:
     """Beam-search cache reorder along batch — the paper's GatherNd.
 

@@ -260,7 +260,6 @@ class ServingEngine:
                  burst_len: Union[int, str] = 8, paged: bool = False,
                  page_size: int = 16, n_pages: Optional[int] = None,
                  prefix_cache: bool = False, prefix_pages: int = 256,
-                 prefix_page_size: Optional[int] = None,
                  mesh=None, device: str = "cuda"):
         """``paged``/``page_size``/``n_pages`` choose ``serve``'s KV cache
         (``generate`` always uses the contiguous one); ``max_len`` must
@@ -268,9 +267,8 @@ class ServingEngine:
         contiguous shape.  ``burst_len="auto"`` adapts ``serve``'s burst
         cap (:class:`AdaptiveBurst`).  ``prefix_cache`` is ``serve``'s
         default for its own ``prefix_cache`` argument; the cache's chain
-        pool holds ``prefix_pages`` pages of ``prefix_page_size`` tokens
-        (default ``page_size``), built at first use and kept across
-        serves."""
+        pool holds ``prefix_pages`` pages of ``page_size`` tokens, built at
+        first use and kept across serves."""
         self.device = torch.device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
@@ -294,7 +292,6 @@ class ServingEngine:
         self._enc_bucket_hwm = 0
         self.prefix_cache_default = bool(prefix_cache)
         self.prefix_pages = int(prefix_pages)
-        self.prefix_page_size = int(prefix_page_size or page_size)
         self._prefix_cache_obj: Optional[PrefixCache] = None
         self._prefix_pool: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
@@ -814,9 +811,9 @@ class ServingEngine:
         writes go in place, so the pool lives here across serves."""
         if self._prefix_cache_obj is None:
             self._prefix_cache_obj = PrefixCache(
-                kvc.PageAllocator(self.prefix_pages, self.prefix_page_size))
+                kvc.PageAllocator(self.prefix_pages, self.page_size))
             cfg = self.model.cfg
-            shape = (cfg.n_layers, self.prefix_pages, self.prefix_page_size,
+            shape = (cfg.n_layers, self.prefix_pages, self.page_size,
                      cfg.n_kv_heads, cfg.hd)
             self._prefix_pool = tuple(
                 torch.zeros(shape, dtype=cfg.activation_dtype,
@@ -828,45 +825,6 @@ class ServingEngine:
         use = (self.prefix_cache_default if prefix_cache is None
                else bool(prefix_cache))
         return self._ensure_prefix_cache() if use else None
-
-    @staticmethod
-    def _prefix_result_fields(pc: Optional[PrefixCache],
-                              stats0) -> Dict[str, Any]:
-        """ServeResult fields: per-serve deltas of the persistent stats."""
-        if pc is None:
-            return {}
-        s = pc.stats
-        return dict(prefix_cache=True,
-                    prefix_hits=s.hits - stats0.hits,
-                    prefix_misses=s.misses - stats0.misses,
-                    prefix_inserts=s.inserts - stats0.inserts,
-                    prefix_evictions=s.evictions - stats0.evictions,
-                    prefix_hit_pages=s.hit_pages - stats0.hit_pages,
-                    prefix_pages_allocated=(s.pages_allocated
-                                            - stats0.pages_allocated),
-                    prefix_chains=pc.n_chains)
-
-    @staticmethod
-    def _overload_result_fields(overcommit, preempt_count, store, watchdog,
-                                sched, reqs, allocator,
-                                peak_running) -> Dict[str, Any]:
-        """ServeResult fields of the overload machinery."""
-        misses = len(sched.rejected) + sum(
-            1 for r in reqs
-            if (r.status == "finished" and r.deadline_s is not None
-                and r.finish_s is not None and r.finish_s > r.deadline_s))
-        return dict(
-            overcommit=overcommit,
-            preemptions=preempt_count,
-            spill_events=store.spill_events,
-            restore_events=store.restore_events,
-            spilled_bytes=store.spilled_bytes,
-            straggler_rounds=len(watchdog.straggler_steps),
-            peak_running=peak_running,
-            rejected=len(sched.rejected),
-            deadline_misses=misses,
-            free_lwm=allocator.free_lwm if allocator else 0,
-            fragmentation=allocator.fragmentation if allocator else 0.0)
 
     def _pool_insert(self, cross_k, cross_v, pages) -> None:
         """Scatter encoded cross K/V into reserved chain pages (host
@@ -1033,50 +991,6 @@ class ServingEngine:
             own_pages=grow(cache.own_pages))
         return out
 
-    @staticmethod
-    def _pages_held(req: Request) -> int:
-        return len(req.pages or [])
-
-    def _alloc_growth(self, allocator, sched, req: Request, n: int,
-                      preempt) -> List[int]:
-        """``n`` pages for ``req``'s growth, preempting (``preempt``) the
-        least urgent other running requests while the pool is dry.  A row
-        that cannot grow cannot take its next step, so a need that no set
-        of victims covers fails before anything is spilled."""
-        pages = allocator.alloc(n)
-        while pages is None:
-            victims, covered = pick_victims(
-                [r for r in sched.slot_map.values() if r is not req],
-                pages_needed=n - allocator.n_free, key_fn=sched.victim_key,
-                pages_held_fn=self._pages_held)
-            if not victims or not covered:
-                raise RuntimeError(
-                    "page growth wedged: no preemptable victim set covers "
-                    f"request {req.req_id}'s need ({n} pages)")
-            for v in victims:
-                preempt(v)
-            pages = allocator.alloc(n)
-        return pages
-
-    def _preempt_for_admission(self, sched, n_tries: int, preempt) -> None:
-        """Free pages for the most urgent waiting request by preempting
-        strictly less urgent running ones, and only when that lets it in
-        (equal urgency never evicts, so requests cannot evict each other in
-        turn)."""
-        for _ in range(n_tries):
-            short = sched.admission_shortfall()
-            if short is None:
-                return
-            victims, covered = pick_victims(
-                list(sched.slot_map.values()),
-                pages_needed=max(short["pages_short"], 1),
-                key_fn=sched.victim_key, pages_held_fn=self._pages_held,
-                min_key=short["head_key"])
-            if not victims or not covered:
-                return
-            for v in victims:
-                preempt(v)
-
     def _check_overload_args(self, overcommit: float,
                              prefill_chunk: Optional[int], chaos,
                              fused_admission: bool) -> None:
@@ -1223,11 +1137,10 @@ class ServingEngine:
         (``engine.py:1787-2261`` of the reference, without chunked
         prefill).
 
-        Each round: (a) the chaos schedule's forced preemptions, (b) page
-        growth of overcommitted rows, evicting victims when the pool is
-        dry, (c) admission-driven preemption of less urgent rows, then
-        admission (resumed requests re-spliced from their spill, prefix
-        hits from the chain pool, misses encoded), the burst and its drain.
+        Each round: the round edge of :class:`_ServeRun` (chaos, growth,
+        admission-driven preemption), then admission (resumed requests
+        re-spliced from their spill, prefix hits from the chain pool,
+        misses encoded), the burst and its drain.
         """
         K = self._resolve_burst(burst_len)
         ctrl = self._burst_controller(K)
@@ -1241,98 +1154,17 @@ class ServingEngine:
                                paged=self.paged, page_size=self.page_size)
         self._check_budgets(reqs)
         enc_len = self._enc_bucket(reqs, pad_to_multiple)
-        pc = self._resolve_prefix_cache(prefix_cache)
-        stats0 = pc.stats.snapshot() if pc else None
-        allocator = self._serve_allocator(n_slots, reqs, lambda r: 1,
-                                          overcommit)
-        # overcommit: admission allocates one burst's pages; the loop grows
-        # rows and preempts by spill under pressure
-        burst_hint = ctrl.max_burst if ctrl else K
-        initial_fn = None
-        if allocator is not None and overcommit > 1.0:
-            initial_fn = lambda r: self._initial_pages(r, 1, burst_hint)
-        sched = ContinuousScheduler(
-            n_slots, prefill_token_budget=prefill_token_budget,
-            allocator=allocator,
-            pages_per_request=((lambda r: self._pages_per_request(r, 1))
-                               if allocator else None),
-            prefix_cache=pc, initial_pages=initial_fn)
-        sched.submit_many(reqs)
-        state = self.model.init_decode_state(
-            n_slots, self.max_len, quantized=self.quant.quantize_kv,
-            enc_len=enc_len, paged=self.paged, page_size=self.page_size,
-            n_pages=allocator.n_pages if allocator else None)
-        tokens = torch.zeros((n_slots,), dtype=torch.int32,
-                             device=self.device)
-
-        t0 = time.perf_counter()
-        now = lambda: time.perf_counter() - t0
+        run = _ServeRun(
+            self, reqs, n_rows=n_slots, group=1, width=lambda r: 1,
+            cursor=lambda slot, r: len(r.tokens),
+            burst_hint=ctrl.max_burst if ctrl else K, enc_len=enc_len,
+            prefill_token_budget=prefill_token_budget,
+            prefix_cache=prefix_cache, overcommit=overcommit, chaos=chaos)
+        sched, pc, now = run.sched, run.pc, run.now
         decode_steps = busy_slot_steps = prefill_rounds = host_syncs = 0
-        prefill_dispatches = encoder_tokens = peak_running = 0
-        store, watchdog = SpillStore(), StepWatchdog()
-        # with growth or preemption, freed pages can be handed to other
-        # rows before the next fused prologue: free dead rows at once
-        eager_free = overcommit > 1.0 or chaos is not None
-        preempt_count = round_idx = 0
-        maxP = self._max_pages
+        prefill_dispatches = encoder_tokens = peak_running = round_idx = 0
 
-        def preempt_req(req: Request) -> None:
-            """Spill one running request to the host and evict it."""
-            nonlocal state, host_syncs, preempt_count
-            slot = req.slot
-            k, v, ks, vs, lens, toks, ck, cv, slens = self._spill(
-                state, tokens, np.asarray([slot], np.int32))
-            host_syncs += 1
-            req.spill = SpilledRequest(
-                req_id=req.req_id, n_rows=1, k=k, v=v, k_scale=ks,
-                v_scale=vs, lengths=lens, tokens_row=toks, cross_k=ck,
-                cross_v=cv, src_lengths=slens, n_pages=len(req.pages or []))
-            store.put(req.spill)
-            sched.preempt(req, now())
-            preempt_count += 1
-            # sentinel the victim's table now: the next burst's masked
-            # writes would otherwise land in pages growth or a resume may
-            # already have handed on
-            state = dict(state)
-            state["cache"] = kvc.free_slots_paged(
-                state["cache"], np.asarray([slot], np.int32))
-
-        def grow_rows(k_cap: int) -> None:
-            """Pre-burst growth of overcommitted rows: pages for each
-            row's cursor plus the next burst."""
-            nonlocal state
-            for slot, req in list(sched.slot_map.items()):
-                if sched.slot_map.get(slot) is not req:
-                    continue       # a victim of an earlier growth this round
-                cap_tok = min(req.max_new_tokens, self.max_len)
-                need = kvc.pages_per_row(min(len(req.tokens) + k_cap,
-                                             cap_tok), self.page_size)
-                extra = need - len(req.pages)
-                if extra <= 0:
-                    continue
-                newp = self._alloc_growth(allocator, sched, req, extra,
-                                          preempt_req)
-                have = len(req.pages)
-                upd = np.full((1, maxP), -1, np.int32)
-                upd[0, have:have + extra] = newp
-                req.pages.extend(newp)
-                state = self._grow(state, np.asarray([slot], np.int32), upd)
-
-        def restore_resumed(resumed: List[Request]) -> None:
-            """Splice spilled payloads into the rows just admitted."""
-            nonlocal state, tokens
-            for req in resumed:
-                sp = req.spill
-                pages = np.full((1, maxP), allocator.n_pages, np.int32)
-                pages[0, :len(req.pages)] = req.pages
-                state, tokens = self._resume(
-                    state, tokens, np.asarray([req.slot], np.int32), pages,
-                    sp)
-                store.pop(req.req_id)
-                allocator.unspill(sp.n_pages)
-                req.spill = None
-
-        def prefill_into_slots(admitted, state, tokens):
+        def prefill_into_slots(admitted) -> None:
             """Unfused admission: prefill a side batch (caching the encodes
             routed "insert"), splice it in, and drain its first tokens."""
             src_pad, lens = pad_batch([r.src for r in admitted],
@@ -1344,12 +1176,10 @@ class ServingEngine:
                 self._pool_insert(sub["cross_k"], sub["cross_v"],
                                   sched.chain_pages_matrix(admitted, width,
                                                            enc_len))
-            pages = (self._page_rows(admitted, 1, width, allocator.n_pages)
-                     if allocator else None)
-            state, tokens = self._splice_rows(
-                state, tokens, sub, first,
+            run.state, run.tokens = self._splice_rows(
+                run.state, run.tokens, sub, first,
                 np.asarray([r.slot for r in admitted], np.int32), width,
-                pages=pages)
+                pages=run.page_rows(admitted, width))
             first_host = first.cpu().numpy()[:len(admitted)]
             t = now()
             released = []
@@ -1363,19 +1193,12 @@ class ServingEngine:
                     if r.max_new_tokens <= 1:
                         released.append(sched.release(r, t,
                                                       step=decode_steps))
-            return self._free_released(state, released), tokens
+            run.state = self._free_released(run.state, released)
 
         while not sched.all_done:
             rnd = round_idx
             round_idx += 1
-            if chaos is not None and sched.slot_map:
-                by_id = {r.req_id: r for r in sched.slot_map.values()}
-                for rid in chaos.victims_for(rnd, list(by_id)):
-                    preempt_req(by_id[rid])
-            if initial_fn is not None:
-                grow_rows(ctrl.k if ctrl else K)
-                self._preempt_for_admission(sched, n_slots + len(reqs),
-                                            preempt_req)
+            run.round_edge(rnd, ctrl.k if ctrl else K)
             plan = None
             want_admit = (sched.n_waiting and sched.n_free >=
                           min(max(admit_min_free, 1), sched.n_waiting,
@@ -1386,38 +1209,18 @@ class ServingEngine:
                 if plan.n_admitted:
                     prefill_rounds += 1
                 encoder_tokens += len(plan.requests) * enc_len
-                if plan.resumed:
-                    restore_resumed(plan.resumed)
+                run.restore(plan.resumed)
             elif want_admit:
                 admitted = sched.admit(now(), step=decode_steps)
                 if admitted:
                     prefill_rounds += 1
-                    resumed = [r for r in admitted if r.spill is not None]
-                    fresh = [r for r in admitted if r.spill is None]
-                    if resumed:
-                        restore_resumed(resumed)
-                    hits: List[Request] = []
-                    enc_list = fresh
-                    if pc is not None:
-                        # zero budgets skip the routing: they release in
-                        # prefill_into_slots before any chain could pair
-                        misses, hits = sched.assign_prefix(
-                            [r for r in fresh if r.max_new_tokens > 0])
-                        enc_list = misses + [r for r in fresh
-                                             if r.max_new_tokens <= 0]
+                    enc_list, hits = run.split_unfused(admitted)
                     if enc_list:
                         prefill_dispatches += 1
                         host_syncs += 1       # the first-token drain
                         encoder_tokens += len(enc_list) * enc_len
-                        state, tokens = prefill_into_slots(enc_list, state,
-                                                           tokens)
-                    if hits:
-                        hrows, hlens, hpages, hw = sched.shape_hits(
-                            hits, enc_len=enc_len, oob_row=n_slots)
-                        state, tokens = self._hit_splice(
-                            state, tokens, hpages, hlens, hrows, 1,
-                            self._page_rows(hits, 1, hw, allocator.n_pages)
-                            if allocator else None)
+                        prefill_into_slots(enc_list)
+                    run.splice_hits(hits)
             peak_running = max(peak_running, sched.n_running)
             if not sched.slot_map:
                 continue        # every admitted request finished on token 1
@@ -1429,18 +1232,11 @@ class ServingEngine:
             cap = ctrl.k if ctrl else K
             t_dispatch = time.perf_counter()
             remaining_dev = torch.as_tensor(remaining, device=self.device)
-            if plan is not None and (plan.width or plan.hit_width):
-                n = allocator.n_pages if allocator else 0
-                state, tokens = self._admission_prologue(
-                    state, tokens, remaining_dev > 0, plan,
-                    pages=(self._page_rows(plan.requests, 1, plan.width, n)
-                           if allocator and plan.width else None),
-                    hit_pages=(self._page_rows(plan.hits, 1, plan.hit_width,
-                                               n)
-                               if allocator and plan.hit_width else None),
-                    insert=pc is not None)
-            tokens, _, state, buf, live = self._greedy_burst(
-                tokens, remaining_dev, min(cap, int(remaining.max())), state)
+            if plan is not None:
+                run.prologue(plan, remaining_dev > 0)
+            run.tokens, _, run.state, buf, live = self._greedy_burst(
+                run.tokens, remaining_dev, min(cap, int(remaining.max())),
+                run.state)
             buf_host, steps = self._drain(buf, live)
             steps = int(steps)
             burst_wall = time.perf_counter() - t_dispatch
@@ -1474,31 +1270,21 @@ class ServingEngine:
                 wasted_row_steps += steps - used
             if ctrl:
                 ctrl.observe(burst_wall, steps, wasted_row_steps, n_slots)
-            watchdog.observe(burst_wall +
-                             (chaos.slow_for(rnd) if chaos else 0.0))
-            if freed and (not fused_admission or eager_free):
+            run.observe(rnd, burst_wall)
+            if freed and (not fused_admission or run.eager_free):
                 # fused rounds otherwise reset dead rows in the next
                 # prologue
-                state = dict(state)
-                free = kvc.free_slots_paged if self.paged else kvc.free_slots
-                state["cache"] = free(state["cache"],
-                                      np.asarray(freed, np.int32))
+                run.free(freed)
 
         return ServeResult(
             requests=reqs, n_slots=n_slots, decode_steps=decode_steps,
             busy_slot_steps=busy_slot_steps, prefill_rounds=prefill_rounds,
-            wall_s=now(), host_syncs=host_syncs,
+            wall_s=now(), host_syncs=host_syncs + run.preemptions,
             burst_len=ctrl.k if ctrl else K,
             prefill_dispatches=prefill_dispatches,
             encoder_tokens=encoder_tokens, fused_admission=fused_admission,
             auto_burst=ctrl is not None,
-            paged=self.paged, page_size=self.page_size,
-            pages_in_use=allocator.in_use if allocator else 0,
-            page_hwm=allocator.hwm if allocator else 0,
-            **self._overload_result_fields(
-                overcommit, preempt_count, store, watchdog, sched, reqs,
-                allocator, peak_running),
-            **self._prefix_result_fields(pc, stats0))
+            **run.result_fields(reqs, peak_running))
 
     # ------------------------------------------------- continuous beam search
     def _beam_widths(self, reqs: Sequence[Request], beam
@@ -1583,51 +1369,47 @@ class ServingEngine:
                                paged=self.paged, page_size=self.page_size)
         self._check_budgets(reqs)
         enc_len = self._enc_bucket(reqs, pad_to_multiple)
-        pc = self._resolve_prefix_cache(prefix_cache)
-        stats0 = pc.stats.snapshot() if pc else None
-        allocator = self._serve_allocator(R, reqs,
-                                          lambda r: width_of[r.req_id],
-                                          overcommit)
-        burst_hint = ctrl.max_burst if ctrl else K
-        initial_fn = None
-        if allocator is not None and overcommit > 1.0:
-            initial_fn = lambda r: self._initial_pages(
-                r, width_of[r.req_id], burst_hint)
-        sched = ContinuousScheduler(
-            R, group_size=beam, prefill_token_budget=prefill_token_budget,
-            allocator=allocator,
-            pages_per_request=(
-                (lambda r: self._pages_per_request(r, width_of[r.req_id]))
-                if allocator else None),
-            prefix_cache=pc, initial_pages=initial_fn)
-        sched.submit_many(reqs)
-        state = self.model.init_decode_state(
-            R, self.max_len, quantized=self.quant.quantize_kv,
-            enc_len=enc_len, paged=self.paged, page_size=self.page_size,
-            n_pages=allocator.n_pages if allocator else None)
-        tokens = torch.zeros((R,), dtype=torch.int32, device=self.device)
-        # bytes one beam step's reorder moves: paged, the table permutation
-        # and one page a row; contiguous, the whole KV slab and cross K/V
-        if self.paged:
-            reorder_step_bytes = state["cache"].reorder_bytes_per_step()
-        else:
-            ck = state["cross_k"]
-            reorder_step_bytes = (state["cache"].nbytes()
-                                  + 2 * ck.numel() * ck.element_size())
         # host-side per-row beam state, sent up and drained every burst
         scores_np = np.zeros((R,), np.float32)
         finished_np = np.ones((R,), bool)        # unoccupied rows are inert
         histories: Dict[int, List[np.ndarray]] = {}  # base → (beam,) columns
         budget_left: Dict[int, int] = {}             # base → steps left
 
-        t0 = time.perf_counter()
-        now = lambda: time.perf_counter() - t0
+        def save_search(base: int) -> dict:
+            """A preempted group's host search state; its rows go inert."""
+            out = {"scores": scores_np[base:base + beam].copy(),
+                   "finished": finished_np[base:base + beam].copy(),
+                   "history": histories.pop(base, []),
+                   "budget_left": budget_left.pop(base, 0)}
+            finished_np[base:base + beam] = True
+            return out
+
+        def load_search(base: int, saved: dict) -> None:
+            """A resumed group's host search state, verbatim."""
+            scores_np[base:base + beam] = saved["scores"]
+            finished_np[base:base + beam] = saved["finished"]
+            histories[base] = list(saved["history"])
+            budget_left[base] = saved["budget_left"]
+
+        run = _ServeRun(
+            self, reqs, n_rows=R, group=beam,
+            width=lambda r: width_of[r.req_id],
+            cursor=lambda base, r: r.max_new_tokens - budget_left[base],
+            burst_hint=ctrl.max_burst if ctrl else K, enc_len=enc_len,
+            prefill_token_budget=prefill_token_budget,
+            prefix_cache=prefix_cache, overcommit=overcommit, chaos=chaos,
+            save=save_search, load=load_search)
+        sched, allocator, pc, now = run.sched, run.allocator, run.pc, run.now
+        # bytes one beam step's reorder moves: paged, the table permutation
+        # and one page a row; contiguous, the whole KV slab and cross K/V
+        if self.paged:
+            reorder_step_bytes = run.state["cache"].reorder_bytes_per_step()
+        else:
+            ck = run.state["cross_k"]
+            reorder_step_bytes = (run.state["cache"].nbytes()
+                                  + 2 * ck.numel() * ck.element_size())
         decode_steps = busy_slot_steps = prefill_rounds = host_syncs = 0
-        prefill_dispatches = encoder_tokens = peak_running = 0
-        store, watchdog = SpillStore(), StepWatchdog()
-        eager_free = overcommit > 1.0 or chaos is not None
-        preempt_count = round_idx = 0
-        maxP = self._max_pages
+        prefill_dispatches = encoder_tokens = peak_running = round_idx = 0
 
         def seed_group(req: Request, budget: int) -> None:
             """A fused admission's search state: row 0 at score 0, the
@@ -1653,80 +1435,7 @@ class ServingEngine:
             finished_np[base:base + beam] = True
             return sched.release(req, t, step=step)
 
-        def preempt_req(req: Request) -> None:
-            """Spill one running group (all ``beam`` rows and its host
-            search state) and evict it."""
-            nonlocal state, host_syncs, preempt_count
-            base = req.slot
-            rows = np.arange(base, base + beam, dtype=np.int32)
-            k, v, ks, vs, lens, toks, ck, cv, slens = self._spill(
-                state, tokens, rows)
-            host_syncs += 1
-            req.spill = SpilledRequest(
-                req_id=req.req_id, n_rows=beam, k=k, v=v, k_scale=ks,
-                v_scale=vs, lengths=lens, tokens_row=toks, cross_k=ck,
-                cross_v=cv, src_lengths=slens, n_pages=len(req.pages or []),
-                beam={"scores": scores_np[base:base + beam].copy(),
-                      "finished": finished_np[base:base + beam].copy(),
-                      "history": histories.pop(base, []),
-                      "budget_left": budget_left.pop(base, 0)})
-            store.put(req.spill)
-            sched.preempt(req, now())
-            finished_np[base:base + beam] = True     # rows now inert
-            preempt_count += 1
-            state = dict(state)
-            state["cache"] = kvc.free_slots_paged(state["cache"], rows)
-
-        def grow_rows(k_cap: int) -> None:
-            """Pre-burst growth of overcommitted groups: each live row
-            gets pages for its cursor plus the next burst."""
-            nonlocal state
-            for base, req in list(sched.slot_map.items()):
-                if sched.slot_map.get(base) is not req:
-                    continue       # a victim of an earlier growth this round
-                b = width_of[req.req_id]
-                cursor = req.max_new_tokens - budget_left[base]
-                cap_tok = min(req.max_new_tokens, self.max_len)
-                need = kvc.pages_per_row(min(cursor + k_cap, cap_tok),
-                                         self.page_size)
-                have_pr = len(req.pages) // b
-                extra_pr = need - have_pr
-                if extra_pr <= 0:
-                    continue
-                newp = self._alloc_growth(allocator, sched, req,
-                                          extra_pr * b, preempt_req)
-                upd = np.full((beam, maxP), -1, np.int32)
-                for i in range(b):
-                    upd[i, have_pr:have_pr + extra_pr] = \
-                        newp[i * extra_pr:(i + 1) * extra_pr]
-                # the flat page list is interleaved from here on: only its
-                # length (growth) and its release read it, and a resume
-                # allocates afresh
-                req.pages.extend(newp)
-                state = self._grow(
-                    state, np.arange(base, base + beam, dtype=np.int32), upd)
-
-        def restore_resumed(resumed: List[Request]) -> None:
-            """Splice spilled groups back: the device KV through the paged
-            splice, the host search state verbatim."""
-            nonlocal state, tokens
-            for req in resumed:
-                sp = req.spill
-                base, b = req.slot, width_of[req.req_id]
-                pages = self._page_rows([req], beam, 1, allocator.n_pages,
-                                        widths=[b])
-                state, tokens = self._resume(
-                    state, tokens, np.arange(base, base + beam,
-                                             dtype=np.int32), pages, sp)
-                scores_np[base:base + beam] = sp.beam["scores"]
-                finished_np[base:base + beam] = sp.beam["finished"]
-                histories[base] = list(sp.beam["history"])
-                budget_left[base] = sp.beam["budget_left"]
-                store.pop(req.req_id)
-                allocator.unspill(sp.n_pages)
-                req.spill = None
-
-        def prefill_groups(admitted, state, tokens):
+        def prefill_groups(admitted) -> None:
             """Unfused admission: prefill the sources tiled ``beam×``
             (caching the encodes routed "insert" from each group's first
             row), splice the groups in, and take each group's first
@@ -1761,11 +1470,9 @@ class ServingEngine:
             if allocator:
                 pages = np.full((width, self._max_pages), allocator.n_pages,
                                 np.int32)
-                pages[:rows] = self._page_rows(
-                    admitted, beam, g, allocator.n_pages,
-                    widths=[width_of[r.req_id] for r in admitted])
-            state, tokens = self._splice_rows(
-                state, tokens, sub,
+                pages[:rows] = run.page_rows(admitted, g)
+            run.state, run.tokens = self._splice_rows(
+                run.state, run.tokens, sub,
                 torch.as_tensor(sub_np, device=self.device),
                 kvc.group_rows([r.slot for r in admitted], beam), width,
                 pages=pages)
@@ -1786,20 +1493,13 @@ class ServingEngine:
                 budget_left[base] = r.max_new_tokens - 1
                 if fin.all() or budget_left[base] <= 0:
                     released.append(finalize(r, base, t, step=decode_steps))
-            return self._free_released(
-                state, kvc.group_rows(released, beam)), tokens
+            run.state = self._free_released(
+                run.state, kvc.group_rows(released, beam))
 
         while not sched.all_done:
             rnd = round_idx
             round_idx += 1
-            if chaos is not None and sched.slot_map:
-                by_id = {r.req_id: r for r in sched.slot_map.values()}
-                for rid in chaos.victims_for(rnd, list(by_id)):
-                    preempt_req(by_id[rid])
-            if initial_fn is not None:
-                grow_rows(ctrl.k if ctrl else K)
-                self._preempt_for_admission(sched, n_groups + len(reqs),
-                                            preempt_req)
+            run.round_edge(rnd, ctrl.k if ctrl else K)
             plan = None
             want_admit = (sched.n_waiting and sched.n_free >=
                           min(max(admit_min_free, 1), sched.n_waiting,
@@ -1810,46 +1510,26 @@ class ServingEngine:
                 if plan.n_admitted:
                     prefill_rounds += 1
                 encoder_tokens += len(plan.requests) * enc_len
-                if plan.resumed:
-                    restore_resumed(plan.resumed)
+                run.restore(plan.resumed)
                 for r in plan.requests + plan.hits:
                     seed_group(r, r.max_new_tokens)
             elif want_admit:
                 admitted = sched.admit(now(), step=decode_steps)
                 if admitted:
                     prefill_rounds += 1
-                    resumed = [r for r in admitted if r.spill is not None]
-                    fresh = [r for r in admitted if r.spill is None]
-                    if resumed:
-                        restore_resumed(resumed)
-                    hits: List[Request] = []
-                    enc_list = fresh
-                    if pc is not None:
-                        misses, hits = sched.assign_prefix(
-                            [r for r in fresh if r.max_new_tokens > 0])
-                        enc_list = misses + [r for r in fresh
-                                             if r.max_new_tokens <= 0]
+                    enc_list, hits = run.split_unfused(admitted)
                     if enc_list:
                         prefill_dispatches += 1
                         host_syncs += 1       # the first-token drain
                         # the side batch tiles each source beam× through
                         # the encoder
                         encoder_tokens += len(enc_list) * beam * enc_len
-                        state, tokens = prefill_groups(enc_list, state,
-                                                       tokens)
-                    if hits:
-                        # no encoder: splice the chains over each group
-                        # and seed it as fused admission does
-                        hrows, hlens, hpages, hw = sched.shape_hits(
-                            hits, enc_len=enc_len, oob_row=R)
-                        state, tokens = self._hit_splice(
-                            state, tokens, hpages, hlens, hrows, beam,
-                            self._page_rows(
-                                hits, beam, hw, allocator.n_pages,
-                                widths=[width_of[r.req_id] for r in hits])
-                            if allocator else None)
-                        for r in hits:
-                            seed_group(r, r.max_new_tokens)
+                        prefill_groups(enc_list)
+                    # no encoder: splice the chains over each group and
+                    # seed it as fused admission does
+                    run.splice_hits(hits)
+                    for r in hits:
+                        seed_group(r, r.max_new_tokens)
             peak_running = max(peak_running, sched.n_running)
             if not sched.slot_map:
                 continue        # every admitted group finished on token 1
@@ -1863,24 +1543,13 @@ class ServingEngine:
             t_dispatch = time.perf_counter()
             dev = lambda a: torch.as_tensor(a, device=self.device)
             remaining_dev = dev(remaining_in)
-            if plan is not None and (plan.width or plan.hit_width):
-                n = allocator.n_pages if allocator else 0
-                widths = lambda rs: [width_of[r.req_id] for r in rs]
-                state, tokens = self._admission_prologue(
-                    state, tokens, (remaining_dev > 0).repeat_interleave(beam),
-                    plan,
-                    pages=(self._page_rows(plan.requests, beam, plan.width,
-                                           n, widths=widths(plan.requests))
-                           if allocator and plan.width else None),
-                    hit_pages=(self._page_rows(plan.hits, beam,
-                                               plan.hit_width, n,
-                                               widths=widths(plan.hits))
-                               if allocator and plan.hit_width else None),
-                    insert=pc is not None, group=beam)
-            (tokens, scores, finished, remaining, comp, state, buf,
+            if plan is not None:
+                run.prologue(plan,
+                             (remaining_dev > 0).repeat_interleave(beam))
+            (run.tokens, scores, finished, remaining, comp, run.state, buf,
              live) = self._beam_serve_burst(
-                beam, tokens, dev(scores_np), dev(finished_np),
-                remaining_dev, min(cap, int(remaining_in.max())), state,
+                beam, run.tokens, dev(scores_np), dev(finished_np),
+                remaining_dev, min(cap, int(remaining_in.max())), run.state,
                 dev(parked_np))
             (buf_host, comp_host, scores_np, finished_np, remaining_out,
              steps) = self._drain(buf, comp, scores, finished, remaining,
@@ -1922,32 +1591,305 @@ class ServingEngine:
                                           step=step_base + s_g))
             if ctrl:
                 ctrl.observe(burst_wall, steps, wasted_row_steps, R)
-            watchdog.observe(burst_wall +
-                             (chaos.slow_for(rnd) if chaos else 0.0))
-            if freed and (not fused_admission or eager_free):
+            run.observe(rnd, burst_wall)
+            if freed and (not fused_admission or run.eager_free):
                 # fused rounds otherwise reset dead rows in the next
                 # prologue
-                state = dict(state)
-                if self.paged:
-                    state["cache"] = kvc.free_slots_paged(
-                        state["cache"], kvc.group_rows(freed, beam))
-                else:
-                    state["cache"] = kvc.free_groups(state["cache"], freed,
-                                                     beam)
+                run.free(freed)
 
         return ServeResult(
             requests=reqs, n_slots=R, decode_steps=decode_steps,
             busy_slot_steps=busy_slot_steps, prefill_rounds=prefill_rounds,
-            wall_s=now(), host_syncs=host_syncs,
+            wall_s=now(), host_syncs=host_syncs + run.preemptions,
             burst_len=ctrl.k if ctrl else K, beam=beam,
             prefill_dispatches=prefill_dispatches,
             encoder_tokens=encoder_tokens, fused_admission=fused_admission,
             auto_burst=ctrl is not None,
-            paged=self.paged, page_size=self.page_size,
-            pages_in_use=allocator.in_use if allocator else 0,
-            page_hwm=allocator.hwm if allocator else 0,
             reorder_bytes=reorder_step_bytes * decode_steps,
-            **self._overload_result_fields(
-                overcommit, preempt_count, store, watchdog, sched, reqs,
-                allocator, peak_running),
-            **self._prefix_result_fields(pc, stats0))
+            **run.result_fields(reqs, peak_running))
+
+
+class _ServeRun:
+    """One serve's scheduler, page pool, prefix cache and decode state, and
+    the admission and overload machinery the greedy and the beam loop
+    share: chaos victims, page growth, preemption by spill, resume, prefix
+    hits and the fused prologue.
+
+    A request holds ``group`` contiguous rows from its base row, of which
+    ``width(req)`` are live (greedy: 1 of 1); ``cursor(base, req)`` is a
+    running request's decode position.  Beam serving passes ``save`` and
+    ``load``, which carry a group's host search state through a spill.
+    The loops read and write the device state as ``state`` and ``tokens``.
+    """
+
+    def __init__(self, eng: "ServingEngine", reqs: Sequence[Request], *,
+                 n_rows: int, group: int, width, cursor, burst_hint: int,
+                 enc_len: int, prefill_token_budget: Optional[int],
+                 prefix_cache: Optional[bool], overcommit: float,
+                 chaos: Optional[ChaosSchedule], save=None, load=None):
+        self.eng, self.n_rows, self.group = eng, n_rows, group
+        self.enc_len = enc_len
+        self.width, self.cursor = width, cursor
+        self.save, self.load = save, load
+        self.overcommit, self.chaos = overcommit, chaos
+        self.n_tries = n_rows // group + len(reqs)
+        self.pc = eng._resolve_prefix_cache(prefix_cache)
+        self.stats0 = self.pc.stats.snapshot() if self.pc else None
+        alloc = self.allocator = eng._serve_allocator(n_rows, reqs, width,
+                                                      overcommit)
+        # overcommit: admission allocates one burst's pages; the round edge
+        # grows rows and preempts by spill under pressure
+        self.overcommitted = alloc is not None and overcommit > 1.0
+        self.sched = ContinuousScheduler(
+            n_rows, group_size=group,
+            prefill_token_budget=prefill_token_budget, allocator=alloc,
+            pages_per_request=(
+                (lambda r: eng._pages_per_request(r, width(r)))
+                if alloc else None),
+            prefix_cache=self.pc,
+            initial_pages=(
+                (lambda r: eng._initial_pages(r, width(r), burst_hint))
+                if self.overcommitted else None))
+        self.sched.submit_many(reqs)
+        self.state = eng.model.init_decode_state(
+            n_rows, eng.max_len, quantized=eng.quant.quantize_kv,
+            enc_len=enc_len, paged=eng.paged, page_size=eng.page_size,
+            n_pages=alloc.n_pages if alloc else None)
+        self.tokens = torch.zeros((n_rows,), dtype=torch.int32,
+                                  device=eng.device)
+        self.store, self.watchdog = SpillStore(), StepWatchdog()
+        self.preemptions = 0        # one device→host transfer each
+        # with growth or preemption, freed pages can be handed to other
+        # rows before the next fused prologue: free dead rows at once
+        self.eager_free = overcommit > 1.0 or chaos is not None
+        self.t0 = time.perf_counter()
+
+    def now(self) -> float:
+        return time.perf_counter() - self.t0
+
+    def rows_of(self, base: int) -> np.ndarray:
+        return np.arange(base, base + self.group, dtype=np.int32)
+
+    def page_rows(self, reqs: Sequence[Request],
+                  n_reqs: int) -> Optional[np.ndarray]:
+        """``reqs``' page reservations, padded to ``n_reqs`` requests
+        (``ServingEngine._page_rows``); None on the contiguous cache."""
+        if self.allocator is None:
+            return None
+        return self.eng._page_rows(reqs, self.group, n_reqs,
+                                   self.allocator.n_pages,
+                                   widths=[self.width(r) for r in reqs])
+
+    # ------------------------------------------------------------ admission
+    def prologue(self, plan, live: torch.Tensor) -> None:
+        """Fused admission's device half (``_admission_prologue``), when
+        the round encodes or hits anything; ``live`` (rows,) bool."""
+        if not (plan.width or plan.hit_width):
+            return
+        self.state, self.tokens = self.eng._admission_prologue(
+            self.state, self.tokens, live, plan,
+            pages=self.page_rows(plan.requests, plan.width)
+            if plan.width else None,
+            hit_pages=self.page_rows(plan.hits, plan.hit_width)
+            if plan.hit_width else None,
+            insert=self.pc is not None, group=self.group)
+
+    def split_unfused(self, admitted: List[Request]
+                      ) -> Tuple[List[Request], List[Request]]:
+        """An unfused round's admissions: resumed requests are re-spliced
+        from their spill at once; the fresh ones split into those to encode
+        and the prefix hits.  Zero budgets skip the routing: they release
+        at their first-token drain, before any chain could pair."""
+        fresh = [r for r in admitted if r.spill is None]
+        self.restore([r for r in admitted if r.spill is not None])
+        if self.pc is None:
+            return fresh, []
+        misses, hits = self.sched.assign_prefix(
+            [r for r in fresh if r.max_new_tokens > 0])
+        return misses + [r for r in fresh if r.max_new_tokens <= 0], hits
+
+    def splice_hits(self, hits: List[Request]) -> None:
+        """Unfused prefix hits: their chains spliced from the pool over
+        their rows, with no encoder."""
+        if not hits:
+            return
+        hrows, hlens, hpages, hw = self.sched.shape_hits(
+            hits, enc_len=self.enc_len, oob_row=self.n_rows)
+        self.state, self.tokens = self.eng._hit_splice(
+            self.state, self.tokens, hpages, hlens, hrows, self.group,
+            self.page_rows(hits, hw))
+
+    def free(self, bases) -> None:
+        """Reset the rows of released requests (paged: sentinel their
+        tables too)."""
+        free = kvc.free_slots_paged if self.eng.paged else kvc.free_slots
+        self.state = dict(self.state)
+        self.state["cache"] = free(self.state["cache"],
+                                   kvc.group_rows(bases, self.group))
+
+    # ------------------------------------------------------------- overload
+    def round_edge(self, rnd: int, k_cap: int) -> None:
+        """Before a round's admission: the chaos schedule's forced
+        preemptions, then (overcommit) page growth of the running rows for
+        the next ``k_cap`` steps and preemption of less urgent rows for the
+        most urgent waiting request."""
+        sched = self.sched
+        if self.chaos is not None and sched.slot_map:
+            by_id = {r.req_id: r for r in sched.slot_map.values()}
+            for rid in self.chaos.victims_for(rnd, list(by_id)):
+                self.preempt(by_id[rid])
+        if self.overcommitted:
+            self.grow(k_cap)
+            self.preempt_for_admission()
+
+    def observe(self, rnd: int, burst_wall: float) -> None:
+        """A burst's wall time (plus the chaos schedule's synthetic slow
+        time) into the step watchdog."""
+        self.watchdog.observe(burst_wall + (self.chaos.slow_for(rnd)
+                                            if self.chaos else 0.0))
+
+    def preempt(self, req: Request) -> None:
+        """Spill one running request (its ``group`` rows, and with
+        ``save`` its host search state) to the host and evict it."""
+        base = req.slot
+        rows = self.rows_of(base)
+        k, v, ks, vs, lens, toks, ck, cv, slens = self.eng._spill(
+            self.state, self.tokens, rows)
+        req.spill = SpilledRequest(
+            req_id=req.req_id, n_rows=self.group, k=k, v=v, k_scale=ks,
+            v_scale=vs, lengths=lens, tokens_row=toks, cross_k=ck,
+            cross_v=cv, src_lengths=slens, n_pages=len(req.pages or []),
+            beam=self.save(base) if self.save else None)
+        self.store.put(req.spill)
+        self.sched.preempt(req, self.now())
+        self.preemptions += 1
+        # sentinel the victim's tables now: the next burst's masked writes
+        # would otherwise land in pages growth or a resume may already have
+        # handed on
+        self.state = dict(self.state)
+        self.state["cache"] = kvc.free_slots_paged(self.state["cache"], rows)
+
+    def restore(self, resumed: List[Request]) -> None:
+        """Splice spilled payloads into the rows just admitted, into their
+        fresh page reservations (with ``load``, the host search state
+        too)."""
+        for req in resumed:
+            sp = req.spill
+            self.state, self.tokens = self.eng._resume(
+                self.state, self.tokens, self.rows_of(req.slot),
+                self.page_rows([req], 1), sp)
+            if self.load:
+                self.load(req.slot, sp.beam)
+            self.store.pop(req.req_id)
+            self.allocator.unspill(sp.n_pages)
+            req.spill = None
+
+    def grow(self, k_cap: int) -> None:
+        """Pre-burst growth of overcommitted requests: each live row gets
+        pages for its cursor plus the next ``k_cap`` steps (parked rows
+        reserve none)."""
+        eng, sched = self.eng, self.sched
+        for base, req in list(sched.slot_map.items()):
+            if sched.slot_map.get(base) is not req:
+                continue           # a victim of an earlier growth this round
+            b = self.width(req)
+            cap_tok = min(req.max_new_tokens, eng.max_len)
+            need = kvc.pages_per_row(min(self.cursor(base, req) + k_cap,
+                                         cap_tok), eng.page_size)
+            have = len(req.pages) // b
+            extra = need - have
+            if extra <= 0:
+                continue
+            newp = self.alloc_growth(req, extra * b)
+            upd = np.full((self.group, eng._max_pages), -1, np.int32)
+            for i in range(b):
+                upd[i, have:have + extra] = newp[i * extra:(i + 1) * extra]
+            # a group's flat page list is interleaved from here on: only its
+            # length (growth) and its release read it, and a resume
+            # allocates afresh
+            req.pages.extend(newp)
+            self.state = eng._grow(self.state, self.rows_of(base), upd)
+
+    @staticmethod
+    def _pages_held(req: Request) -> int:
+        return len(req.pages or [])
+
+    def alloc_growth(self, req: Request, n: int) -> List[int]:
+        """``n`` pages for ``req``'s growth, preempting the least urgent
+        other running requests while the pool is dry.  A row that cannot
+        grow cannot take its next step, so a need that no set of victims
+        covers fails before anything is spilled."""
+        allocator, sched = self.allocator, self.sched
+        pages = allocator.alloc(n)
+        while pages is None:
+            victims, covered = pick_victims(
+                [r for r in sched.slot_map.values() if r is not req],
+                pages_needed=n - allocator.n_free, key_fn=sched.victim_key,
+                pages_held_fn=self._pages_held)
+            if not victims or not covered:
+                raise RuntimeError(
+                    "page growth wedged: no preemptable victim set covers "
+                    f"request {req.req_id}'s need ({n} pages)")
+            for v in victims:
+                self.preempt(v)
+            pages = allocator.alloc(n)
+        return pages
+
+    def preempt_for_admission(self) -> None:
+        """Free pages for the most urgent waiting request by preempting
+        strictly less urgent running ones, and only when that lets it in
+        (equal urgency never evicts, so requests cannot evict each other in
+        turn)."""
+        sched = self.sched
+        for _ in range(self.n_tries):
+            short = sched.admission_shortfall()
+            if short is None:
+                return
+            victims, covered = pick_victims(
+                list(sched.slot_map.values()),
+                pages_needed=max(short["pages_short"], 1),
+                key_fn=sched.victim_key, pages_held_fn=self._pages_held,
+                min_key=short["head_key"])
+            if not victims or not covered:
+                return
+            for v in victims:
+                self.preempt(v)
+
+    # --------------------------------------------------------------- result
+    def result_fields(self, reqs: Sequence[Request],
+                      peak_running: int) -> Dict[str, Any]:
+        """ServeResult fields of the page pool, the overload machinery and
+        the prefix cache (per-serve deltas of its persistent stats)."""
+        alloc, sched, eng = self.allocator, self.sched, self.eng
+        misses = len(sched.rejected) + sum(
+            1 for r in reqs
+            if (r.status == "finished" and r.deadline_s is not None
+                and r.finish_s is not None and r.finish_s > r.deadline_s))
+        out = dict(
+            paged=eng.paged, page_size=eng.page_size,
+            pages_in_use=alloc.in_use if alloc else 0,
+            page_hwm=alloc.hwm if alloc else 0,
+            overcommit=self.overcommit,
+            preemptions=self.preemptions,
+            spill_events=self.store.spill_events,
+            restore_events=self.store.restore_events,
+            spilled_bytes=self.store.spilled_bytes,
+            straggler_rounds=len(self.watchdog.straggler_steps),
+            peak_running=peak_running,
+            rejected=len(sched.rejected),
+            deadline_misses=misses,
+            free_lwm=alloc.free_lwm if alloc else 0,
+            fragmentation=alloc.fragmentation if alloc else 0.0)
+        pc, s0 = self.pc, self.stats0
+        if pc is not None:
+            s = pc.stats
+            out.update(prefix_cache=True,
+                       prefix_hits=s.hits - s0.hits,
+                       prefix_misses=s.misses - s0.misses,
+                       prefix_inserts=s.inserts - s0.inserts,
+                       prefix_evictions=s.evictions - s0.evictions,
+                       prefix_hit_pages=s.hit_pages - s0.hit_pages,
+                       prefix_pages_allocated=(s.pages_allocated
+                                               - s0.pages_allocated),
+                       prefix_chains=pc.n_chains)
+        return out

@@ -7,7 +7,7 @@ Host side: ``PrefixCache`` (roles, chains, stats, LRU evictions, refcounts)
 on seeded operation sequences, and the scheduler's prefix routing
 (``assign_prefix``, ``chain_pages_matrix``, ``shape_hits``, the hit fields
 of ``plan_admission``), equal to the reference's.  Device side:
-``insert_chain_pages``, ``gather_chain_pages`` and ``fill_prefix``, exact.
+``insert_chain_pages`` and ``gather_chain_pages``, exact.
 End to end: six requests (three sources, each twice) through 8 rows with
 the cache warm from the first occurrence, greedy and beam (uniform and
 mixed widths), FP and INT8 dynamic and one INT4 case, fused and unfused,
@@ -275,35 +275,6 @@ def test_chain_pages_equal_reference(dtype):
         assert tuple(got.shape) == want.shape == (L, 3, seq_len, HKV, dh)
         np.testing.assert_array_equal(as_f32(got),
                                       np.asarray(want.astype(jnp.float32)))
-
-
-@pytest.mark.parametrize("quantized", [False, True])
-def test_fill_prefix_equals_reference(quantized):
-    """Positions [0, T) of every row written, INT8 codes and scales or the
-    fp payload, the rest untouched."""
-    rng = np.random.default_rng(8)
-    B, S, T, HKV, dh = 3, 6, 4, 2, 5
-    k_new = rng.standard_normal((B, T, HKV, dh)).astype(np.float32)
-    v_new = rng.standard_normal((B, T, HKV, dh)).astype(np.float32)
-    if quantized:
-        bufs = [np.zeros((B, S, HKV, dh), np.int8) for _ in range(2)] + \
-            [np.zeros((B, S, HKV), np.float32) for _ in range(2)]
-    else:
-        bufs = [np.full((B, S, HKV, dh), 7, np.float32) for _ in range(2)] \
-            + [None, None]
-    t = lambda a: None if a is None else torch.as_tensor(a.copy())
-    j = lambda a: None if a is None else jnp.asarray(a)
-    got = kv.fill_prefix(*map(t, bufs), torch.as_tensor(k_new),
-                         torch.as_tensor(v_new))
-    # held to the jitted reference: XLA turns amax / 127 into a multiply
-    # by float32(1/127), as the port's quantize_kv does
-    want = jax.jit(jkv.fill_prefix)(*map(j, bufs), jnp.asarray(k_new),
-                                    jnp.asarray(v_new))
-    for g, w in zip(got, want):
-        if w is None:
-            assert g is None
-        else:
-            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 # ---------------------------------------------------------------------------
