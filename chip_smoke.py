@@ -45,7 +45,7 @@ final line):
    cache, paged cache (default pool and a tight 32-page pool) with fused
    admission, and paged with unfused admission.  Paged and contiguous
    tokens must be identical, every page returned, K5 launched on the paged
-   runs only and its plain version never; then the first 24 requests
+   runs only and its plain version never; then the first 12 requests
    again through per-request ``generate`` (logged) and a profiled paged
    serve of the first 12 (with K4's and K5's device time);
 5b. continuous beam serving — the first 24 of those requests at
@@ -57,7 +57,7 @@ final line):
    formula, K4 launches on the contiguous run and K5 on the paged ones,
    K2 on the dynamic one, and neither plain attention runs; then the
    agreement of the first 12 with per-request ``generate_beam`` (logged),
-   and a profiled contiguous and paged beam serve of 12 requests
+   and a profiled contiguous and paged beam serve of 8 requests
    (device only) with one reorder of each cache profiled alone;
 6. INT4 weights — the same model quantized with ``weight_bits=4`` (decoder
    FFN and attention output projections block-wise INT4, group 128, f16
@@ -97,12 +97,25 @@ final line):
    beam-4 group, timed (device span between CUDA events, host ms, the
    profiler's busy time with its events counted against the launches,
    bytes);
+5d. chunked prefill and self-speculative decoding (after 5c) — phase 5's
+   first 24 requests with ``prefill_chunk=24`` (13 sources stage, one
+   encoder layer a round): paged greedy, paged beam 4, and greedy at
+   ``overcommit=1.5`` with a chaos schedule on half its page high-water
+   mark; 13 chunked admissions each, 13 × 6 chunk rounds where nothing
+   was preempted.  Then ``generate(speculative_k=2, 4)`` on phase 4's
+   batch, and ``serve(speculative_k=4)`` of the 24 requests, contiguous
+   (K4) and paged (K5) with the self-draft and paged with a dynamic (K2)
+   draft under the static (K1) verifier.  No plain attention or INT4 call
+   in any run; equal-token counts against the plain serves, acceptance
+   rates, tokens/s beside the plain serves' and the K4/K5 launches are
+   logged, and one macro-step's verify logits against sequential decode's
+   (the largest |Δ| by position);
 8. the serving driver ``python -m repro_torch.launch.serve`` once per mode
    (continuous paged, static, continuous paged with ``--weight-bits 4``,
    continuous paged beam 4 with ``--burst-len auto``), four subprocesses
    at once, each of which must exit 0;
 9. launch counts of each path, and one JSON line describing each kernel
-   (its launches summed over every path of phases 4-7 and 5c);
+   (its launches summed over every path of phases 4-7, 5c and 5d);
 10. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package.
@@ -1042,7 +1055,7 @@ def run_serving(model, qparams, qctx):
     return counts, results, toks
 
 
-GENERATE_CHECKS = 24           # served requests run again alone
+GENERATE_CHECKS = 12           # served requests run again alone
 
 
 def serve_vs_generate(model, qparams, qctx, toks) -> None:
@@ -1083,6 +1096,7 @@ def profile_paged_serve(model, qparams, qctx) -> None:
 # phase 5b: continuous beam serving over the contiguous and the paged cache
 # ---------------------------------------------------------------------------
 
+PROFILED_BEAM_REQUESTS = 8     # phase 5b: two waves of 4 groups profiled
 BEAM_REQUESTS = 24             # phase 5b: the first half of phase 5's
 MIXED_WIDTHS = [1, 2, 3, 4] * (BEAM_REQUESTS // 4)
 BEAM_SERVE_RUNS = (     # name, engine options, serve options, act scales
@@ -1308,11 +1322,12 @@ def reorder_ms(model, paged: bool):
 
 def profile_beam_serves(model, qparams, qctx) -> None:
     """A profiled contiguous and a profiled paged beam-4 serve of the first
-    half of phase 5b's requests (device only: busy time, idle share, K4's
-    and K5's device time), and one reorder of each cache profiled alone."""
+    ``PROFILED_BEAM_REQUESTS`` of phase 5b's requests (device only: busy
+    time, idle share, K4's and K5's device time), and one reorder of each
+    cache profiled alone."""
     from repro_torch.serving import ServingEngine
     corpus, budgets = beam_requests(model.cfg.vocab)
-    half = BEAM_REQUESTS // 2
+    n = PROFILED_BEAM_REQUESTS
     for paged in (False, True):
         engine = ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN,
                                burst_len=SERVE_BURST, paged=paged,
@@ -1320,13 +1335,13 @@ def profile_beam_serves(model, qparams, qctx) -> None:
         out = {}
 
         def serve():
-            out["res"] = engine.serve(corpus[:half], n_slots=SERVE_SLOTS,
-                                      max_new_tokens=budgets[:half],
+            out["res"] = engine.serve(corpus[:n], n_slots=SERVE_SLOTS,
+                                      max_new_tokens=budgets[:n],
                                       beam=BEAM)
             return out["res"].decode_steps
 
         kind = "paged" if paged else "contiguous"
-        busy, rows, _ = profile(f"serve_beam_{kind} {half} requests", serve,
+        busy, rows, _ = profile(f"serve_beam_{kind} {n} requests", serve,
                                 cpu=False)
         ms, kernels = reorder_ms(model, paged)
         steps = out["res"].decode_steps
@@ -1386,7 +1401,50 @@ def log_serve(name, res) -> None:
         f"preemptions={res.preemptions} spill_events={res.spill_events} "
         f"restore_events={res.restore_events} "
         f"spilled_bytes={res.spilled_bytes} "
+        f"chunked_admissions={res.chunked_admissions} "
+        f"chunk_rounds={res.chunk_rounds} "
+        f"speculative_k={res.speculative_k} "
+        f"draft_tokens={res.draft_tokens} "
+        f"accepted_tokens={res.accepted_tokens} "
+        f"acceptance_rate={res.acceptance_rate:.4f} "
         f"peak_running={res.peak_running} page_hwm={res.page_hwm}")
+
+
+# the plain versions that no serve of phases 5c and 5d may call on the card
+PLAIN_VERSIONS = ("ref_decode_attention", "ref_decode_attention_paged",
+                  "ref_int4_matmul")
+
+
+def run_counted(name: str, counts: dict, fn):
+    """``fn()`` (a serve or a generate) with the launch counts read from
+    zero into ``counts[name]`` and the calls of ``PLAIN_VERSIONS`` counted;
+    any such call fails the run: shared, spilled, resumed, grown, staged
+    and speculative rows must all go through the kernels."""
+    from repro_torch.kernels import ops, ref
+    plain = {n: getattr(ref, n) for n in PLAIN_VERSIONS}
+    calls = []
+
+    def counted(n):
+        def call(*args, **kwargs):
+            calls.append(n)
+            return plain[n](*args, **kwargs)
+        return call
+
+    for n in plain:
+        setattr(ref, n, counted(n))
+    try:
+        ops.reset_launch_counts()
+        out = fn()
+        counts[name] = ops.launch_counts()
+    finally:
+        for n, f in plain.items():
+            setattr(ref, n, f)
+    log(f"  {name} launches: {json.dumps(counts[name])}; plain attention "
+        f"and INT4 calls: {len(calls)}")
+    if calls:
+        raise AssertionError(f"{name}: plain versions ran {len(calls)} "
+                             f"times ({sorted(set(calls))})")
+    return out
 
 
 def run_prefix_and_overload(model, qparams, qctx, q4params, q4ctx,
@@ -1406,7 +1464,6 @@ def run_prefix_and_overload(model, qparams, qctx, q4params, q4ctx,
     source in different rounds at different widths.  ``int4_paged`` is
     phase 6's INT4 paged serve, whose first 12 requests are these sources
     with these budgets.  Returns the launch counts per run."""
-    from repro_torch.kernels import ops, ref
     from repro_torch.serving import ServingEngine, make_chaos
 
     vocab = model.cfg.vocab
@@ -1427,40 +1484,12 @@ def run_prefix_and_overload(model, qparams, qctx, q4params, q4ctx,
                                                 preempt_every=1))
 
     counts, results = {}, {}
-    # count the plain attention and INT4 calls: on the card, shared,
-    # spilled, resumed and grown rows must all go through the kernels
-    plain = {name: getattr(ref, name) for name in (
-        "ref_decode_attention", "ref_decode_attention_paged",
-        "ref_int4_matmul")}
-    plain_calls = []
-
-    def counted(name):
-        def fn(*args, **kwargs):
-            plain_calls.append(name)
-            return plain[name](*args, **kwargs)
-        return fn
 
     def run(name, eng, reqs=corpus, want=budgets, **kw):
-        del plain_calls[:]
-        for fn_name in plain:
-            setattr(ref, fn_name, counted(fn_name))
-        try:
-            ops.reset_launch_counts()
-            res = eng.serve(reqs, n_slots=SERVE_SLOTS, max_new_tokens=want,
-                            **kw)
-            counts[name] = ops.launch_counts()
-        finally:
-            for fn_name, fn in plain.items():
-                setattr(ref, fn_name, fn)
-        results[name] = res
+        res = results[name] = run_counted(name, counts, lambda: eng.serve(
+            reqs, n_slots=SERVE_SLOTS, max_new_tokens=want, **kw))
         log_serve(name, res)
-        log(f"  launches: {json.dumps(counts[name])}; plain attention and "
-            f"INT4 calls: {len(plain_calls)}")
         check_serve(name, res, want, vocab, beam="beam" in kw)
-        if plain_calls:
-            raise AssertionError(f"serve {name}: plain versions ran "
-                                 f"{len(plain_calls)} times "
-                                 f"({sorted(set(plain_calls))})")
         return res
 
     cold = run("prefix_cold_paged", engine(**paged))
@@ -1618,6 +1647,183 @@ def spill_resume_ms(model, qparams, qctx) -> None:
                 + ("" if n_dev >= n_api else
                    " (events dropped: the busy time is a lower bound)")
                 + f"; {sp.n_bytes} bytes of host payload")
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: chunked prefill and self-speculative decoding
+# ---------------------------------------------------------------------------
+
+CHUNK_REQUESTS = 24            # phase 5's first 24 requests
+PREFILL_CHUNK = 24             # sources of more tokens stage (13 of the 24)
+SPEC_K = 4                     # draft window of the speculative serves
+
+
+def run_chunked_and_speculative(model, qparams, qctx, batch, plain_generate,
+                                serve_toks, beam_paged):
+    """Phase 5d, each run's launch counts read from zero and its plain
+    attention and INT4 calls counted (none may run).
+
+    Chunked prefill: the first 24 requests of phase 5 with
+    ``prefill_chunk=24`` (13 sources are longer and stage, one encoder layer
+    a round): a paged greedy serve, a paged beam-4 serve, and a greedy one
+    at ``overcommit=1.5`` with a chaos schedule on half its page
+    high-water mark; ``chunked_admissions`` must be 13 and, where nothing
+    was preempted, ``chunk_rounds`` 13 × the encoder depth.  Speculation:
+    ``generate(speculative_k=2 and 4)`` on phase 4's batch, then
+    ``serve(speculative_k=4)`` of the 24 requests, contiguous (K4) and
+    paged (K5) with the self-draft, and paged with a dynamic (K2) draft
+    under the static (K1) verifier.  Equal-token counts against the plain
+    serves of the same requests (phase 5's, 5b's and this phase's) and
+    the acceptance rates are logged.  Returns the launch counts per run."""
+    import dataclasses
+    from repro_torch.core.ptq import QuantContext
+    from repro_torch.serving import ServingEngine, make_chaos
+
+    vocab, n_enc = model.cfg.vocab, model.cfg.n_enc_layers
+    corpus, budgets = serve_requests(vocab)
+    reqs, want = corpus[:CHUNK_REQUESTS], budgets[:CHUNK_REQUESTS]
+    n_long = sum(len(s.src) > PREFILL_CHUNK for s in reqs)
+    paged = dict(paged=True, page_size=PAGE)
+
+    def engine(**kw):
+        return ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN,
+                             burst_len=SERVE_BURST, **kw)
+
+    # warm-up of the staged encode and the verify shapes (uncounted)
+    engine(**paged).serve(reqs[:8], n_slots=SERVE_SLOTS, max_new_tokens=4,
+                          prefill_chunk=PREFILL_CHUNK, speculative_k=SPEC_K)
+
+    counts = {}
+
+    def run(name, eng, **kw):
+        res = run_counted(name, counts, lambda: eng.serve(
+            reqs, n_slots=SERVE_SLOTS, max_new_tokens=want, **kw))
+        log_serve(name, res)
+        check_serve(name, res, want, vocab, beam="beam" in kw)
+        return res
+
+    def same(res, tokens) -> int:
+        return sum(list(r.tokens) == list(t)
+                   for r, t in zip(res.requests, tokens))
+
+    def check_staged(name, res):
+        if res.chunked_admissions != n_long or (
+                not res.preemptions and res.chunk_rounds != n_long * n_enc):
+            raise AssertionError(
+                f"serve {name}: {res.chunked_admissions} chunked admissions "
+                f"({n_long} long sources), {res.chunk_rounds} chunk rounds")
+
+    # -- chunked prefill
+    plain = run("5d_plain_paged", engine(**paged))
+    chunked = run("chunked_paged", engine(**paged),
+                  prefill_chunk=PREFILL_CHUNK)
+    check_staged("chunked_paged", chunked)
+    chunked_beam = run("chunked_beam_paged", engine(**paged), beam=BEAM,
+                       prefill_chunk=PREFILL_CHUNK)
+    check_staged("chunked_beam_paged", chunked_beam)
+    n_pages = max(chunked.page_hwm // 2, 1)
+    over = run("chunked_overload_paged", engine(**paged, n_pages=n_pages),
+               prefill_chunk=PREFILL_CHUNK, overcommit=OVERCOMMIT,
+               chaos=make_chaos(5, n_rounds=256, preempt_every=2))
+    if over.preemptions <= 0 or over.chunked_admissions < n_long:
+        raise AssertionError(f"chunked overload: {over.preemptions} "
+                             f"preemptions, {over.chunked_admissions} "
+                             "chunked admissions")
+    first = lambda name: serve_toks[name][:CHUNK_REQUESTS]
+    log(f"chunked agreement (of {CHUNK_REQUESTS} requests, {n_long} staged): "
+        f"chunked == plain {same(chunked, [r.tokens for r in plain.requests])}"
+        f", chunked == phase 5's paged {same(chunked, first('paged'))}, "
+        f"beam-4 chunked == phase 5b's paged "
+        f"{same(chunked_beam, [r.tokens for r in beam_paged.requests])}, "
+        f"overloaded chunked (pool {n_pages} pages) == chunked "
+        f"{same(over, [r.tokens for r in chunked.requests])}; tokens/s "
+        f"chunked {chunked.tokens_per_s:.1f}, plain {plain.tokens_per_s:.1f}"
+        f", beam-4 chunked {chunked_beam.tokens_per_s:.1f}")
+
+    # -- speculative generate on phase 4's batch
+    gen_engine = engine()
+    for k in (2, 4):
+        g = run_counted(f"generate_spec_k{k}", counts,
+                        lambda: gen_engine.generate(
+                            batch, max_new_tokens=MAX_NEW, speculative_k=k))
+        equal = sum(list(a) == list(b)
+                    for a, b in zip(g.tokens, plain_generate.tokens))
+        log(f"generate speculative_k={k}: equal to plain generate {equal} of "
+            f"{len(g.tokens)}, acceptance_rate={g.acceptance_rate:.4f} "
+            f"(draft {g.draft_tokens}, accepted {g.accepted_tokens}), "
+            f"steps={g.steps} host_syncs={g.host_syncs} tokens_per_s="
+            f"{g.tokens_per_s:.1f} (plain {plain_generate.tokens_per_s:.1f})")
+
+    # -- speculative serves
+    plain_contig = run("5d_plain_contiguous", engine())
+    spec_contig = run("spec_contiguous", engine(), speculative_k=SPEC_K)
+    spec_paged = run("spec_paged", engine(**paged), speculative_k=SPEC_K)
+    draft = QuantContext(policy=dataclasses.replace(qctx.policy,
+                                                    act_quant="dynamic"),
+                         impl=qctx.impl)
+    spec_draft = run("spec_paged_dynamic_draft",
+                     engine(**paged, draft_quant=draft),
+                     speculative_k=SPEC_K)
+    for name, kernel in (("spec_contiguous", "decode_attention"),
+                         ("spec_paged", "decode_attention_paged"),
+                         ("spec_paged_dynamic_draft", "quantize_rowwise"),
+                         ("spec_paged_dynamic_draft", "quantize_static")):
+        if counts[name][kernel] <= 0:
+            raise AssertionError(f"serve {name}: {kernel} never launched")
+    log(f"speculative agreement (of {CHUNK_REQUESTS} requests, k={SPEC_K}): "
+        f"contiguous == plain contiguous "
+        f"{same(spec_contig, [r.tokens for r in plain_contig.requests])}, "
+        f"paged == plain paged "
+        f"{same(spec_paged, [r.tokens for r in plain.requests])}, "
+        f"dynamic draft == plain paged "
+        f"{same(spec_draft, [r.tokens for r in plain.requests])}, "
+        f"contiguous == phase 5's contiguous "
+        f"{same(spec_contig, first('contiguous'))}; acceptance_rate "
+        f"self-draft contiguous {spec_contig.acceptance_rate:.4f}, paged "
+        f"{spec_paged.acceptance_rate:.4f}, dynamic draft "
+        f"{spec_draft.acceptance_rate:.4f}; tokens/s contiguous "
+        f"{spec_contig.tokens_per_s:.1f} (plain "
+        f"{plain_contig.tokens_per_s:.1f}), paged "
+        f"{spec_paged.tokens_per_s:.1f} (plain {plain.tokens_per_s:.1f}), "
+        f"dynamic draft {spec_draft.tokens_per_s:.1f}; K4 launches "
+        f"{counts['spec_contiguous']['decode_attention']} (plain "
+        f"{counts['5d_plain_contiguous']['decode_attention']}), K5 "
+        f"{counts['spec_paged']['decode_attention_paged']} (plain "
+        f"{counts['5d_plain_paged']['decode_attention_paged']})")
+    verify_vs_sequential(model, qparams, qctx, batch)
+    return counts
+
+
+def verify_vs_sequential(model, qparams, qctx, batch, k: int = SPEC_K,
+                         warm: int = 3) -> None:
+    """One macro-step's verify against sequential decode: after ``warm``
+    plain steps, ``k + 1`` sequential ``decode_step``s (each fed the last
+    one's argmax), then one ``decode_step_multi`` over the same ``k + 1``
+    tokens from the same cursors; the largest |Δ| between the verify's
+    logits at position j and the j-th sequential step's, per position."""
+    import torch
+    dev = {n: torch.as_tensor(v, device=model.device)
+           for n, v in batch.items()}
+    state = model.init_decode_state(dev["src_tokens"].shape[0], MAX_LEN,
+                                    quantized=qctx.quantize_kv)
+    lg, state = model.prefill(qparams, dev, state, quant=qctx)
+    tok = torch.argmax(lg, dim=-1).to(torch.int32)
+    for _ in range(warm):
+        lg, state = model.decode_step(qparams, tok, state, quant=qctx)
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+    feed, seq_logits, st = [tok], [], state
+    for j in range(k + 1):
+        lg, st = model.decode_step(qparams, feed[-1], st, quant=qctx)
+        seq_logits.append(lg.float())
+        feed.append(torch.argmax(lg, dim=-1).to(torch.int32))
+    vlg, _ = model.decode_step_multi(qparams, torch.stack(feed[:k + 1], 1),
+                                     state, quant=qctx)
+    deltas = [float((vlg[:, j].float() - seq_logits[j]).abs().max())
+              for j in range(k + 1)]
+    agree = [int((vlg[:, j].argmax(-1) == seq_logits[j].argmax(-1)).sum())
+             for j in range(k + 1)]
+    log(f"verify vs sequential decode (k={k}, {vlg.shape[0]} rows): max |dlogit| by position {deltas}; argmax equal by position "
+        f"{agree}")
 
 
 # ---------------------------------------------------------------------------
@@ -2041,6 +2247,12 @@ def main() -> int:
         int4_paged)
     phase("spill and resume")
     spill_resume_ms(model, qparams, qctx)
+
+    # 5d. chunked prefill and self-speculative decoding
+    phase("chunked prefill and speculative decoding")
+    staged_counts = run_chunked_and_speculative(
+        model, qparams, qctx, batch, runs["greedy_static"], toks,
+        beam_results["beam_paged"])
     del model, params, qparams, q4params
 
     # 7. the decoder-only MoE family
@@ -2088,12 +2300,14 @@ def main() -> int:
         "decode_attention_paged": "src/repro_torch/csrc/decode_attention.cu"}
     # each kernel's launches over every path driven with the counts read
     # from zero: generate, the four serves, the six beam serves, the INT4
-    # phase, the prefix-cache and overload serves, the MoE phase
+    # phase, the prefix-cache and overload serves, the chunked and
+    # speculative runs, the MoE phase
     path_counts = {"generate": counts,
                    **{f"serve {k}": v for k, v in serve_counts.items()},
                    **{f"serve {k}": v for k, v in beam_counts.items()},
                    "INT4": int4_counts,
                    **{f"serve {k}": v for k, v in prefix_counts.items()},
+                   **{f"5d {k}": v for k, v in staged_counts.items()},
                    "MoE": moe_counts}
     paths = {}
     for name in replaces:

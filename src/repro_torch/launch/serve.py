@@ -24,8 +24,10 @@ to block-wise INT4 weights (``--weight-group-size`` rows per scale/min
 block).  ``--prefix-cache`` shares encoded sources across requests (a
 chain pool of ``--prefix-pages`` pages); ``--overcommit`` admits past the
 worst-case page reservation, and ``--chaos-seed`` injects seeded forced
-preemptions (both ``--paged``), reported on the "prefix cache:" and
-"overload:" lines.
+preemptions (both ``--paged``), and ``--prefill-chunk N`` stages the
+encode of a source longer than N tokens over serving rounds, one encoder
+layer a round; they are reported on the "prefix cache:" and "overload:"
+lines.
 
 The model runs on ``--device`` (``cuda`` unless the caller asks for the
 CPU), with random weights from ``torch.Generator`` seed 0.  Flags of
@@ -141,8 +143,11 @@ def _parser() -> argparse.ArgumentParser:
                          "an uninterrupted serve")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the model and the engine")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill: a source longer than this many "
+                         "tokens is encoded one encoder layer per serving "
+                         "round (fused admission only)")
     # flags of features that are not ported yet (they exit with a message)
-    ap.add_argument("--prefill-chunk", type=int, default=None)
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--replicas", type=int, default=1)
     return ap
@@ -152,8 +157,6 @@ def _refuse_unported(args) -> None:
     """Exit with the ROADMAP item, by title, of the first unported feature
     asked for."""
     unported = [
-        (args.prefill_chunk is not None, "--prefill-chunk: chunked prefill",
-         "chunked prefill"),
         (args.mesh is not None, "--mesh: tensor-parallel serving",
          "multi-GPU and the cost accounting"),
         (args.replicas > 1, "--replicas: the replica router",
@@ -215,7 +218,8 @@ def _serve_continuous(args, model, params, qctx, requests) -> None:
     res = engine.serve(reqs, n_slots=args.slots,
                        max_new_tokens=args.max_new_tokens, beam=beam,
                        fused_admission=not args.unfused_admission,
-                       overcommit=args.overcommit, chaos=chaos)
+                       overcommit=args.overcommit, chaos=chaos,
+                       prefill_chunk=args.prefill_chunk)
     dt = time.perf_counter() - t0
     met = res.metrics()
     print(f"served {args.requests} requests in {dt:.2f}s "
@@ -253,15 +257,18 @@ def _serve_continuous(args, model, params, qctx, requests) -> None:
               f"{res.prefix_pages_allocated} allocated, "
               f"{res.prefix_evictions} evicted, "
               f"{res.prefix_chains} chains resident")
-    if (res.preemptions or res.rejected or res.overcommit != 1.0
-            or chaos is not None or args.deadline_ms is not None):
+    if (res.preemptions or res.chunked_admissions or res.rejected
+            or res.overcommit != 1.0 or chaos is not None
+            or args.deadline_ms is not None):
         print(f"overload: overcommit={res.overcommit} "
               f"peak_running={res.peak_running}, "
               f"{res.preemptions} preemptions "
               f"({res.spill_events} spills / {res.restore_events} "
               f"restores, {res.spilled_bytes / 1024:.1f} KiB to host), "
               f"free_lwm={res.free_lwm}")
-        print(f"         {res.rejected} shed, "
+        print(f"         {res.chunked_admissions} chunked admissions "
+              f"({res.chunk_rounds} staged encoder rounds), "
+              f"{res.rejected} shed, "
               f"{res.deadline_misses} deadline misses, "
               f"{res.straggler_rounds} straggler rounds")
     print(f"latency: first-token mean "

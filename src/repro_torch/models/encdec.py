@@ -2,11 +2,11 @@
 
 Port of ``repro/models/encdec.py`` (``init``, ``encode``, ``forward``,
 ``init_decode_state`` over a contiguous or paged cache, ``encode_cross_kv``,
-``splice_prefill``, ``prefill``, ``decode_step(_multi)``; the staged encode
-of chunked prefill is not ported yet).  The layers run in an eager Python
-loop over unstacked parameters (``enc_blocks.{i}`` / ``dec_blocks.{i}``), so
-each layer keeps its own site names; ``checkpoint/bridge.py`` unstacks a
-scan-stacked reference tree.
+``splice_prefill``, ``prefill``, ``decode_step(_multi)`` and the staged
+encode of chunked prefill, ``encode_staged_begin``/``_layer``/``_finish``).
+The layers run in an eager Python loop over unstacked parameters
+(``enc_blocks.{i}`` / ``dec_blocks.{i}``), so each layer keeps its own site
+names; ``checkpoint/bridge.py`` unstacks a scan-stacked reference tree.
 
 Cross-attention K/V are computed once from the encoder memory and kept in
 the decode state.  Inputs: ``src_tokens`` (B, S_enc) with optional
@@ -109,24 +109,69 @@ class EncDecLM:
         return x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=dt))
 
     # ---------------------------------------------------------------- encode
-    def encode(self, params, batch, *, quant: QuantContext = FP_CONTEXT,
-               taps: Optional[Taps] = None) -> torch.Tensor:
-        cfg = self.cfg
+    # The encoder is bidirectional, so a long source cannot be encoded
+    # token chunk by token chunk; chunked prefill splits it by depth
+    # instead: embed once, one encoder layer per serving round, then the
+    # final norm and the cross-K/V projections.  ``encode`` and
+    # ``encode_cross_kv`` are built from the same three stages, so a staged
+    # encode equals the monolithic one bit for bit.
+    def encode_staged_begin(self, params, batch) -> torch.Tensor:
+        """Embedding and positions: the encoder's input ``x``."""
         x = self._embed(params, batch["src_tokens"])
         _, S, D = x.shape
-        x = x + sinusoidal_positions(S, D, x.dtype, x.device)[None]
-        lengths = batch.get("src_lengths")
-        for i in range(cfg.n_enc_layers):
-            bp, site = params[f"enc_blocks.{i}"], f"enc_blocks.{i}"
-            h = norm(bp["attn_norm"], x, cfg.norm)
-            a, _ = attention(bp["attn"], h, cfg=cfg, site=f"{site}/attn",
-                             quant=quant, taps=taps, causal=False,
-                             rope=False, kv_lengths=lengths)
-            x = x + a
-            h = norm(bp["ffn_norm"], x, cfg.norm)
-            x = x + ffn(bp["ffn"], h, cfg=cfg, site=f"{site}/ffn",
-                        quant=quant, taps=taps)
-        return norm(params["enc_final_norm"], x, cfg.norm)
+        return x + sinusoidal_positions(S, D, x.dtype, x.device)[None]
+
+    def encode_staged_layer(self, params, x: torch.Tensor, layer_idx: int, *,
+                            src_lengths: Optional[torch.Tensor] = None,
+                            quant: QuantContext = FP_CONTEXT,
+                            taps: Optional[Taps] = None) -> torch.Tensor:
+        """Encoder layer ``layer_idx`` (quant sites ``enc_blocks.{i}/…``)."""
+        cfg = self.cfg
+        bp, site = params[f"enc_blocks.{layer_idx}"], f"enc_blocks.{layer_idx}"
+        h = norm(bp["attn_norm"], x, cfg.norm)
+        a, _ = attention(bp["attn"], h, cfg=cfg, site=f"{site}/attn",
+                         quant=quant, taps=taps, causal=False, rope=False,
+                         kv_lengths=src_lengths)
+        x = x + a
+        h = norm(bp["ffn_norm"], x, cfg.norm)
+        return x + ffn(bp["ffn"], h, cfg=cfg, site=f"{site}/ffn",
+                       quant=quant, taps=taps)
+
+    def encode_staged_finish(self, params, x: torch.Tensor, *,
+                             src_lengths: Optional[torch.Tensor] = None,
+                             quant: QuantContext = FP_CONTEXT
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+        """Final norm and every decoder layer's cross K/V: returns
+        ``(cross_k, cross_v, src_lengths)``, cross K/V layer-major
+        ``(L, B, S_enc, HKV, dh)``."""
+        cfg = self.cfg
+        memory = norm(params["enc_final_norm"], x, cfg.norm)
+        B, S = memory.shape[0], memory.shape[1]
+        if src_lengths is None:
+            src_lengths = torch.full((B,), S, dtype=torch.int32,
+                                     device=memory.device)
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            k, v = self._cross_kv(params[f"dec_blocks.{i}"], memory,
+                                  site=f"dec_blocks.{i}", quant=quant,
+                                  taps=None)
+            ks.append(k)
+            vs.append(v)
+        return torch.stack(ks), torch.stack(vs), src_lengths
+
+    def _encode_layers(self, params, batch, *, quant, taps) -> torch.Tensor:
+        x = self.encode_staged_begin(params, batch)
+        for i in range(self.cfg.n_enc_layers):
+            x = self.encode_staged_layer(params, x, i,
+                                         src_lengths=batch.get("src_lengths"),
+                                         quant=quant, taps=taps)
+        return x
+
+    def encode(self, params, batch, *, quant: QuantContext = FP_CONTEXT,
+               taps: Optional[Taps] = None) -> torch.Tensor:
+        x = self._encode_layers(params, batch, quant=quant, taps=taps)
+        return norm(params["enc_final_norm"], x, self.cfg.norm)
 
     # ---------------------------------------------------------------- decode
     def _dec_block(self, bparams, x, memory, *, site, quant, taps, positions,
@@ -226,26 +271,11 @@ class EncDecLM:
     def encode_cross_kv(self, params, batch, *,
                         quant: QuantContext = FP_CONTEXT
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Run the encoder and project every decoder layer's cross K/V.
-
-        Returns ``(cross_k, cross_v, src_lengths)`` with cross K/V
-        layer-major ``(L, B, S_enc, HKV, dh)``.
-        """
-        cfg = self.cfg
-        memory = self.encode(params, batch, quant=quant)
-        B, S = memory.shape[0], memory.shape[1]
-        src_lengths = batch.get("src_lengths")
-        if src_lengths is None:
-            src_lengths = torch.full((B,), S, dtype=torch.int32,
-                                     device=memory.device)
-        ks, vs = [], []
-        for i in range(cfg.n_layers):
-            k, v = self._cross_kv(params[f"dec_blocks.{i}"], memory,
-                                  site=f"dec_blocks.{i}", quant=quant,
-                                  taps=None)
-            ks.append(k)
-            vs.append(v)
-        return torch.stack(ks), torch.stack(vs), src_lengths
+        """Run the encoder and project every decoder layer's cross K/V
+        (:meth:`encode_staged_finish`)."""
+        x = self._encode_layers(params, batch, quant=quant, taps=None)
+        return self.encode_staged_finish(
+            params, x, src_lengths=batch.get("src_lengths"), quant=quant)
 
     def splice_prefill(self, state: Dict[str, Any], cross_k: torch.Tensor,
                        cross_v: torch.Tensor, src_lengths: torch.Tensor,

@@ -1,8 +1,9 @@
 """Serving (port of ``repro/serving``): static translation, continuous
 greedy and beam serving with the adaptive burst, the prefix cache, the
 overload machinery (overcommit, preempt-by-page-spill, the chaos harness),
-the schedulers and the parallel streams.  Not ported yet: chunked prefill,
-speculation and the replica router (ROADMAP Queue 1)."""
+chunked prefill, self-speculative decoding, the schedulers and the
+parallel streams.  Not ported yet: the replica router (ROADMAP Queue 1:
+multi-GPU and the cost accounting)."""
 
 from repro_torch.serving.burst_control import AdaptiveBurst  # noqa: F401
 from repro_torch.serving.chaos import ChaosSchedule, make_chaos  # noqa: F401

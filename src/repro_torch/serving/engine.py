@@ -47,14 +47,23 @@ page by page between bursts and, when the pool runs dry, preempts a victim
 by page spill: its pages, cursors, tokens and cross K/V go to the host in
 one transfer and come back later through the same paged splice admission
 uses.  ``chaos`` forces preemptions and slow rounds at round edges.  The
-tokens stay those of a cold, unloaded serve.  Not ported yet
-(``NotImplementedError`` naming the ROADMAP item by title): chunked
-prefill, speculation and meshes.
+tokens stay those of a cold, unloaded serve.
+
+``serve(prefill_chunk=N)`` stages the encode of a source longer than ``N``
+tokens over serving rounds, one width-1 encoder layer a round
+(``EncDecLM.encode_staged_*``), and splices it in when the last layer is
+done.  ``generate`` and greedy ``serve`` take ``speculative_k=k``:
+each macro-step drafts ``k`` tokens with ``draft_quant`` (the engine's
+``quant`` unless given), verifies them in one multi-position pass with
+``quant`` and emits the longest agreeing prefix plus the verifier's
+correction, so the tokens are those of plain greedy decode.  Not ported
+yet (``NotImplementedError`` naming the ROADMAP item by title): meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -81,9 +90,7 @@ from repro_torch.serving.scheduler import (
     pad_rows_pow2,
 )
 
-# ROADMAP items, by title, of the parts of ``serve`` not ported yet
-_CHUNKED = "ROADMAP Queue 1: chunked prefill"
-_SPECULATION = "ROADMAP Queue 1: speculative decoding"
+# the ROADMAP item, by title, of the part of ``serve`` not ported yet
 _MESH = "ROADMAP Queue 1: multi-GPU and the cost accounting"
 
 # a new beam group's seed score: row 0 scores 0 and rows 1..B-1 this, so the
@@ -95,6 +102,34 @@ BEAM_SEED_NEG = np.float32(-1e30)
 AUTO_MAX_BURST = 64
 
 
+def _spec_accept(d: torch.Tensor, v: torch.Tensor, remaining: torch.Tensor,
+                 eos: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Speculative acceptance (``engine.py:109-134`` of the reference).
+
+    ``d``: (B, s) drafted tokens; ``v``: (B, s+1) the verifier's greedy
+    tokens over the same positions; ``remaining``: (B,) budgets (0 = an
+    inactive row).  Returns ``(stop, hit_eos, accepted)``, all (B,) int32
+    or bool: a row emits ``v[:, :stop]``, the longest prefix on which the
+    draft agrees with the verifier plus the verifier's correction, clamped
+    by the first verifier EOS (emitted, then the row stops) and by the
+    budget; ``hit_eos`` marks rows whose window ends in that EOS;
+    ``accepted`` counts the emitted tokens that came from the draft.
+    """
+    s = d.shape[1]
+    active = remaining > 0
+    agree = torch.cumprod((d == v[:, :s]).to(torch.int32), dim=1,
+                          dtype=torch.int32)
+    a = agree.sum(dim=1, dtype=torch.int32)      # longest agreeing prefix
+    cand = a + 1                                 # + the verifier's correction
+    idx = torch.arange(s + 1, dtype=torch.int32, device=d.device)[None, :]
+    eos_first = torch.where(v == eos, idx, s + 1).amin(dim=1)
+    stop = torch.minimum(torch.minimum(cand, eos_first + 1), remaining)
+    stop = torch.where(active, stop, torch.zeros_like(stop))
+    hit_eos = active & (eos_first + 1 <= torch.minimum(cand, remaining))
+    accepted = torch.minimum(a, stop)
+    return stop, hit_eos, accepted
+
+
 @dataclasses.dataclass
 class GenerationResult:
     tokens: List[np.ndarray]          # per-sequence generated ids (no EOS)
@@ -102,6 +137,13 @@ class GenerationResult:
     prefill_s: float
     decode_s: float
     host_syncs: int = 0               # device→host transfers (drains)
+    speculative_k: int = 0            # draft window (0 = plain decode)
+    draft_tokens: int = 0             # tokens the draft proposed
+    accepted_tokens: int = 0          # drafted tokens the verifier kept
+
+    @property
+    def acceptance_rate(self) -> float:
+        return self.accepted_tokens / max(self.draft_tokens, 1)
 
     @property
     def total_s(self) -> float:
@@ -165,11 +207,23 @@ class ServeResult:
     restore_events: int = 0           # spills spliced back on re-admission
     spilled_bytes: int = 0            # cumulative host bytes spilled
     straggler_rounds: int = 0         # watchdog-flagged burst rounds
+    chunked_admissions: int = 0       # requests whose encode was staged
+    chunk_rounds: int = 0             # staged encoder layers run
     peak_running: int = 0             # max concurrent running requests
     rejected: int = 0                 # requests shed (deadline unmeetable)
     deadline_misses: int = 0          # shed + finished past their deadline
     free_lwm: int = 0                 # page free-list low-water mark
     fragmentation: float = 0.0        # final free-list scatter in [0, 1]
+    # self-speculative decoding (greedy only)
+    speculative_k: int = 0            # draft window (0 = speculation off)
+    draft_tokens: int = 0             # tokens the draft passes proposed
+    accepted_tokens: int = 0          # drafted tokens the verifier kept
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Share of the drafted tokens the verifier kept (0 without
+        speculation)."""
+        return self.accepted_tokens / max(self.draft_tokens, 1)
 
     @property
     def n_groups(self) -> int:
@@ -241,11 +295,17 @@ class ServeResult:
             "restore_events": float(self.restore_events),
             "spilled_bytes": float(self.spilled_bytes),
             "straggler_rounds": float(self.straggler_rounds),
+            "chunked_admissions": float(self.chunked_admissions),
+            "chunk_rounds": float(self.chunk_rounds),
             "peak_running": float(self.peak_running),
             "rejected": float(self.rejected),
             "deadline_misses": float(self.deadline_misses),
             "free_lwm": float(self.free_lwm),
             "fragmentation": float(self.fragmentation),
+            "speculative_k": float(self.speculative_k),
+            "draft_tokens": float(self.draft_tokens),
+            "accepted_tokens": float(self.accepted_tokens),
+            "acceptance_rate": self.acceptance_rate,
             "first_token_latency_mean_s":
                 float(np.mean(first)) if first else 0.0,
             "first_token_latency_p95_s": pct(first, 95),
@@ -260,6 +320,7 @@ class ServingEngine:
                  burst_len: Union[int, str] = 8, paged: bool = False,
                  page_size: int = 16, n_pages: Optional[int] = None,
                  prefix_cache: bool = False, prefix_pages: int = 256,
+                 draft_quant: Optional[QuantContext] = None,
                  mesh=None, device: str = "cuda"):
         """``paged``/``page_size``/``n_pages`` choose ``serve``'s KV cache
         (``generate`` always uses the contiguous one); ``max_len`` must
@@ -268,7 +329,9 @@ class ServingEngine:
         cap (:class:`AdaptiveBurst`).  ``prefix_cache`` is ``serve``'s
         default for its own ``prefix_cache`` argument; the cache's chain
         pool holds ``prefix_pages`` pages of ``page_size`` tokens, built at
-        first use and kept across serves."""
+        first use and kept across serves.  ``draft_quant`` is the context
+        of speculative decoding's draft steps (None: ``quant``); it shares
+        the engine's params, and the KV cache layout follows ``quant``."""
         self.device = torch.device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
@@ -280,6 +343,7 @@ class ServingEngine:
         self.model = model
         self.params = params
         self.quant = quant
+        self.draft_quant = quant if draft_quant is None else draft_quant
         self.max_len = max_len
         self.eos_id = eos_id
         self.burst_len = self._check_burst(burst_len)
@@ -296,15 +360,17 @@ class ServingEngine:
         self._prefix_pool: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     # ------------------------------------------------------------------ util
-    @staticmethod
-    def _check_speculative(fn: str, speculative_k: Optional[int]) -> None:
+    def _check_speculative(self, speculative_k: Optional[int]) -> int:
+        """The draft window ``k`` (0: plain decode)."""
         spec = int(speculative_k or 0)
         if spec < 0:
             raise ValueError(f"speculative_k must be >= 0, got {spec}")
-        if spec:
-            raise NotImplementedError(
-                f"{fn}(speculative_k=...): speculative decoding is not "
-                f"ported yet ({_SPECULATION})")
+        if spec and not hasattr(self.model, "decode_step_multi"):
+            raise ValueError(
+                "speculative decoding needs a model with decode_step_multi "
+                f"(multi-position verify); {type(self.model).__name__} "
+                "does not provide one")
+        return spec
 
     @staticmethod
     def _check_burst(k) -> Union[int, str]:
@@ -434,6 +500,73 @@ class ServingEngine:
             tokens = nxt
         return tokens, remaining, state, buf, live
 
+    def _spec_burst(self, tokens, remaining, steps_cap: int, state,
+                    spec: int):
+        """``steps_cap`` self-speculative macro-steps
+        (``_spec_greedy_while``, ``engine.py:1203-1290``).
+
+        A macro-step runs ``spec`` draft ``decode_step``s with
+        ``draft_quant``, then one verify ``decode_step_multi`` over
+        ``(t0, d_1 … d_spec)`` with ``quant`` from the pre-draft cursors:
+        the drafts' in-place cache writes are scratch, and the verify's
+        appends overwrite each of them before it reads.  :func:`_spec_accept`
+        picks how many verifier tokens each row emits; the cursors roll back
+        to ``n0 + stop``, so the cache holds the verifier's K/V of exactly
+        the tokens plain decode would have fed, and the tokens equal plain
+        greedy decode's.
+
+        The ring holds ``steps_cap × (spec + 1)`` columns, written at
+        per-row ``emitted`` cursors, followed by 4 counter columns per row:
+        ``emitted``, ``drafted``, ``accepted`` and ``act`` (macro-steps the
+        row was live), so a burst still drains in one transfer.  Every live
+        row emits ≥ 1 token a macro-step, so ``steps_cap`` ≤ the largest
+        budget left runs no macro-step the reference would not; ``live``
+        counts those at whose start a row was active, the reference's trip
+        count.
+        """
+        model, eos = self.model, self.eos_id
+        B = tokens.shape[0]
+        cols = steps_cap * (spec + 1)
+        # one column past the ring takes the masked writes
+        buf = torch.full((B, cols + 1), eos, dtype=torch.int32,
+                         device=self.device)
+        rows = torch.arange(B, device=self.device)
+        emitted = drafted = accepted = act = torch.zeros(
+            (B,), dtype=torch.int32, device=self.device)
+        live = torch.zeros((), dtype=torch.int32, device=self.device)
+        for _ in range(steps_cap):
+            active = remaining > 0
+            live = live + active.any()
+            n0 = state["cache"].lengths
+            dstate, cur, drafts = state, tokens, []
+            for _ in range(spec):
+                lg, dstate = model.decode_step(self.params, cur, dstate,
+                                               quant=self.draft_quant)
+                cur = torch.argmax(lg, dim=-1).to(torch.int32)
+                drafts.append(cur)
+            d = torch.stack(drafts, dim=1)                    # (B, spec)
+            vlogits, state = model.decode_step_multi(
+                self.params, torch.cat([tokens[:, None], d], dim=1), state,
+                quant=self.quant)
+            v = torch.argmax(vlogits, dim=-1).to(torch.int32)  # (B, spec+1)
+            stop, hit_eos, acc = _spec_accept(d, v, remaining, eos)
+            state = dict(state)
+            state["cache"] = kvc.with_lengths(state["cache"], n0 + stop)
+            for j in range(spec + 1):
+                col = torch.where(active & (j < stop), emitted + j, cols)
+                buf.index_put_((rows, col.long()), v[:, j])
+            remaining = torch.where(hit_eos, torch.zeros_like(remaining),
+                                    remaining - stop)
+            tokens = torch.where(
+                active, v[rows, (stop - 1).clamp(min=0).long()], eos)
+            emitted = emitted + stop
+            drafted = drafted + torch.where(active, spec, 0).to(torch.int32)
+            accepted = accepted + acc
+            act = act + active.to(torch.int32)
+        packed = torch.cat([buf[:, :cols], emitted[:, None], drafted[:, None],
+                            accepted[:, None], act[:, None]], dim=1)
+        return tokens, remaining, state, packed, live
+
     def _beam_step(self, beam: int, tokens, scores, finished, comp, state,
                    buf, step: int, act_r=None, parked=None):
         """One beam-search decode step — log-softmax, finished-beam EOS
@@ -542,9 +675,10 @@ class ServingEngine:
                  max_new_tokens: int = 64,
                  burst_len: Optional[int] = None,
                  speculative_k: Optional[int] = None) -> GenerationResult:
-        """Greedy decode of a batch.  ``speculative_k`` (self-speculative
-        decoding) raises ``NotImplementedError``: it is not ported yet."""
-        self._check_speculative("generate", speculative_k)
+        """Greedy decode of a batch.  ``speculative_k=k`` decodes in
+        self-speculative macro-steps (:meth:`_spec_burst`): the same tokens,
+        with the draft and accept counts in the result."""
+        spec = self._check_speculative(speculative_k)
         K = self._static_burst(burst_len)
         batch = self._device_batch(batch)
         B = next(iter(batch.values())).shape[0]
@@ -559,27 +693,42 @@ class ServingEngine:
         tokens = torch.argmax(logits, dim=-1).to(torch.int32)
         first, = self._drain(tokens)
         host_syncs = 1
-        cols = [first]
+        # per-row segments: speculative bursts emit ragged per-row counts
+        rows = [[int(t)] for t in first]
+        draft_total = accept_total = 0
         remaining_np = np.where(first == self.eos_id, 0,
                                 max(max_new_tokens - 1, 0)).astype(np.int32)
         remaining = torch.as_tensor(remaining_np, device=self.device)
         steps = 1
         while remaining_np.any():
-            tokens, remaining, state, buf, live = self._greedy_burst(
-                tokens, remaining, min(K, int(remaining_np.max())), state)
+            cap = min(K, int(remaining_np.max()))
+            if spec:
+                tokens, remaining, state, buf, live = self._spec_burst(
+                    tokens, remaining, cap, state, spec)
+            else:
+                tokens, remaining, state, buf, live = self._greedy_burst(
+                    tokens, remaining, cap, state)
             buf_host, remaining_np, s = self._drain(buf, remaining, live)
             host_syncs += 1                        # one drain per burst
-            cols.extend(buf_host[:, i] for i in range(int(s)))
+            emit = cap * (spec + 1)                # spec: counter columns
+            for b in range(B):
+                n = buf_host[b, emit] if spec else s
+                rows[b].extend(int(x) for x in buf_host[b, :n])
+                if spec:
+                    draft_total += int(buf_host[b, emit + 1])
+                    accept_total += int(buf_host[b, emit + 2])
             steps += int(s)
         t2 = time.perf_counter()
 
-        grid = np.stack(cols, axis=1)                       # (B, T)
         seqs = []
-        for row in grid:
+        for row in rows:
+            row = np.asarray(row, np.int32)
             hit = row == self.eos_id
             seqs.append(row[:np.argmax(hit)] if hit.any() else row)
         return GenerationResult(tokens=seqs, steps=steps, prefill_s=t1 - t0,
-                                decode_s=t2 - t1, host_syncs=host_syncs)
+                                decode_s=t2 - t1, host_syncs=host_syncs,
+                                speculative_k=spec, draft_tokens=draft_total,
+                                accepted_tokens=accept_total)
 
     # ------------------------------------------------------------------ beam
     def generate_beam(self, batch: Dict[str, np.ndarray], *, beam: int = 4,
@@ -1009,9 +1158,6 @@ class ServingEngine:
             if not fused_admission:
                 raise ValueError("prefill_chunk requires fused_admission "
                                  "(staged encodes ride the fused rounds)")
-            raise NotImplementedError(
-                f"serve(prefill_chunk=...): chunked prefill is not ported "
-                f"yet ({_CHUNKED})")
 
     def serve(self, requests: Sequence[Any], *, n_slots: int = 8,
               max_new_tokens: Union[int, Sequence[int]] = 64,
@@ -1072,11 +1218,22 @@ class ServingEngine:
         (``chaos.ChaosSchedule``) forces preemptions and synthetic slow
         rounds (``StepWatchdog``) at round edges.
 
-        ``prefill_chunk`` and ``speculative_k`` raise
-        ``NotImplementedError`` naming their ROADMAP item: they are not
-        ported yet.  So does a model without ``encode_cross_kv`` (the
-        decoder-only family), whose ``serve`` the reference does not have
-        either.
+        ``prefill_chunk`` (fused admission only): a source longer than
+        that many tokens is staged, its encode spread over the following
+        rounds, one width-1 encoder layer a round, and spliced in with BOS
+        when the last layer is done; its row sits idle meanwhile.  A staged
+        source bypasses the prefix cache, and a preempted stage is dropped
+        and restaged.  The tokens are those of an unchunked serve.
+
+        ``speculative_k=k`` (greedy only) decodes in self-speculative
+        macro-steps (:meth:`_spec_burst`): ``decode_steps`` counts
+        macro-steps, and ``draft_tokens``, ``accepted_tokens`` and
+        ``acceptance_rate`` report the drafts; the tokens are those of
+        plain greedy serving.
+
+        A model without ``encode_cross_kv`` (the decoder-only family)
+        raises ``NotImplementedError``: the reference has no such
+        ``serve`` either.
         """
         if not hasattr(self.model, "encode_cross_kv"):
             raise NotImplementedError(
@@ -1089,21 +1246,22 @@ class ServingEngine:
                              "speculative_k cannot combine")
         self._check_overload_args(overcommit, prefill_chunk, chaos,
                                   fused_admission)
+        spec = self._check_speculative(speculative_k)
         admission = dict(prefill_token_budget=prefill_token_budget,
                          admit_min_free=admit_min_free,
                          pad_to_multiple=pad_to_multiple,
                          burst_len=burst_len,
                          fused_admission=fused_admission,
                          prefix_cache=prefix_cache, overcommit=overcommit,
-                         chaos=chaos)
+                         prefill_chunk=prefill_chunk, chaos=chaos)
         if beam is not None:
             return self._serve_beam(requests, n_slots=n_slots, beam=beam,
                                     alpha=alpha,
                                     max_new_tokens=max_new_tokens,
                                     **admission)
-        self._check_speculative("serve", speculative_k)
         return self._serve_greedy(requests, n_slots=n_slots,
-                                  max_new_tokens=max_new_tokens, **admission)
+                                  max_new_tokens=max_new_tokens,
+                                  speculative_k=spec, **admission)
 
     def _check_budgets(self, reqs: Sequence[Request]) -> None:
         if max(r.max_new_tokens for r in reqs) > self.max_len:
@@ -1131,17 +1289,21 @@ class ServingEngine:
                       admit_min_free: int, pad_to_multiple: int,
                       burst_len: Optional[Union[int, str]],
                       fused_admission: bool, prefix_cache: Optional[bool],
-                      overcommit: float,
-                      chaos: Optional[ChaosSchedule]) -> ServeResult:
+                      overcommit: float, prefill_chunk: Optional[int],
+                      chaos: Optional[ChaosSchedule],
+                      speculative_k: int) -> ServeResult:
         """Greedy continuous batching: one row per request
-        (``engine.py:1787-2261`` of the reference, without chunked
-        prefill).
+        (``engine.py:1787-2261`` of the reference).
 
         Each round: the round edge of :class:`_ServeRun` (chaos, growth,
         admission-driven preemption), then admission (resumed requests
         re-spliced from their spill, prefix hits from the chain pool,
-        misses encoded), the burst and its drain.
+        long sources staged, misses encoded), the burst (plain, or
+        speculative macro-steps), its drain, and one layer of every staged
+        encode.  A round with only staged encodes to run skips the burst.
         """
+        spec = speculative_k
+        mult = spec + 1     # KV positions a step (macro-step) may append
         K = self._resolve_burst(burst_len)
         ctrl = self._burst_controller(K)
         reqs = self._as_requests(requests, max_new_tokens)
@@ -1151,18 +1313,23 @@ class ServingEngine:
                                wall_s=0.0, burst_len=ctrl.k if ctrl else K,
                                fused_admission=fused_admission,
                                auto_burst=ctrl is not None,
-                               paged=self.paged, page_size=self.page_size)
+                               paged=self.paged, page_size=self.page_size,
+                               speculative_k=spec)
         self._check_budgets(reqs)
         enc_len = self._enc_bucket(reqs, pad_to_multiple)
+        # under speculation a macro-step appends up to spec + 1 positions,
+        # so the page reach of a burst scales by that
         run = _ServeRun(
             self, reqs, n_rows=n_slots, group=1, width=lambda r: 1,
             cursor=lambda slot, r: len(r.tokens),
-            burst_hint=ctrl.max_burst if ctrl else K, enc_len=enc_len,
-            prefill_token_budget=prefill_token_budget,
-            prefix_cache=prefix_cache, overcommit=overcommit, chaos=chaos)
+            burst_hint=(ctrl.max_burst if ctrl else K) * mult,
+            enc_len=enc_len, prefill_token_budget=prefill_token_budget,
+            prefix_cache=prefix_cache, overcommit=overcommit,
+            prefill_chunk=prefill_chunk, chaos=chaos)
         sched, pc, now = run.sched, run.pc, run.now
         decode_steps = busy_slot_steps = prefill_rounds = host_syncs = 0
         prefill_dispatches = encoder_tokens = peak_running = round_idx = 0
+        draft_tokens = accepted_tokens = 0
 
         def prefill_into_slots(admitted) -> None:
             """Unfused admission: prefill a side batch (caching the encodes
@@ -1198,7 +1365,7 @@ class ServingEngine:
         while not sched.all_done:
             rnd = round_idx
             round_idx += 1
-            run.round_edge(rnd, ctrl.k if ctrl else K)
+            run.round_edge(rnd, (ctrl.k if ctrl else K) * mult)
             plan = None
             want_admit = (sched.n_waiting and sched.n_free >=
                           min(max(admit_min_free, 1), sched.n_waiting,
@@ -1208,8 +1375,10 @@ class ServingEngine:
                                             enc_len=enc_len, oob_row=n_slots)
                 if plan.n_admitted:
                     prefill_rounds += 1
-                encoder_tokens += len(plan.requests) * enc_len
+                encoder_tokens += (len(plan.requests)
+                                   + len(plan.staged)) * enc_len
                 run.restore(plan.resumed)
+                run.stage(plan.staged)
             elif want_admit:
                 admitted = sched.admit(now(), step=decode_steps)
                 if admitted:
@@ -1225,18 +1394,26 @@ class ServingEngine:
             if not sched.slot_map:
                 continue        # every admitted request finished on token 1
 
-            # every occupied slot has ≥ 1 token left to emit
+            # every occupied slot has ≥ 1 token left to emit; a staged slot
+            # holds no KV yet and rides the burst at budget 0 (the fused
+            # prologue treats it as dead)
             remaining = np.zeros((n_slots,), np.int32)
             for slot, req in sched.slot_map.items():
-                remaining[slot] = req.max_new_tokens - len(req.tokens)
-            cap = ctrl.k if ctrl else K
+                if slot not in run.staging:
+                    remaining[slot] = req.max_new_tokens - len(req.tokens)
+            if not remaining.any() and not (
+                    plan is not None and (plan.width or plan.hit_width)):
+                run.advance_staging()       # a pure-staging round
+                continue
+            cap = min(ctrl.k if ctrl else K, int(remaining.max()))
             t_dispatch = time.perf_counter()
             remaining_dev = torch.as_tensor(remaining, device=self.device)
             if plan is not None:
                 run.prologue(plan, remaining_dev > 0)
-            run.tokens, _, run.state, buf, live = self._greedy_burst(
-                run.tokens, remaining_dev, min(cap, int(remaining.max())),
-                run.state)
+            burst = (functools.partial(self._spec_burst, spec=spec) if spec
+                     else self._greedy_burst)
+            run.tokens, _, run.state, buf, live = burst(
+                run.tokens, remaining_dev, cap, run.state)
             buf_host, steps = self._drain(buf, live)
             steps = int(steps)
             burst_wall = time.perf_counter() - t_dispatch
@@ -1249,9 +1426,35 @@ class ServingEngine:
             t = now()
             freed = []
             wasted_row_steps = 0
+            emit = cap * mult               # first counter column (spec)
             for slot, req in list(sched.slot_map.items()):
+                if slot in run.staging:
+                    # its ring columns are masked EOS, not output
+                    wasted_row_steps += steps
+                    continue
                 if req.first_token_s is None:
                     req.first_token_s = t   # fused: emitted by this burst
+                if spec:
+                    # rows emit ragged counts: drain by the emitted
+                    # counter, count busy and wasted in live macro-steps,
+                    # and release at burst granularity
+                    for tok in buf_host[slot, :buf_host[slot, emit]]:
+                        tok = int(tok)
+                        if tok == self.eos_id:
+                            freed.append(sched.release(
+                                req, t, step=step_base + steps))
+                            break
+                        req.tokens.append(tok)
+                        if len(req.tokens) >= req.max_new_tokens:
+                            freed.append(sched.release(
+                                req, t, step=step_base + steps))
+                            break
+                    act = int(buf_host[slot, emit + 3])
+                    busy_slot_steps += act
+                    wasted_row_steps += steps - act
+                    draft_tokens += int(buf_host[slot, emit + 1])
+                    accepted_tokens += int(buf_host[slot, emit + 2])
+                    continue
                 used = steps
                 for s in range(steps):
                     tok = int(buf_host[slot, s])
@@ -1275,15 +1478,19 @@ class ServingEngine:
                 # fused rounds otherwise reset dead rows in the next
                 # prologue
                 run.free(freed)
+            # after the drain: a stage admitted this round runs its first
+            # layer now but never rides this round's burst
+            run.advance_staging()
 
         return ServeResult(
             requests=reqs, n_slots=n_slots, decode_steps=decode_steps,
             busy_slot_steps=busy_slot_steps, prefill_rounds=prefill_rounds,
-            wall_s=now(), host_syncs=host_syncs + run.preemptions,
+            wall_s=now(), host_syncs=host_syncs + run.store.spill_events,
             burst_len=ctrl.k if ctrl else K,
             prefill_dispatches=prefill_dispatches,
             encoder_tokens=encoder_tokens, fused_admission=fused_admission,
-            auto_burst=ctrl is not None,
+            auto_burst=ctrl is not None, speculative_k=spec,
+            draft_tokens=draft_tokens, accepted_tokens=accepted_tokens,
             **run.result_fields(reqs, peak_running))
 
     # ------------------------------------------------- continuous beam search
@@ -1320,10 +1527,9 @@ class ServingEngine:
                     admit_min_free: int, pad_to_multiple: int,
                     burst_len: Optional[Union[int, str]],
                     fused_admission: bool, prefix_cache: Optional[bool],
-                    overcommit: float,
+                    overcommit: float, prefill_chunk: Optional[int],
                     chaos: Optional[ChaosSchedule]) -> ServeResult:
-        """Continuous beam search (``engine.py:2264-2942``, without chunked
-        prefill).
+        """Continuous beam search (``engine.py:2264-2942``).
 
         A request is admitted into a group of ``beam`` contiguous rows.
         Unfused, its source is prefilled tiled over the group (as
@@ -1349,7 +1555,9 @@ class ServingEngine:
         a hit splices its chain over the group's rows and seeds it as fused
         admission does; a preemption spills all ``beam`` rows and the
         group's host search state (scores, finished, history, budget
-        left), and a resume restores both.
+        left), and a resume restores both.  A staged group (chunked
+        prefill) stays frozen, finished at budget 0, until its encode is
+        spliced in, and is then seeded as fused admission seeds it.
         """
         reqs = self._as_requests(requests, max_new_tokens)
         width_of, beam = self._beam_widths(reqs, beam)
@@ -1397,8 +1605,10 @@ class ServingEngine:
             cursor=lambda base, r: r.max_new_tokens - budget_left[base],
             burst_hint=ctrl.max_burst if ctrl else K, enc_len=enc_len,
             prefill_token_budget=prefill_token_budget,
-            prefix_cache=prefix_cache, overcommit=overcommit, chaos=chaos,
-            save=save_search, load=load_search)
+            prefix_cache=prefix_cache, overcommit=overcommit,
+            prefill_chunk=prefill_chunk, chaos=chaos,
+            save=save_search, load=load_search,
+            seed=lambda r: seed_group(r, r.max_new_tokens))
         sched, allocator, pc, now = run.sched, run.allocator, run.pc, run.now
         # bytes one beam step's reorder moves: paged, the table permutation
         # and one page a row; contiguous, the whole KV slab and cross K/V
@@ -1509,8 +1719,10 @@ class ServingEngine:
                                             enc_len=enc_len, oob_row=R)
                 if plan.n_admitted:
                     prefill_rounds += 1
-                encoder_tokens += len(plan.requests) * enc_len
+                encoder_tokens += (len(plan.requests)
+                                   + len(plan.staged)) * enc_len
                 run.restore(plan.resumed)
+                run.stage(plan.staged)
                 for r in plan.requests + plan.hits:
                     seed_group(r, r.max_new_tokens)
             elif want_admit:
@@ -1534,11 +1746,18 @@ class ServingEngine:
             if not sched.slot_map:
                 continue        # every admitted group finished on token 1
 
+            # a staged group holds no KV yet: budget 0, rows finished
             remaining_in = np.zeros((n_groups,), np.int32)
             parked_np = np.zeros((R,), bool)
             for base, req in sched.slot_map.items():
+                if base in run.staging:
+                    continue
                 remaining_in[base // beam] = budget_left[base]
                 parked_np[base + width_of[req.req_id]:base + beam] = True
+            if not remaining_in.any() and not (
+                    plan is not None and (plan.width or plan.hit_width)):
+                run.advance_staging()       # a pure-staging round
+                continue
             cap = ctrl.k if ctrl else K
             t_dispatch = time.perf_counter()
             dev = lambda a: torch.as_tensor(a, device=self.device)
@@ -1569,6 +1788,9 @@ class ServingEngine:
             freed = []
             wasted_row_steps = 0
             for base, req in list(sched.slot_map.items()):
+                if base in run.staging:
+                    wasted_row_steps += steps * beam    # frozen rows
+                    continue
                 gi = base // beam
                 s_g = int(remaining_in[gi] - remaining_out[gi])
                 if req.first_token_s is None:
@@ -1596,11 +1818,12 @@ class ServingEngine:
                 # fused rounds otherwise reset dead rows in the next
                 # prologue
                 run.free(freed)
+            run.advance_staging()
 
         return ServeResult(
             requests=reqs, n_slots=R, decode_steps=decode_steps,
             busy_slot_steps=busy_slot_steps, prefill_rounds=prefill_rounds,
-            wall_s=now(), host_syncs=host_syncs + run.preemptions,
+            wall_s=now(), host_syncs=host_syncs + run.store.spill_events,
             burst_len=ctrl.k if ctrl else K, beam=beam,
             prefill_dispatches=prefill_dispatches,
             encoder_tokens=encoder_tokens, fused_admission=fused_admission,
@@ -1618,19 +1841,26 @@ class _ServeRun:
     A request holds ``group`` contiguous rows from its base row, of which
     ``width(req)`` are live (greedy: 1 of 1); ``cursor(base, req)`` is a
     running request's decode position.  Beam serving passes ``save`` and
-    ``load``, which carry a group's host search state through a spill.
+    ``load``, which carry a group's host search state through a spill, and
+    ``seed``, which seeds a group whose staged encode was just spliced in.
     The loops read and write the device state as ``state`` and ``tokens``.
+
+    ``staging`` maps the base row of each request whose encode is staged
+    (chunked prefill) to its progress; such a request holds its rows and
+    pages but decodes nothing until :meth:`advance_staging` splices it in.
     """
 
     def __init__(self, eng: "ServingEngine", reqs: Sequence[Request], *,
                  n_rows: int, group: int, width, cursor, burst_hint: int,
                  enc_len: int, prefill_token_budget: Optional[int],
                  prefix_cache: Optional[bool], overcommit: float,
-                 chaos: Optional[ChaosSchedule], save=None, load=None):
+                 prefill_chunk: Optional[int],
+                 chaos: Optional[ChaosSchedule], save=None, load=None,
+                 seed=None):
         self.eng, self.n_rows, self.group = eng, n_rows, group
         self.enc_len = enc_len
         self.width, self.cursor = width, cursor
-        self.save, self.load = save, load
+        self.save, self.load, self.seed = save, load, seed
         self.overcommit, self.chaos = overcommit, chaos
         self.n_tries = n_rows // group + len(reqs)
         self.pc = eng._resolve_prefix_cache(prefix_cache)
@@ -1649,7 +1879,8 @@ class _ServeRun:
             prefix_cache=self.pc,
             initial_pages=(
                 (lambda r: eng._initial_pages(r, width(r), burst_hint))
-                if self.overcommitted else None))
+                if self.overcommitted else None),
+            prefill_chunk=prefill_chunk)
         self.sched.submit_many(reqs)
         self.state = eng.model.init_decode_state(
             n_rows, eng.max_len, quantized=eng.quant.quantize_kv,
@@ -1658,10 +1889,14 @@ class _ServeRun:
         self.tokens = torch.zeros((n_rows,), dtype=torch.int32,
                                   device=eng.device)
         self.store, self.watchdog = SpillStore(), StepWatchdog()
-        self.preemptions = 0        # one device→host transfer each
-        # with growth or preemption, freed pages can be handed to other
-        # rows before the next fused prologue: free dead rows at once
-        self.eager_free = overcommit > 1.0 or chaos is not None
+        self.preemptions = 0        # a spill is one device→host transfer
+        self.staging: Dict[int, Dict[str, Any]] = {}
+        self.chunked_admissions = self.chunk_rounds = 0
+        # with growth, preemption or staging, freed pages can be handed to
+        # other rows before the next fused prologue (a round that only
+        # stages runs none): free dead rows at once
+        self.eager_free = (overcommit > 1.0 or chaos is not None
+                           or prefill_chunk is not None)
         self.t0 = time.perf_counter()
 
     def now(self) -> float:
@@ -1719,6 +1954,49 @@ class _ServeRun:
             self.state, self.tokens, hpages, hlens, hrows, self.group,
             self.page_rows(hits, hw))
 
+    # ------------------------------------------------------ chunked prefill
+    def stage(self, staged: List[Request]) -> None:
+        """Start the staged encodes of a round's long sources."""
+        for r in staged:
+            self.staging[r.slot] = {"req": r, "x": None, "li": 0}
+        self.chunked_admissions += len(staged)
+
+    def advance_staging(self) -> None:
+        """One width-1 encoder layer for every staged encode
+        (``engine.py:1976-2007``, ``:2579-2616``).  A stage whose last
+        layer is done is spliced into its rows as fused admission splices
+        (paged: into the request's page reservation) and seeded with BOS,
+        so the request decodes from the next burst on."""
+        eng, model = self.eng, self.eng.model
+        for base, st in list(self.staging.items()):
+            req = st["req"]
+            if st["x"] is None:
+                src = np.zeros((1, self.enc_len), np.int32)
+                src[0, :req.n_src_tokens] = req.src
+                st["lens"] = torch.as_tensor([req.n_src_tokens],
+                                             dtype=torch.int32,
+                                             device=eng.device)
+                st["x"] = model.encode_staged_begin(
+                    eng.params, {"src_tokens": torch.as_tensor(
+                        src, device=eng.device)})
+            st["x"] = model.encode_staged_layer(
+                eng.params, st["x"], st["li"], src_lengths=st["lens"],
+                quant=eng.quant)
+            st["li"] += 1
+            self.chunk_rounds += 1
+            if st["li"] < model.cfg.n_enc_layers:
+                continue
+            ck, cv, slens = model.encode_staged_finish(
+                eng.params, st["x"], src_lengths=st["lens"], quant=eng.quant)
+            bases = np.asarray([base], np.int32)
+            self.state = model.splice_prefill(
+                self.state, ck, cv, slens, bases, group=self.group,
+                pages=self.page_rows([req], 1))
+            self.tokens = eng._seed_bos(self.tokens, bases, self.group)
+            if self.seed:
+                self.seed(req)
+            del self.staging[base]
+
     def free(self, bases) -> None:
         """Reset the rows of released requests (paged: sentinel their
         tables too)."""
@@ -1750,17 +2028,20 @@ class _ServeRun:
 
     def preempt(self, req: Request) -> None:
         """Spill one running request (its ``group`` rows, and with
-        ``save`` its host search state) to the host and evict it."""
+        ``save`` its host search state) to the host and evict it.  A staged
+        request holds nothing worth saving: its stage is dropped, and it
+        restages on re-admission."""
         base = req.slot
         rows = self.rows_of(base)
-        k, v, ks, vs, lens, toks, ck, cv, slens = self.eng._spill(
-            self.state, self.tokens, rows)
-        req.spill = SpilledRequest(
-            req_id=req.req_id, n_rows=self.group, k=k, v=v, k_scale=ks,
-            v_scale=vs, lengths=lens, tokens_row=toks, cross_k=ck,
-            cross_v=cv, src_lengths=slens, n_pages=len(req.pages or []),
-            beam=self.save(base) if self.save else None)
-        self.store.put(req.spill)
+        if self.staging.pop(base, None) is None:
+            k, v, ks, vs, lens, toks, ck, cv, slens = self.eng._spill(
+                self.state, self.tokens, rows)
+            req.spill = SpilledRequest(
+                req_id=req.req_id, n_rows=self.group, k=k, v=v, k_scale=ks,
+                v_scale=vs, lengths=lens, tokens_row=toks, cross_k=ck,
+                cross_v=cv, src_lengths=slens, n_pages=len(req.pages or []),
+                beam=self.save(base) if self.save else None)
+            self.store.put(req.spill)
         self.sched.preempt(req, self.now())
         self.preemptions += 1
         # sentinel the victim's tables now: the next burst's masked writes
@@ -1790,8 +2071,9 @@ class _ServeRun:
         reserve none)."""
         eng, sched = self.eng, self.sched
         for base, req in list(sched.slot_map.items()):
-            if sched.slot_map.get(base) is not req:
-                continue           # a victim of an earlier growth this round
+            if sched.slot_map.get(base) is not req or base in self.staging:
+                continue           # a victim of an earlier growth this round,
+                                   # or a stage that holds no KV yet
             b = self.width(req)
             cap_tok = min(req.max_new_tokens, eng.max_len)
             need = kvc.pages_per_row(min(self.cursor(base, req) + k_cap,
@@ -1875,6 +2157,8 @@ class _ServeRun:
             restore_events=self.store.restore_events,
             spilled_bytes=self.store.spilled_bytes,
             straggler_rounds=len(self.watchdog.straggler_steps),
+            chunked_admissions=self.chunked_admissions,
+            chunk_rounds=self.chunk_rounds,
             peak_running=peak_running,
             rejected=len(sched.rejected),
             deadline_misses=misses,

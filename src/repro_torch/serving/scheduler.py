@@ -18,11 +18,10 @@ Port of ``repro/serving/scheduler.py`` (host-side numpy; no torch):
   routed hit / insert / skip; under overcommit a request reserves its
   worst case virtually and is allocated only its next burst's pages, and a
   running request can be preempted back to the queue (its KV spilled to
-  the host by the engine).  Per-request arrival / first-token / finish
+  the host by the engine).  With ``prefill_chunk``, a source longer than
+  the chunk is staged: the engine spreads its encode over rounds, one
+  encoder layer a round.  Per-request arrival / first-token / finish
   times feed the latency metrics.
-
-Not ported yet: the chunked-prefill staging of the reference's
-``plan_admission`` (ROADMAP Queue 1: chunked prefill).
 """
 
 from __future__ import annotations
@@ -192,6 +191,9 @@ class AdmissionPlan:
     the misses routed "insert" carry their chain reservations in
     ``ins_pages``.  ``resumed`` requests carry a host spill payload
     (preempted earlier): the engine restores their KV instead of encoding.
+    ``staged`` requests have sources longer than the scheduler's
+    ``prefill_chunk``: the engine encodes them over later rounds, one
+    encoder layer a round.  Neither kind takes an encode row here.
     """
 
     requests: List[Request]            # encode rows: budget > 0, slot order
@@ -209,11 +211,12 @@ class AdmissionPlan:
     ins_pages: np.ndarray = dataclasses.field(        # (width, maxPP)
         default_factory=_empty_i32_2d)
     resumed: List[Request] = dataclasses.field(default_factory=list)
+    staged: List[Request] = dataclasses.field(default_factory=list)
 
     @property
     def n_admitted(self) -> int:
         return (len(self.requests) + len(self.hits) + len(self.released)
-                + len(self.resumed))
+                + len(self.resumed) + len(self.staged))
 
     @property
     def prefix_hit_pages(self) -> int:
@@ -250,6 +253,9 @@ class ContinuousScheduler:
     (:meth:`assign_prefix`).  Chain pages come from the cache's own
     allocator, so a full prefix pool degrades to uncached admission and
     never eats into the decode page budget.
+
+    ``prefill_chunk``: a source of more tokens than this is routed to
+    :attr:`AdmissionPlan.staged` instead of the round's encode rows.
     """
 
     _NO_DEADLINE = 1e6                 # best-effort = very late deadline
@@ -260,6 +266,7 @@ class ContinuousScheduler:
                  pages_per_request: Optional[Callable[[Request], int]] = None,
                  prefix_cache=None,
                  initial_pages: Optional[Callable[[Request], int]] = None,
+                 prefill_chunk: Optional[int] = None,
                  starvation_aging: float = 0.5):
         if n_slots < 1:
             raise ValueError(f"need at least one slot, got {n_slots}")
@@ -281,6 +288,7 @@ class ContinuousScheduler:
         self.pages_per_request = pages_per_request
         self.prefix_cache = prefix_cache
         self.initial_pages = initial_pages
+        self.prefill_chunk = prefill_chunk
         self.starvation_aging = float(starvation_aging)
         self._waiting: Deque[Request] = collections.deque()
         self._free: List[int] = [g * group_size
@@ -445,7 +453,8 @@ class ContinuousScheduler:
 
         The engine has already copied the victim's KV to the host
         (``req.spill``), so its pages go back through the allocator's spill
-        accounting.  Its prefix chain reference is dropped: a resume
+        accounting (a staged victim, whose encode never finished, has
+        nothing to spill: its pages are released).  Its prefix chain reference is dropped: a resume
         re-splices cross K/V from the spill, not from the pool.  It keeps
         its emitted tokens, and spilled requests win ties in the queue.
         """
@@ -539,7 +548,10 @@ class ContinuousScheduler:
         """Admit one round and shape it for the fused burst: runs
         :meth:`admit`, finishes zero-budget requests on the spot, sets
         preempted requests aside as ``resumed`` (their KV comes back from
-        the host), routes the rest through the prefix cache and pads the
+        the host) and sources longer than ``prefill_chunk`` as ``staged``
+        (they bypass the prefix cache both ways: a hit has no encode to
+        stage, and a chain insert would need the monolithic encode), routes
+        the rest through the prefix cache and pads the
         rows to encode (sources to ``enc_len``, rows to a power of two with
         row-0 replays, destinations with ``oob_row``).  Zero-budget
         requests are excluded before the routing: they never encode, so an
@@ -547,6 +559,7 @@ class ContinuousScheduler:
         live: List[Request] = []
         released: List[Request] = []
         resumed: List[Request] = []
+        staged: List[Request] = []
         for req in self.admit(now, step=step):
             if req.max_new_tokens <= 0:
                 req.first_token_s = now          # observed: empty output
@@ -554,6 +567,9 @@ class ContinuousScheduler:
                 released.append(req)
             elif req.spill is not None:
                 resumed.append(req)
+            elif (self.prefill_chunk is not None
+                  and req.n_src_tokens > self.prefill_chunk):
+                staged.append(req)
             else:
                 live.append(req)
         misses, hits = self.assign_prefix(live)
@@ -569,7 +585,8 @@ class ContinuousScheduler:
         plan = AdmissionPlan(requests=misses, released=released,
                              src_tokens=np.ascontiguousarray(src),
                              src_lengths=np.ascontiguousarray(lens),
-                             base_rows=base, width=width, resumed=resumed)
+                             base_rows=base, width=width, resumed=resumed,
+                             staged=staged)
         if self.prefix_cache is not None:
             plan.ins_pages = self.chain_pages_matrix(misses, width, enc_len)
             if hits:

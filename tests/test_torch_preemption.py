@@ -302,8 +302,7 @@ def test_expired_deadline_is_shed_as_reference():
 
 
 def test_overload_arg_validation():
-    """The reference's ValueErrors; a valid ``prefill_chunk`` names its
-    ROADMAP item."""
+    """The reference's ValueErrors; a valid ``prefill_chunk`` runs."""
     s = _module_state()
     eng = s["engines"][("port", "fp")]
     unpaged = ServingEngine(s["model"], s["fp"], max_len=MAX_LEN,
@@ -323,9 +322,9 @@ def test_overload_arg_validation():
         eng.serve(s["srcs"][:1], prefill_chunk=4, fused_admission=False,
                   **one)
     for beam in (None, 2):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1: chunked prefill"):
-            eng.serve(s["srcs"][:1], prefill_chunk=4, beam=beam, **one)
+        res = eng.serve(s["srcs"][:1], prefill_chunk=4, beam=beam, **one)
+        assert res.requests[0].status == "finished"
+        assert res.chunked_admissions == int(len(s["srcs"][0]) > 4)
 
 
 # ---------------------------------------------------------------------------

@@ -296,18 +296,34 @@ def test_pack_batches_token_budget_equals_reference():
 
 
 # ---------------------------------------------------------------------------
-# what is not ported raises; the driver runs in both modes on the CPU
+# the options of later slices run; the driver runs in both modes on the CPU
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw", [dict(prefill_chunk=8),
                                 dict(speculative_k=2),
                                 dict(beam=2, prefill_chunk=8)])
-def test_unported_serve_options_raise(kw):
+def test_later_slice_serve_options_run(kw):
+    """Chunked prefill and speculative decoding, once refused, run and give
+    the tokens of the unchunked, non-speculative serve.  (They are held to
+    the reference in ``test_torch_chunked_prefill.py`` and
+    ``test_torch_speculative.py``.)"""
     model = EncDecLM(get_config("transformer-base").reduced(), device="cpu")
-    engine = ServingEngine(model, {}, max_len=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: "
-                       "(chunked prefill|speculative decoding)"):
-        engine.serve([np.arange(3, 8)], **kw)
+    params = model.init(torch.Generator().manual_seed(0))
+    engine = ServingEngine(model, params, max_len=16, device="cpu")
+    srcs = [np.arange(3, 15), np.arange(4, 10), np.arange(5, 16),
+            np.arange(3, 8)]
+    serve_kw = dict(n_slots=2 * kw.get("beam", 1), max_new_tokens=6,
+                    burst_len=2, beam=kw.get("beam"))
+    base = engine.serve(srcs, **serve_kw)
+    res = engine.serve(srcs, **dict(serve_kw, **kw))
+    assert [r.tokens for r in res.requests] == \
+        [r.tokens for r in base.requests]
+    if "prefill_chunk" in kw:
+        # the two sources longer than 8 tokens stage, one layer a round
+        assert res.chunked_admissions == 2
+        assert res.chunk_rounds == 2 * model.cfg.n_enc_layers
+    else:
+        assert res.speculative_k == 2 and res.draft_tokens > 0
 
 
 @pytest.mark.parametrize("kw", [dict(beam=2, overcommit=1.5),
@@ -347,21 +363,29 @@ def test_prefix_and_overload_options_run(kw):
         assert res.peak_running > base.peak_running == 1
 
 
-def test_generate_speculative_k_raises():
-    """``generate`` takes the reference's ``speculative_k`` and refuses it
-    as ``serve`` does, naming the ROADMAP item; ``alpha`` is accepted."""
+def test_generate_and_serve_speculative_run():
+    """``generate`` and ``serve`` with ``speculative_k=2`` run and give the
+    plain tokens (``alpha`` is accepted); a negative ``speculative_k``
+    raises, as in the reference."""
     model = EncDecLM(get_config("transformer-base").reduced(), device="cpu")
-    engine = ServingEngine(model, {}, max_len=16, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    engine = ServingEngine(model, params, max_len=16, device="cpu")
     batch = {"src_tokens": np.ones((1, 4), np.int32),
              "src_lengths": np.array([4], np.int32)}
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1: speculative decoding"):
-        engine.generate(batch, speculative_k=2)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1: speculative decoding"):
-        engine.serve([np.arange(3, 8)], speculative_k=2, alpha=0.8)
+    base = engine.generate(batch, max_new_tokens=8)
+    res = engine.generate(batch, max_new_tokens=8, speculative_k=2)
+    assert [t.tolist() for t in res.tokens] == \
+        [t.tolist() for t in base.tokens]
+    assert res.speculative_k == 2
+    assert 0 <= res.accepted_tokens <= res.draft_tokens
+    plain = engine.serve([np.arange(3, 8)], max_new_tokens=8, alpha=0.8)
+    spec = engine.serve([np.arange(3, 8)], max_new_tokens=8,
+                        speculative_k=2, alpha=0.8)
+    assert spec.requests[0].tokens == plain.requests[0].tokens
     with pytest.raises(ValueError, match="speculative_k"):
         engine.generate(batch, speculative_k=-1)
+    with pytest.raises(ValueError, match="speculative_k"):
+        engine.serve([np.arange(3, 8)], speculative_k=-1)
 
 
 @pytest.mark.parametrize("argv", [
@@ -401,11 +425,23 @@ def test_serve_driver_runs_on_cpu(argv, capsys):
         assert " 0 preemptions" not in out
 
 
-@pytest.mark.parametrize("flag", [["--prefill-chunk", "8"],
+@pytest.mark.parametrize("flag", [["--mode", "continuous",
+                                   "--prefill-chunk", "8"],
                                   ["--mesh", "1,2"],
                                   ["--mode", "continuous", "--beam", "4",
                                    "--prefill-chunk", "8"]])
-def test_serve_driver_refuses_unported_flags(flag):
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1: (chunked prefill"
-                       "|multi-GPU and the cost accounting)"):
-        serve_driver.main(["--device", "cpu", *flag])
+def test_serve_driver_flags_run_or_refuse(flag, capsys):
+    """``--mesh`` is refused by its ROADMAP title; ``--prefill-chunk``, once
+    refused, runs and reports its staged admissions."""
+    if "--mesh" in flag:
+        with pytest.raises(SystemExit, match="ROADMAP Queue 1: multi-GPU "
+                           "and the cost accounting"):
+            serve_driver.main(["--device", "cpu", *flag])
+        return
+    serve_driver.main(["--device", "cpu", *flag, "--requests", "6",
+                       "--slots", "4", "--max-new-tokens", "4"])
+    out = capsys.readouterr().out
+    assert "served 6 requests" in out
+    line = next(x for x in out.splitlines() if "chunked admissions" in x)
+    n = int(line.split()[0])
+    assert n > 0 and f"({n * 2} staged encoder rounds)" in line
