@@ -9,7 +9,7 @@ from repro_torch.core.calibration import (  # noqa: F401
     record,
 )
 from repro_torch.core.histogram import StreamingHistogram, classify  # noqa: F401
-from repro_torch.core.policy import QuantPolicy  # noqa: F401
+from repro_torch.core.policy import QuantPolicy, summarize  # noqa: F401
 from repro_torch.core.ptq import (  # noqa: F401
     FP_CONTEXT,
     QuantContext,
@@ -32,5 +32,9 @@ from repro_torch.core.qtensor import (  # noqa: F401
 from repro_torch.core.quantize import (  # noqa: F401
     QuantMode,
     Thresholds,
+    fake_quant,
+    fake_quant_dynamic,
+    quantize_dynamic,
+    quantize_naive,
     quantize_with_thresholds,
 )

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import fnmatch
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 from repro_torch.core.calibration import SiteCalibration
 from repro_torch.core.quantize import QuantMode
@@ -67,3 +67,17 @@ class QuantPolicy:
         # blindly, dynamic mode can.
         return self.act_quant == "dynamic" or self.mode == QuantMode.NAIVE
 
+
+def summarize(policy: QuantPolicy,
+              calibrations: Dict[str, SiteCalibration]) -> Dict[str, int]:
+    """Counts mirroring the paper's '12 of 97 MatMuls stayed FP32'."""
+    stats = {"total": 0, "quantized": 0, "sparse_skipped": 0, "denied": 0}
+    for site, calib in calibrations.items():
+        stats["total"] += 1
+        if policy.denies(site) or not policy.allows(site):
+            stats["denied"] += 1
+        elif policy.skip_sparse and calib.classification.kind == "sparse":
+            stats["sparse_skipped"] += 1
+        elif policy.should_quantize(site, calib):
+            stats["quantized"] += 1
+    return stats

@@ -105,6 +105,11 @@ class QuantContext:
             return Thresholds(-t, t)
         return None
 
+    def quantize_activations(self, site: str) -> bool:
+        if not self.enabled or self.policy.mode == QuantMode.NONE:
+            return False
+        return self.policy.should_quantize(site, self.lookup(site))
+
     @property
     def quantize_kv(self) -> bool:
         return self.enabled and self.policy.quantize_kv_cache

@@ -36,6 +36,12 @@ class QTensor:
     zero_point: Param           # f32, same broadcast rules as ``scale``
     axis: Optional[int] = None  # per-channel axis (None = per-tensor/keepdims)
 
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        """``(data - zero_point) * scale`` in float32, cast to ``dtype``."""
+        scale = _expand(self.scale, self.axis, self.data.dim())
+        zp = _expand(self.zero_point, self.axis, self.data.dim())
+        return ((self.data.to(torch.float32) - zp) * scale).to(dtype)
+
     def nbytes(self) -> int:
         """Payload plus parameters; a float parameter counts as one f32."""
         return sum(p.numel() * p.element_size()
@@ -104,6 +110,17 @@ def quantize_symmetric(x: torch.Tensor, amax,
     xq = torch.clamp(xq, INT8_MIN, INT8_MAX).to(torch.int8)
     return QTensor(data=xq, scale=div_exact(amax, INT8_MAX),
                    zero_point=torch.zeros_like(amax), axis=axis)
+
+
+def quantize_tensor_minmax(x: torch.Tensor,
+                           axis: Optional[int] = None) -> QTensor:
+    """Paper §4.1 "naive" quantization: absolute Min/Max of the tensor."""
+    if axis is None:
+        t_min, t_max = x.min(), x.max()
+    else:
+        reduce_dims = tuple(i for i in range(x.dim()) if i != axis)
+        t_min, t_max = x.amin(dim=reduce_dims), x.amax(dim=reduce_dims)
+    return quantize_affine(x, t_min, t_max, axis=axis)
 
 
 def abs_max(x: torch.Tensor, axis: Optional[int] = None) -> torch.Tensor:

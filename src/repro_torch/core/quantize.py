@@ -1,8 +1,10 @@
-"""Quantization modes (paper §4) and the threshold-driven quantizer.
+"""Quantization modes (paper §4) and activation/weight quantizers.
 
-Port of the parts of ``repro/core/quantize.py`` the translation path uses:
-``QuantMode``, ``Thresholds``, ``quantize_with_thresholds`` and
-``thresholds_for_mode`` (which the calibrator calls).
+Port of ``repro/core/quantize.py``: ``QuantMode``, ``Thresholds``,
+``thresholds_for_mode`` (which the calibrator calls), the threshold-driven
+``quantize_with_thresholds``, the dynamic, weight and naive quantizers, and
+the quantize→dequantize round trips (``fake_quant``) of the Table-1
+experiments.
 """
 
 from __future__ import annotations
@@ -14,7 +16,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.qtensor import QTensor, quantize_affine, quantize_symmetric
+from repro_torch.core.qtensor import (
+    QTensor,
+    abs_max,
+    quantize_affine,
+    quantize_symmetric,
+    quantize_tensor_minmax,
+)
 
 
 class QuantMode(str, enum.Enum):
@@ -49,6 +57,40 @@ def quantize_with_thresholds(x: torch.Tensor, thr: Thresholds,
         return quantize_symmetric(x, np.float32(thr.t_max), axis=axis)
     return quantize_affine(x, np.float32(thr.t_min), np.float32(thr.t_max),
                            axis=axis)
+
+
+def quantize_dynamic(x: torch.Tensor, axis: Optional[int] = None) -> QTensor:
+    """Dynamic symmetric quantization (per-call abs-max), per tensor or
+    per ``axis``."""
+    return quantize_symmetric(x, abs_max(x, axis=axis), axis=axis)
+
+
+def quantize_weight(w: torch.Tensor, channel_axis: int = -1) -> QTensor:
+    """Per-output-channel symmetric weight quantization along
+    ``channel_axis`` (abs-max per channel): the reference's
+    ``core/quantize.py:quantize_weight``, kept for parity with its API and
+    not exported from ``repro_torch.core``.  The model path quantizes its
+    weights with ``core.ptq.quantize_weight`` (keepdims scales), which is
+    the ``quantize_weight`` that ``repro_torch.core`` exports."""
+    axis = channel_axis % w.dim()
+    return quantize_symmetric(w, abs_max(w, axis=axis), axis=axis)
+
+
+def quantize_naive(x: torch.Tensor, axis: Optional[int] = None) -> QTensor:
+    """Paper §4.1: absolute Min/Max mapping (kept for the Table-1 repro)."""
+    return quantize_tensor_minmax(x, axis=axis)
+
+
+def fake_quant(x: torch.Tensor, thr: Thresholds,
+               axis: Optional[int] = None) -> torch.Tensor:
+    """Quantize → dequantize round trip in ``x``'s dtype: INT8 accuracy
+    loss without the int8 kernels."""
+    return quantize_with_thresholds(x, thr, axis=axis).dequantize(x.dtype)
+
+
+def fake_quant_dynamic(x: torch.Tensor,
+                       axis: Optional[int] = None) -> torch.Tensor:
+    return quantize_dynamic(x, axis=axis).dequantize(x.dtype)
 
 
 def thresholds_for_mode(

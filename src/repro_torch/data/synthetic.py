@@ -15,8 +15,7 @@ quantization mode) are reproducible end-to-end on CPU:
 
 Special tokens: PAD=0, BOS=1, EOS=2; content ids start at 3.
 
-The port's own copy of ``repro/data/synthetic.py`` (without
-``reference_translation``).
+The port's own copy of ``repro/data/synthetic.py``.
 """
 
 from __future__ import annotations
@@ -67,6 +66,10 @@ def make_corpus(
         tgt = _map_token(src, vocab).astype(np.int32)
         out.append(Sentence(src=src, tgt=tgt, n_words=n_words))
     return out
+
+
+def reference_translation(src: np.ndarray, vocab: int) -> np.ndarray:
+    return _map_token(np.asarray(src), vocab).astype(np.int32)
 
 
 def pad_batch(seqs: List[np.ndarray], *, add_bos: bool = False,

@@ -827,3 +827,41 @@ def test_paged_beam_serve_equals_contiguous_on_card(gen):
         assert res.pages_in_use == 0
         toks[paged] = [list(r.tokens) for r in res.requests]
     assert toks[True] == toks[False]
+
+
+def test_train_step_on_card_equals_cpu(gen):
+    """One step of a reduced enc-dec model (float32) on the card against
+    the same step on the CPU, from the same weights and batch: the loss
+    and gradient norm to 1e-4 relative, and the new parameters to
+    ``2.5·lr`` everywhere (Adam's first step is about ``lr·g/|g|``, and a
+    gradient near its rounding noise, such as a key-projection bias's, may
+    turn its sign) and ``1e-3·lr`` on average."""
+    from repro_torch.data import TranslationBatches
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    cfg = get_config("transformer-base").reduced()
+    models = {d: EncDecLM(cfg, device=d) for d in ("cuda", "cpu")}
+    params = models["cuda"].init(gen)
+    batch = TranslationBatches(make_corpus(64, cfg.vocab, seed=0),
+                               16).next_batch()
+    out = {}
+    for d, model in models.items():
+        opt = AdamW(lr=warmup_cosine(2e-3, 2, 20))
+        p = tree_map(lambda t: t.to(d), params)
+        out[d] = make_train_step(model, opt)(p, opt.init(p), batch)
+    (gp, gs), gm = out["cuda"]
+    (cp, cs), cm = out["cpu"]
+    for k in ("loss", "ce_loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(gm[k]), float(cm[k]), rtol=1e-4,
+                                   err_msg=k)
+    lr = float(cm["lr"])
+    errs = []
+    for (k, a), (_, b) in zip(leaves_with_paths(gp), leaves_with_paths(cp)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        err = (a.cpu() - b).abs()
+        assert float(err.max()) <= 2.5 * lr, k
+        errs.append(err.reshape(-1))
+    assert float(torch.cat(errs).mean()) <= 1e-3 * lr
+    assert int(gs.step) == int(cs.step) == 1

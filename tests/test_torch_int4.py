@@ -398,9 +398,10 @@ def test_bridge_refuses_an_unnamed_int4_triple(nmt_random):
 
 def test_port_and_chip_smoke_import_no_jax():
     """Import every ``repro_torch`` module (the prefix cache, preemption,
-    chaos and watchdog modules among them), ``chip_smoke`` and the chip
-    tools in a fresh interpreter: neither ``jax`` nor ``repro`` may be in
-    ``sys.modules``."""
+    chaos and watchdog modules, and the training path's optimizer, step,
+    loop, data pipeline, checkpointer and driver among them),
+    ``chip_smoke`` and the chip tools in a fresh interpreter: neither
+    ``jax`` nor ``repro`` may be in ``sys.modules``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -414,7 +415,11 @@ def test_port_and_chip_smoke_import_no_jax():
         "('jax', 'jaxlib', 'repro'))\n"
         "want = {'repro_torch.serving.prefix_cache', "
         "'repro_torch.serving.preemption', 'repro_torch.serving.chaos', "
-        "'repro_torch.distributed.fault'}\n"
+        "'repro_torch.distributed.fault', 'repro_torch.optim.adamw', "
+        "'repro_torch.optim.schedule', 'repro_torch.train.step', "
+        "'repro_torch.train.loop', 'repro_torch.data.pipeline', "
+        "'repro_torch.checkpoint.checkpointer', 'repro_torch.launch.train', "
+        "'repro_torch.tree'}\n"
         "missing = sorted(want - set(names))\n"
         "print(len(names), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(names) < 20 else 0)\n")
