@@ -33,9 +33,10 @@ final line):
    K7 (the grouped expert GEMM, K3's tile) bit for bit at the rows per
    expert of every MoE forward pass (greedy and beam-4 decode and
    prefill), f32 and bf16, warm and cold; K1-K4 also at phase 4t's
-   Table-1 shapes (d_model 128, d_ff 256, heads of 32), and K3 with a
-   nonzero activation zero point (the affine modes' epilogue) at every
-   shape;
+   Table-1 shapes (d_model 128, d_ff 256, heads of 32) and at phase 7b's
+   (rows 16 and 16 × 46; K 5120, 4096 and 14336; N 4096, 1024, 14336 and
+   5120; 32 heads of 128 over 8 at a cache of 80), and K3 with a nonzero
+   activation zero point (the affine modes' epilogue) at every shape;
 4. end to end — transformer-base at full width (bf16 activations, float32
    weights from ``torch.Generator`` seed 0): after a two-token warm-up,
    KL-calibrate, quantize to INT8, greedy ``generate`` and beam-4
@@ -71,7 +72,7 @@ final line):
    ``impl="torch"``; then a profiled greedy run (busy time, idle share,
    K6's time and kernels);
 7. the decoder-only MoE family — granite-moe-1b-a400m at its published
-   widths and depth (24 layers, 32 experts top-8; random weights from
+   widths and 8 of its 24 layers (32 experts top-8; random weights from
    ``torch.Generator`` seed 0, bf16 activations) on 16 right-padded
    prompts: INT8 greedy and beam-4 ``generate`` with dynamic activation
    scales, and greedy with static scales after KL calibration on 16
@@ -83,6 +84,27 @@ final line):
    first decode steps' logits against ``impl="torch"``, with dynamic and
    with static scales, and a profiled greedy run (busy time, idle share,
    K7's share, K4's device time);
+7b. the dense SwiGLU family (after phase 7's trees are freed) —
+   mistral-nemo-12b at its published widths and depth (40 layers,
+   d_model 5120, 32 heads of 128 over 8, d_ff 14336, vocab 131072, rope
+   theta 1e6; float32 weights from ``torch.Generator`` seed 0 on the card,
+   bf16 activations) on phase 7's 16 prompts, 24 new tokens, cache 80:
+   INT8 greedy ``generate`` with dynamic scales; KL calibration on 8
+   held-out prompts, the float32 tree freed, INT8 greedy with static
+   scales.  K1 (static) or K2 (dynamic) and K3 launch 7 times a layer in
+   every forward pass, K4 once a layer a decode step, no other kernel and
+   no plain version; a prefill from ``embeds`` equal to the prompts'
+   embedding rows (the VLM path) equals the token prefill bit for bit;
+   with each kind of scales the prefill and 3 decode steps against the
+   plain versions (:func:`check_deep_against_plain`: K1-K3 within
+   ``LOGIT_ATOL`` with K4's kernel in both, every K4 call within a bf16
+   ulp of its plain version on its inputs, the all-plain drift logged);
+   seconds for init, calibration and quantization, tokens/s, a profiled
+   greedy call (busy time, idle share, K3's share) and the peak memory;
+7c. the audio stub — whisper-base at its published widths, INT8 dynamic,
+   from ``src_embeds`` of 4 × 1500 frames: greedy ``generate`` (K2, K3,
+   K4, no plain version), then the prefill and 8 decode steps against the
+   plain versions as in 7b;
 5c. the prefix cache and overload (run after phase 6, whose INT4 weights
    it reuses) — 24 requests, phase 5's first 12 sources each twice with
    their budgets, on 16 rows (INT8 static, burst 8, pages of 16): a cold
@@ -147,7 +169,8 @@ final line):
    restore step 20), and for 10 steps of the reduced MoE model; each
    must exit 0;
 9. launch counts of each path, and one JSON line describing each kernel
-   (its launches summed over every path of phases 4-7, 4t, 5c and 5d);
+   (its launches summed over every path of phases 4-7, 4t, 5c, 5d, 7b and
+   7c);
 10. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package.
@@ -189,6 +212,9 @@ INT4_GROUP = 128               # rows per INT4 scale/min block
 LONG_S = 4096                  # phase 3: a long decode cache (K4, K5)
 
 MOE_ARCH = "granite-moe-1b-a400m"
+# phase 7 runs the published widths at 8 of the 24 layers: the time the
+# full depth took (every kernel shape is a width's) went to phase 7b
+MOE_LAYERS = 8
 # the longest prompt (46 tokens) plus 24 new tokens must fit the cache
 MOE_MAX_LEN = 80
 
@@ -370,9 +396,15 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
     t1_d, t1_ff = TABLE1_DIMS["d_model"], TABLE1_DIMS["d_ff"]
     t1_gemms = [(M, K, N) for M in t1_m
                 for K, N in ((t1_d, t1_d), (t1_d, t1_ff), (t1_ff, t1_d))]
+    # phase 7b's dense model: its quantizer inputs, linears and attention
+    from repro_torch.configs import get_config
+    dense_cfg = get_config(DENSE_ARCH)
+    s_dense = moe_prompts(dense_cfg.vocab)[0]["tokens"].shape[1]
+    d_quant, d_gemms, d_attn = dense_kernel_shapes(s_dense, dense_cfg)
 
     # K1 / K2: exact int8 codes (and bit-equal K2 scales) at every path's
-    # shapes (quantizer_shapes, and Table 1's), with an empty kernel's time
+    # shapes (quantizer_shapes, Table 1's and the dense path's: a 14336-wide
+    # bf16 row at the down site), with an empty kernel's time
     # beside them
     # (torch's sleep for 0 cycles): at the decode shapes a launch is most
     # of the time.  "cold" rotates the input past the L2 (the prefill and
@@ -380,7 +412,7 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
     empty_ms = time_ms(lambda: torch.cuda._sleep(0))
     log(f"empty kernel: {empty_ms:.4f} ms a launch (time_ms)")
     for M, K in (quantizer_shapes(s_enc, s_moe, moe_cfg)
-                 + [(M, K) for M in t1_m for K in (t1_d, t1_ff)]):
+                 + [(M, K) for M in t1_m for K in (t1_d, t1_ff)] + d_quant):
         x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
         amax = float(x.float().abs().max()) * 0.7
         tile = quant_plan(M, K, x.dtype, is_aligned(x))
@@ -425,7 +457,9 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
     # activation zero point (acc - zp·colsum, the affine modes of Table 1)
     # under a per-row and a per-tensor scale.  The MoE path's q and o are
     # d_model -> d_model, its k and v d_model -> n_kv_heads · hd; then
-    # Table 1's linears; the last shapes reach both tile configurations and
+    # Table 1's linears and the dense path's (q 5120 -> 4096, k and v
+    # -> 1024, gate and up -> 14336, o 4096 -> 5120, down 14336 -> 5120, at
+    # 16 and 736 rows); the last shapes reach both tile configurations and
     # the split of K (kernels/int8_matmul.py:plan).  Library: torch._int_mm
     # without the epilogue, M padded to 17 where it wants more than 16 rows.
     # No cold time at Table 1's shapes: that model's weights (under 1 MB)
@@ -433,7 +467,7 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
     for M, K, N in ([(M, K, N) for M in rows_m
                      for K, N in ((512, 512), (512, 2048), (2048, 512))]
                     + [(M, d_moe, N) for M in moe_m for N in (d_moe, d_kv)]
-                    + t1_gemms
+                    + t1_gemms + d_gemms
                     + [(M, K, 512) for M in (1, 17, 65)
                        for K in (1024, 2048)]):
         a = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
@@ -580,8 +614,9 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
 
     # K4: flash decode vs masked softmax over the dequantized cache, at the
     # enc-dec decoder's shapes (8 heads, capacity 64), Table 1's (4 heads of
-    # 32, capacity TABLE1_MAX_LEN) and the MoE path's (16 heads over 8 KV
-    # heads, capacity MOE_MAX_LEN), then a long cache
+    # 32, capacity TABLE1_MAX_LEN), the MoE path's (16 heads over 8 KV
+    # heads, capacity MOE_MAX_LEN) and the dense path's (32 heads of 128
+    # over 8, capacity MOE_MAX_LEN), then a long cache
     # (LONG_S positions, lengths drawn in [1, LONG_S]) that the plan splits
     # over a cluster.  f32 within 1e-5 and bf16 within one bf16 ulp of the
     # plain version; under every forced plan (kernels/decode_attention.py:
@@ -596,6 +631,7 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
                for B in t1_m[:2]]
             + [(B, MOE_MAX_LEN, moe_cfg.n_heads, moe_cfg.n_kv_heads, dh)
                for B in (N_REQUESTS, N_REQUESTS * BEAM)]
+            + [d_attn]
             + [(N_REQUESTS, LONG_S, moe_cfg.n_heads, moe_cfg.n_kv_heads,
                 dh)]):
         kq = torch.randint(-127, 128, (B, S, HKV_, dh_), generator=gen,
@@ -939,15 +975,18 @@ def device_rows(prof):
     """[(device ms, kernel name, count)] of a finished torch.profiler run,
     largest first: device-side events only (operator rows repeat their
     kernels' time); one stream, so kernels do not overlap and their sum is
-    the busy time."""
+    the busy time.  The rows are summed from the profiler's raw events, as
+    ``key_averages`` sums them, without the event tree it builds first
+    (10-30 s a profiled generate on a slow host)."""
     from torch.autograd import DeviceType
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    field = ("self_device_time_total" if events
-             and hasattr(events[0], "self_device_time_total")
-             else "self_cuda_time_total")
-    return sorted(((getattr(e, field) / 1e3, e.key, e.count)
-                   for e in events if getattr(e, field) > 0), reverse=True)
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0 \
+                and not e.is_hidden_event():
+            ms, n = sums.get(e.name(), (0.0, 0))
+            sums[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return sorted(((ms, key, n) for key, (ms, n) in sums.items()),
+                  reverse=True)
 
 
 def profile(label: str, fn, cpu: bool = True):
@@ -959,6 +998,7 @@ def profile(label: str, fn, cpu: bool = True):
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
+    t_all = time.perf_counter()
     activities = [ProfilerActivity.CUDA]
     if cpu:
         activities.insert(0, ProfilerActivity.CPU)
@@ -966,14 +1006,18 @@ def profile(label: str, fn, cpu: bool = True):
         t0 = time.perf_counter()
         steps = fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        t_stop = time.perf_counter()
+        wall_ms = (t_stop - t0) * 1e3
+    t_rows = time.perf_counter()
     rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows)
     if busy_ms <= 0:
         raise AssertionError("the profiler saw no device time")
     log(f"profile {label} (profiled{'' if cpu else ', device only'}): "
         f"wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.2f} "
-        f"idle_share={1 - busy_ms / wall_ms:.3f} steps={steps}")
+        f"idle_share={1 - busy_ms / wall_ms:.3f} steps={steps} (the "
+        f"profiler's start {t0 - t_all:.1f} s, stop {t_rows - t_stop:.1f} "
+        f"s, summary {time.perf_counter() - t_rows:.1f} s)")
     for ms, key, count in rows[:8]:
         log(f"  device {ms:8.3f} ms  x{count:<5d} {key[:70]}")
     return busy_ms, rows, wall_ms
@@ -2304,8 +2348,9 @@ def moe_prompts(vocab: int):
 
 
 def run_moe(model, params):
-    """granite-moe-1b-a400m at its published widths and depth (``model``,
-    its random float32 weights ``params``), bf16 activations: INT8 with
+    """granite-moe-1b-a400m at its published widths and 8 of its 24
+    layers (``model``, its random float32 weights ``params``), bf16
+    activations: INT8 with
     dynamic activation scales (greedy and beam-4 ``generate``) and, after
     KL calibration on the held-out prompts, with static scales (greedy).
     Launch counts are read from zero over the three runs; K7's plain
@@ -2337,6 +2382,7 @@ def run_moe(model, params):
     # warm-up: library handles and caches for these shapes (uncounted)
     engine.generate(batch, max_new_tokens=2)
     engine.generate_beam(batch, beam=BEAM, max_new_tokens=2)
+    phase("MoE: counted runs")
 
     # the plain K7 and the plain quantizers are counted: on the card they
     # must not run
@@ -2457,6 +2503,330 @@ def profile_moe(model, qparams, qctx, batch) -> None:
              or "int8_matmul_reduce_kernel" in key)
     log(f"  K7 device time {k7:.2f} ms = {k7 / busy:.3f} of busy; "
         f"K3 {k3:.2f} ms = {k3 / busy:.3f}; {attention_ms(rows)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the dense SwiGLU family at full width and depth
+# phase 7c: the audio stub's src_embeds input at full width
+# ---------------------------------------------------------------------------
+
+DENSE_ARCH = "mistral-nemo-12b"
+DENSE_CALIB = 8                # held-out prompts for its KL calibration
+DENSE_PROFILE_NEW = 8          # new tokens of the profiled greedy call
+AUDIO_ARCH = "whisper-base"
+AUDIO_ROWS, AUDIO_FRAMES = 4, 1500
+AUDIO_STEPS = 8                # decode steps held against impl="torch"
+AUDIO_MAX_LEN = 16
+
+
+def dense_kernel_shapes(s_prompt: int, cfg):
+    """(K1/K2 (M, K) list, K3 (M, K, N) list, K4 (B, S, H, HKV, dh)) of
+    the dense phase: greedy decode (16 rows) and the prefill over the 16
+    prompts padded to ``s_prompt``; q/k/v/gate/up read d_model, o reads
+    H·hd, down d_ff."""
+    d, qd, kvd, ff = (cfg.d_model, cfg.n_heads * cfg.hd,
+                      cfg.n_kv_heads * cfg.hd, cfg.d_ff)
+    rows = (N_REQUESTS, N_REQUESTS * s_prompt)
+    quant = [(M, K) for M in rows for K in (d, qd, ff)]
+    gemms = [(M, K, N) for M in rows
+             for K, N in ((d, qd), (d, kvd), (d, ff), (qd, d), (ff, d))]
+    attn = (N_REQUESTS, MOE_MAX_LEN, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    return quant, gemms, attn
+
+
+def check_deep_against_plain(model, qparams, qctx, batch, steps: int = 3, *,
+                             max_len: int = MOE_MAX_LEN):
+    """A path's kernels against their plain versions, over the prefill and
+    the first ``steps`` decode steps:
+
+    * K1-K3: the same run with ``impl="torch"`` but K4's kernel in both
+      paths; the logits must be within ``LOGIT_ATOL`` (K1-K3 are exact);
+    * K4: each call of the kernel path held on the spot against its plain
+      version on the same inputs, within phase 3's tolerance (one bf16
+      ulp); the outputs that differ are counted;
+    * every plain version, K4's too: the prefill logits within
+      ``LOGIT_ATOL``; the decode steps' drift is logged, not bounded: a
+      bf16 ulp of K4's output flips activation codes downstream, and over
+      40 random-weight layers that can move the logits further than
+      ``LOGIT_ATOL``."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    real = ops.decode_attention
+    k4 = {"calls": 0, "outputs": 0, "differ": 0, "max": 0.0}
+
+    def k4_checked(q, kq, ks, vq, vs, lengths, *, sm_scale, impl="auto"):
+        out = real(q, kq, ks, vq, vs, lengths, sm_scale=sm_scale,
+                   impl="cuda")
+        want = ref.ref_decode_attention(q, kq, ks, vq, vs, lengths,
+                                        sm_scale)
+        if not torch.allclose(out.float(), want.float(), atol=1e-5,
+                              rtol=2.0 ** -7):
+            raise AssertionError("decode_attention on the path is more "
+                                 "than a bf16 ulp from its plain version")
+        d = (out.float() - want.float()).abs()
+        k4["calls"] += 1
+        k4["outputs"] += d.numel()
+        k4["differ"] += int((d > 0).sum())
+        k4["max"] = max(k4["max"], float(d.max()))
+        return out
+
+    def k4_kernel(q, kq, ks, vq, vs, lengths, *, sm_scale, impl="auto"):
+        return real(q, kq, ks, vq, vs, lengths, sm_scale=sm_scale,
+                    impl="cuda")
+
+    def run(ctx, attention):
+        ops.decode_attention = attention
+        try:
+            b = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in batch.items()}
+            rows = next(iter(b.values())).shape[0]
+            st = model.init_decode_state(rows, max_len, quantized=True)
+            logits, st = model.prefill(qparams, b, st, quant=ctx)
+            out = [logits]
+            for _ in range(steps):
+                tok = torch.argmax(out[-1], dim=-1).to(torch.int32)
+                logits, st = model.decode_step(qparams, tok, st, quant=ctx)
+                out.append(logits)
+            return out
+        finally:
+            ops.decode_attention = real
+
+    plain_ctx = dataclasses.replace(qctx, impl="torch")
+    kern = run(qctx, k4_checked)
+    k13 = run(plain_ctx, k4_kernel)
+    plain = run(plain_ctx, real)
+    worst = 0.0
+    for step, (a, b, c) in enumerate(zip(kern, k13, plain)):
+        for x in (a, b, c):
+            if not torch.isfinite(x).all():
+                raise AssertionError(f"non-finite logits at step {step}")
+        err = float((a - b).abs().max())
+        drift = float((a - c).abs().max())
+        agree = float((a.argmax(-1) == c.argmax(-1)).float().mean())
+        log(f"logits step {step}: K1-K3 vs plain (K4's kernel in both) "
+            f"max |Δ| {err:.3g}; every plain version {drift:.3g} (argmax "
+            f"agreement {agree:.3f}); max |logit| {float(c.abs().max()):.3g}")
+        worst = max(worst, err)
+        if step == 0 and drift > LOGIT_ATOL:
+            raise AssertionError(f"prefill logits differ from the plain "
+                                 f"path's by {drift}")
+    log(f"  K4 on the path's inputs: {k4['calls']} calls, {k4['differ']} "
+        f"of {k4['outputs']} outputs differ from its plain version, at "
+        f"most by {k4['max']:.3g} (one bf16 ulp allowed)")
+    if worst > LOGIT_ATOL:
+        raise AssertionError(f"K1-K3 and their plain versions differ by "
+                             f"{worst}")
+    return worst
+
+
+def run_dense():
+    """mistral-nemo-12b at its published widths and depth (40 layers,
+    d_model 5120, 32 heads of 128 over 8, d_ff 14336, vocab 131072),
+    random float32 weights from ``torch.Generator`` seed 0, bf16
+    activations, on phase 7's 16 right-padded prompts: INT8 greedy
+    ``generate`` with dynamic scales, then, after KL calibration on 8
+    held-out prompts, with static scales; a prefill from ``embeds`` equal
+    to the prompts' embedding rows against the token prefill (bit for
+    bit); each run's kernels against their plain versions; a profiled
+    greedy call.  Returns the launch counts of the two generate runs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import (Calibrator, QuantPolicy, Taps,
+                                  count_quantized, quantize_model)
+    from repro_torch.kernels import ops
+    from repro_torch.models import DecoderLM
+    from repro_torch.serving import ServingEngine
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(DENSE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    log(f"{cfg.name}: memory allocated before the phase "
+        f"{torch.cuda.memory_allocated()} B")
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_el = sum(p.numel() for p in tree_leaves(params))
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.hd} over {cfg.n_kv_heads}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, rope theta {cfg.rope_theta:g}; "
+        f"init {time.perf_counter() - t0:.2f} s: {n_el} float32 elements "
+        f"({4 * n_el} B; one table embeds and unembeds), the reference "
+        f"formula's n_params {cfg.n_params}")
+    batch, held_out = moe_prompts(cfg.vocab)
+    counts = {}
+    pass_sites = 7 * cfg.n_layers        # q, k, v, o, gate, up, down
+
+    def check_counts(name, r, quantizer):
+        c = counts[name]
+        passes = r.steps                 # the prefill and each decode step
+        want = {quantizer: pass_sites * passes,
+                "int8_matmul": pass_sites * passes,
+                "decode_attention": cfg.n_layers * (passes - 1)}
+        bad = {k: (c[k], n) for k, n in want.items() if c[k] != n}
+        others = [k for k in c if k not in want and c[k]]
+        if bad or others or r.steps != MAX_NEW:
+            raise AssertionError(f"{name}: launches {c} against {want} "
+                                 f"({r.steps} passes)")
+
+    def log_run(name, r):
+        log(f"e2e {name}: tokens={r.n_tokens} steps={r.steps} "
+            f"tokens_per_s={r.tokens_per_s:.1f} prefill_s={r.prefill_s:.4f} "
+            f"decode_s={r.decode_s:.4f} host_syncs={r.host_syncs}")
+        if len(r.tokens) != N_REQUESTS or any(
+                len(t) > MAX_NEW or (len(t) and not (
+                    0 <= t.min() and t.max() < cfg.vocab)) for t in r.tokens):
+            raise AssertionError(f"{name}: bad outputs")
+
+    # dynamic scales: no calibration needed
+    t0 = time.perf_counter()
+    dparams, dctx = quantize_model(params, {},
+                                   QuantPolicy(act_quant="dynamic"))
+    torch.cuda.synchronize()
+    stats = count_quantized(dparams)
+    log(f"quantize (dynamic) {time.perf_counter() - t0:.2f} s: "
+        f"{stats['quantized_linears']} INT8 linears, {stats['int8_bytes']} "
+        f"B; float tensors {stats['fp_bytes']} B; {N_REQUESTS} prompts "
+        f"padded to {batch['tokens'].shape[1]}, max_len={MOE_MAX_LEN}, "
+        f"max_new_tokens={MAX_NEW}")
+    engine = ServingEngine(model, dparams, quant=dctx, max_len=MOE_MAX_LEN)
+    engine.generate(batch, max_new_tokens=2)          # warm-up, uncounted
+    r = run_counted("dense greedy dynamic", counts, lambda: engine.generate(
+        batch, max_new_tokens=MAX_NEW))
+    log_run("dense greedy dynamic", r)
+    check_counts("dense greedy dynamic", r, "quantize_rowwise")
+    phase("7b: against the plain versions, dynamic scales")
+    check_deep_against_plain(model, dparams, dctx, batch)
+    del engine, dparams
+    torch.cuda.empty_cache()
+
+    phase("7b: calibrate, static scales")
+    t0 = time.perf_counter()
+    cal = Calibrator()
+    t_fwd = 0.0
+    for src in held_out[:DENSE_CALIB]:
+        t1 = time.perf_counter()
+        taps = Taps()
+        model.forward(params, {"tokens": torch.as_tensor(
+            src[None, :], device="cuda")}, taps=taps)
+        t_fwd += time.perf_counter() - t1
+        cal.observe_taps(taps)
+    t1 = time.perf_counter()
+    recs = cal.compute("symmetric")
+    t_kl = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    sparams, sctx = quantize_model(params, recs,
+                                   QuantPolicy(act_quant="static"))
+    torch.cuda.synchronize()
+    t_q = time.perf_counter() - t1
+    n_q = sum(rec.quantize for rec in recs.values())
+    log(f"calibrate ({DENSE_CALIB} held-out prompts, {len(recs)} sites: "
+        f"forwards with taps {t_fwd:.2f} s, KL search {t_kl:.2f} s) "
+        f"{time.perf_counter() - t0 - t_q:.2f} s; quantize (static) "
+        f"{t_q:.2f} s; {n_q}/{len(recs)} sites quantizable")
+    if n_q != len(recs) or len(recs) != pass_sites:
+        raise AssertionError(f"{n_q} of {len(recs)} sites quantizable")
+    del params, recs, cal
+    torch.cuda.empty_cache()
+    log(f"float32 tree freed: {torch.cuda.memory_allocated()} B allocated")
+    engine = ServingEngine(model, sparams, quant=sctx, max_len=MOE_MAX_LEN)
+    engine.generate(batch, max_new_tokens=2)          # warm-up, uncounted
+    r = run_counted("dense greedy static", counts, lambda: engine.generate(
+        batch, max_new_tokens=MAX_NEW))
+    log_run("dense greedy static", r)
+    check_counts("dense greedy static", r, "quantize_static")
+    log(f"  launch counts met: K1 or K2 and K3 {pass_sites} a forward "
+        f"pass, K4 {cfg.n_layers} a decode step, no other kernel, no plain "
+        "version")
+
+    # the VLM path: embeds equal to the prompts' embedding rows
+    tok = torch.as_tensor(batch["tokens"], device="cuda")
+    lens = torch.as_tensor(batch["lengths"], device="cuda")
+    embeds = sparams["embed"]["table"][tok.long()]
+    outs = []
+    for b in ({"tokens": tok, "lengths": lens},
+              {"embeds": embeds, "lengths": lens}):
+        st = model.init_decode_state(N_REQUESTS, MOE_MAX_LEN, quantized=True)
+        logits, st = model.prefill(sparams, b, st, quant=sctx)
+        outs.append((logits, st["cache"]))
+    (l0, c0), (l1, c1) = outs
+    same = {"logits": torch.equal(l0, l1)}
+    for name in ("k", "v", "k_scale", "v_scale", "lengths"):
+        same[name] = torch.equal(getattr(c0, name), getattr(c1, name))
+    log(f"embeds prefill == token prefill, bit for bit: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"the embeds prefill differs: {same}")
+    del outs, l0, l1, c0, c1, embeds, st
+
+    phase("7b: against the plain versions, static scales")
+    check_deep_against_plain(model, sparams, sctx, batch)
+    phase("7b: profile")
+    busy, rows, _ = profile("dense greedy static", lambda: engine.generate(
+        batch, max_new_tokens=DENSE_PROFILE_NEW).steps, cpu=False)
+    k3 = sum(ms for ms, key, _ in rows if "int8_matmul_kernel" in key
+             or "int8_matmul_reduce_kernel" in key)
+    log(f"  K3 device time {k3:.2f} ms = {k3 / busy:.3f} of busy; "
+        f"{attention_ms(rows)}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{cfg.name}: max_memory_allocated={peak} B over the phase "
+        f"(at {time.perf_counter() - T_START:.1f} s)")
+    del engine, sparams
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_audio():
+    """whisper-base at its published widths (6+6 layers, d_model 512,
+    vocab 51865), random float32 weights from ``torch.Generator`` seed 0,
+    bf16 activations, INT8 with dynamic scales, fed the audio stub's
+    ``src_embeds``: 4 × 1500 random frames (lengths 1500 down to 751).
+    Greedy ``generate`` of 8 tokens (K2, K3, K4 launched, no plain
+    version), then the prefill and 8 decode steps against their plain
+    versions (:func:`check_deep_against_plain`).  Returns the generate
+    run's launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantPolicy, quantize_model
+    from repro_torch.models import EncDecLM
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config(AUDIO_ARCH)
+    model = EncDecLM(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    qparams, qctx = quantize_model(params, {},
+                                   QuantPolicy(act_quant="dynamic"))
+    del params
+    # the frames are made on the card from a seed; the engine takes host
+    # arrays, as a caller's batch
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    frames = torch.randn((AUDIO_ROWS, AUDIO_FRAMES, cfg.d_model),
+                         generator=gen, device="cuda") * 0.5
+    lens = torch.linspace(AUDIO_FRAMES, AUDIO_FRAMES // 2 + 1, AUDIO_ROWS)
+    batch = {"src_embeds": frames.cpu().numpy(),
+             "src_lengths": lens.round().to(torch.int32).numpy()}
+    log(f"{cfg.name}: {cfg.n_enc_layers}+{cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}; src_embeds "
+        f"{tuple(frames.shape)}, lengths {batch['src_lengths'].tolist()}")
+    engine = ServingEngine(model, qparams, quant=qctx,
+                           max_len=AUDIO_MAX_LEN)
+    engine.generate(batch, max_new_tokens=2)          # warm-up, uncounted
+    counts = {}
+    r = run_counted("whisper greedy dynamic", counts, lambda: engine.generate(
+        batch, max_new_tokens=AUDIO_STEPS))
+    log(f"e2e whisper greedy dynamic: tokens={r.n_tokens} steps={r.steps} "
+        f"tokens_per_s={r.tokens_per_s:.1f} prefill_s={r.prefill_s:.4f} "
+        f"decode_s={r.decode_s:.4f} host_syncs={r.host_syncs}")
+    c = counts["whisper greedy dynamic"]
+    if any(c[k] <= 0 for k in ("quantize_rowwise", "int8_matmul",
+                               "decode_attention")) or len(r.tokens) != \
+            AUDIO_ROWS:
+        raise AssertionError(f"whisper: launches {c}, {len(r.tokens)} rows")
+    check_deep_against_plain(model, qparams, qctx, batch, steps=AUDIO_STEPS,
+                             max_len=AUDIO_MAX_LEN)
+    del engine, qparams
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2646,19 +3016,30 @@ def main() -> int:
 
     # 7. the decoder-only MoE family: its training step (phase 4t) on the
     # float32 weights, then INT8 generation from the same weights
-    moe_model = DecoderLM(get_config(MOE_ARCH), device="cuda")
+    moe_model = DecoderLM(dataclasses.replace(get_config(MOE_ARCH),
+                                              n_layers=MOE_LAYERS),
+                          device="cuda")
     moe_params = moe_model.init(torch.Generator(device="cuda").manual_seed(0))
     phase("4t: MoE training step")
     train_moe_step(moe_model, moe_params)
     phase("MoE generate")
     moe_counts, (msparams, msctx), (mdparams, mdctx), moe_batch = run_moe(
         moe_model, moe_params)
+    phase("MoE against the plain versions")
     for mparams, mctx in ((mdparams, mdctx), (msparams, msctx)):
         check_against_plain(moe_model, mparams, mctx, moe_batch,
                             max_len=MOE_MAX_LEN)
+    phase("MoE profile")
     profile_moe(moe_model, mdparams, mdctx, moe_batch)
     del moe_model, moe_params, msparams, mdparams
     torch.cuda.empty_cache()
+
+    # 7b. the dense SwiGLU family at full width and depth, then 7c. the
+    # audio stub's src_embeds (after phase 7's trees are freed)
+    phase("7b: mistral-nemo-12b at full width and depth")
+    dense_counts = run_dense()
+    phase("7c: whisper-base from src_embeds")
+    audio_counts = run_audio()
 
     # 8. the serving driver
     phase("serving driver")
@@ -2696,7 +3077,8 @@ def main() -> int:
     # each kernel's launches over every path driven with the counts read
     # from zero: generate, the four serves, the six beam serves, the INT4
     # phase, the prefix-cache and overload serves, the chunked and
-    # speculative runs, the Table-1 runs of phase 4t, the MoE phase
+    # speculative runs, the Table-1 runs of phase 4t, the MoE phase, the
+    # dense and the audio phases
     path_counts = {"generate": counts,
                    **{f"serve {k}": v for k, v in serve_counts.items()},
                    **{f"serve {k}": v for k, v in beam_counts.items()},
@@ -2704,7 +3086,9 @@ def main() -> int:
                    **{f"serve {k}": v for k, v in prefix_counts.items()},
                    **{f"5d {k}": v for k, v in staged_counts.items()},
                    **{f"4t {k}": v for k, v in table1_counts.items()},
-                   "MoE": moe_counts}
+                   "MoE": moe_counts,
+                   **{f"7b {k}": v for k, v in dense_counts.items()},
+                   **{f"7c {k}": v for k, v in audio_counts.items()}}
     paths = {}
     for name in replaces:
         per = {k: c[name] for k, c in path_counts.items() if c[name]}

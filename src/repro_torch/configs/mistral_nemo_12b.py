@@ -1,0 +1,22 @@
+"""mistral-nemo-12b — 40L d_model=5120 32H (GQA kv=8) d_ff=14336
+vocab=131072, 128k ctx. [hf:mistralai/Mistral-Nemo-Base-2407]
+"""
+
+from repro_torch.configs.base import ModelConfig, register
+
+
+@register("mistral-nemo-12b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="mistral-nemo-12b",
+        family="dense",
+        n_layers=40,
+        d_model=5120,
+        n_heads=32,
+        n_kv_heads=8,
+        d_ff=14336,
+        vocab=131072,
+        head_dim=128,
+        max_seq=131072,
+        rope_theta=1_000_000.0,
+    )

@@ -1,0 +1,22 @@
+"""qwen3-moe-30b-a3b — 48L d_model=2048 32H (GQA kv=4) d_ff=768
+vocab=151936, MoE 128 experts top-8. [hf:Qwen/Qwen3-30B-A3B]
+"""
+
+from repro_torch.configs.base import ModelConfig, MoEConfig, register
+
+
+@register("qwen3-moe-30b-a3b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen3-moe-30b-a3b",
+        family="moe",
+        n_layers=48,
+        d_model=2048,
+        n_heads=32,
+        n_kv_heads=4,
+        d_ff=768,
+        vocab=151936,
+        head_dim=128,
+        rope_theta=1_000_000.0,
+        moe=MoEConfig(n_experts=128, top_k=8),
+    )

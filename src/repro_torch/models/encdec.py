@@ -9,7 +9,8 @@ The layers run in an eager Python loop over unstacked parameters
 names; ``checkpoint/bridge.py`` unstacks a scan-stacked reference tree.
 
 Cross-attention K/V are computed once from the encoder memory and kept in
-the decode state.  Inputs: ``src_tokens`` (B, S_enc) with optional
+the decode state.  Inputs: ``src_tokens`` (B, S_enc), or the audio stub's
+``src_embeds`` (B, S_enc, d_model) frame embeddings, with optional
 ``src_lengths``; ``tgt_tokens`` (B, S_dec) for teacher forcing.
 """
 
@@ -116,8 +117,13 @@ class EncDecLM:
     # ``encode_cross_kv`` are built from the same three stages, so a staged
     # encode equals the monolithic one bit for bit.
     def encode_staged_begin(self, params, batch) -> torch.Tensor:
-        """Embedding and positions: the encoder's input ``x``."""
-        x = self._embed(params, batch["src_tokens"])
+        """Embedding and positions: the encoder's input ``x``.  The audio
+        stub's ``src_embeds`` (B, S_enc, D) frame embeddings are taken as
+        given (cast to the activation dtype, not scaled by √d)."""
+        if "src_embeds" in batch:
+            x = batch["src_embeds"].to(self.cfg.activation_dtype)
+        else:
+            x = self._embed(params, batch["src_tokens"])
         _, S, D = x.shape
         return x + sinusoidal_positions(S, D, x.dtype, x.device)[None]
 

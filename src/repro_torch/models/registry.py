@@ -19,10 +19,11 @@ from repro_torch.models.transformer import DecoderLM
 _FAMILIES = {
     "dense": DecoderLM,
     "moe": DecoderLM,
+    "vlm": DecoderLM,
     "audio": EncDecLM,
 }
 # the reference's other families, still to port
-_NOT_PORTED = ("vlm", "hybrid", "ssm")
+_NOT_PORTED = ("hybrid", "ssm")
 
 
 def build_model(cfg, *, device: str = "cuda"):

@@ -1,14 +1,14 @@
-"""Decoder-only transformer LM (the dense and MoE families).
+"""Decoder-only transformer LM (the dense, MoE and VLM-backbone families).
 
 Port of ``repro/models/transformer.py``.  The layers run in an eager Python
 loop over unstacked parameters (``blocks.{i}``), so each layer keeps its own
 site names; ``checkpoint/bridge.py`` unstacks a scan-stacked reference tree.
 Rotary position embeddings, pre-norm blocks, and either the MoE FFN
-(``models/moe.py``) or the dense FFN.
+(``models/moe.py``) or the dense FFN (SwiGLU or GELU, ``models/ffn.py``).
 
 Inputs: ``tokens`` (B, S) int32, right-padded, with optional ``lengths``
-(B,).  The VLM stub's ``embeds`` input is not ported yet (ROADMAP Queue 1:
-the rest of the model zoo).
+(B,); or, for the VLM stub, ``embeds`` (B, S, d_model) precomputed input
+embeddings in place of the tokens (cast to the activation dtype).
 """
 
 from __future__ import annotations
@@ -87,13 +87,19 @@ class DecoderLM:
             aux = {}
         return x + f, entries, aux
 
+    def _inputs(self, params, batch) -> torch.Tensor:
+        dt = self.cfg.activation_dtype
+        if "embeds" in batch:
+            return batch["embeds"].to(dt)
+        return embed(params["embed"], batch["tokens"], dt)
+
     def forward(self, params, batch, *, quant: QuantContext = FP_CONTEXT,
                 taps: Optional[Taps] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Full-sequence forward.  Returns (logits (B, S, V), aux) with the
         load-balance loss summed over the layers."""
         cfg = self.cfg
-        x = embed(params["embed"], batch["tokens"], cfg.activation_dtype)
+        x = self._inputs(params, batch)
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
@@ -130,7 +136,7 @@ class DecoderLM:
         its padding, masked by the cursor and overwritten by decode.
         """
         cfg = self.cfg
-        x = embed(params["embed"], batch["tokens"], cfg.activation_dtype)
+        x = self._inputs(params, batch)
         B, S, _ = x.shape
         lengths = batch.get("lengths")
         if lengths is None:
@@ -164,15 +170,20 @@ class DecoderLM:
         x_last = x[torch.arange(B, device=x.device), idx]
         return unembed(params["embed"], x_last[:, None, :])[:, 0], state
 
-    def decode_step(self, params, tokens: torch.Tensor, state, *,
+    def decode_step(self, params, tokens_or_embeds: torch.Tensor, state, *,
                     quant: QuantContext = FP_CONTEXT
                     ) -> Tuple[torch.Tensor, Dict]:
-        """One decode step: ``tokens`` (B,) → (logits (B, V), state).  Each
-        row's token is embedded and rotated at its cursor, its K/V appended
-        there (in place), and the cursors advance by one."""
+        """One decode step: ``tokens`` (B,) int32, or ``embeds`` (B, 1, D),
+        → (logits (B, V), state).  Each row's input is rotated at its
+        cursor, its K/V appended there (in place), and the cursors advance
+        by one."""
         cfg = self.cfg
         cache = state["cache"]
-        x = embed(params["embed"], tokens[:, None], cfg.activation_dtype)
+        if tokens_or_embeds.dim() == 1:
+            x = embed(params["embed"], tokens_or_embeds[:, None],
+                      cfg.activation_dtype)
+        else:
+            x = tokens_or_embeds.to(cfg.activation_dtype)
         for i in range(cfg.n_layers):
             view = kvc.LayerCacheView(
                 k=cache.k[i], v=cache.v[i],

@@ -64,15 +64,25 @@ def _flat_leaves(tree, prefix=()):
 # configs and data
 # ---------------------------------------------------------------------------
 
+def _assert_fields_equal(port, ref):
+    """Every field of the port's config equals the reference's; a
+    dataclass-valued field (``quant``, a sub-config) by its ``asdict``,
+    since two dataclasses of different classes never compare equal."""
+    for field in dataclasses.fields(port):
+        p, r = getattr(port, field.name), getattr(ref, field.name)
+        if dataclasses.is_dataclass(p):
+            assert dataclasses.asdict(p) == dataclasses.asdict(r), field.name
+        else:
+            assert p == r, field.name
+
+
 def test_transformer_base_config_matches_reference():
     ref, port = jget_config("transformer-base"), get_config("transformer-base")
-    for field in dataclasses.fields(port):
-        assert getattr(port, field.name) == getattr(ref, field.name), field.name
+    _assert_fields_equal(port, ref)
     assert port.hd == ref.hd == 64
     assert port.activation_dtype == torch.bfloat16
     r, p = ref.reduced(**NMT), port.reduced(**NMT)
-    for field in dataclasses.fields(p):
-        assert getattr(p, field.name) == getattr(r, field.name), field.name
+    _assert_fields_equal(p, r)
     assert p.activation_dtype == torch.float32
 
 
