@@ -6,10 +6,13 @@ numpy arrays keyed the way ``repro/checkpoint/checkpointer.py``
 for a ``QTensor`` weight ``".../w/0"`` (int8 data), ``".../w/1"`` (keepdims
 per-column scale) and ``".../w/2"`` (zero point) — and returns the port's
 nested parameter dict on ``device``.  A scan-stacked tree (``enc_blocks``,
-``dec_blocks`` or the decoder-only ``blocks``, with a leading layer axis) is
-split into the port's per-layer nodes (``enc_blocks.{i}``, ...); only that
-axis splits, so MoE expert weights keep their expert axis ((L, E, K, N) →
-(E, K, N), and their scales (L, E, 1, N) → (E, 1, N)).
+``dec_blocks``, the decoder-only ``blocks`` or the hybrid's ``mamba``, with
+a leading layer axis) is split into the port's per-layer nodes
+(``enc_blocks.{i}``, ``mamba.{i}``, ...); only that axis splits, so MoE
+expert weights keep their expert axis ((L, E, K, N) → (E, K, N), and their
+scales (L, E, 1, N) → (E, 1, N)).  The xLSTM's stacked groups, ``mlstm``
+(G, M, ...) and ``slstm`` (G, ...), become ``blocks.{g (M + 1) + j}`` and
+``blocks.{g (M + 1) + M}``, the layer order of its unstacked tree.
 
 A ``BlockQTensor`` (INT4) weight is flattened under the same three keys
 (packed nibbles, block scales, block minimums) without its ``group_size``
@@ -38,7 +41,7 @@ from repro_torch.core.histogram import HistogramClass
 from repro_torch.core.qtensor import BlockQTensor, QTensor
 from repro_torch.core.quantize import Thresholds
 
-_STACKED = re.compile(r"^(enc_blocks|dec_blocks|blocks)$")
+_STACKED = re.compile(r"^(enc_blocks|dec_blocks|blocks|mamba)$")
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -110,14 +113,25 @@ def params_from_flat(flat: Mapping[str, np.ndarray], *,
                      block_meta: Optional[Mapping[str, Tuple[int, int]]]
                      = None) -> Dict[str, Any]:
     block_meta = dict(block_meta or {})
+    # mLSTM layers a group of a stacked xLSTM tree (its sLSTM layer is last)
+    M = next((np.asarray(a).shape[1] for k, a in flat.items()
+              if k.split("/")[0] == "mlstm"), 0)
     # per-layer split of stacked roots: "enc_blocks/x/y" → "enc_blocks.{i}/x/y"
     entries = []
     for key, arr in flat.items():
         parts = key.split("/")
+        a = np.asarray(arr)
         if _STACKED.match(parts[0]):
-            for i in range(np.asarray(arr).shape[0]):
-                entries.append(([f"{parts[0]}.{i}"] + parts[1:],
-                                np.asarray(arr)[i]))
+            for i in range(a.shape[0]):
+                entries.append(([f"{parts[0]}.{i}"] + parts[1:], a[i]))
+        elif parts[0] == "mlstm":
+            for g, j in np.ndindex(*a.shape[:2]):
+                entries.append(([f"blocks.{g * (M + 1) + j}"] + parts[1:],
+                                a[g, j]))
+        elif parts[0] == "slstm":
+            for g in range(a.shape[0]):
+                entries.append(([f"blocks.{g * (M + 1) + M}"] + parts[1:],
+                                a[g]))
         else:
             entries.append((parts, arr))
 

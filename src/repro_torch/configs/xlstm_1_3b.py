@@ -3,8 +3,7 @@ sLSTM + mLSTM blocks (the block's own up/down projections replace the FFN,
 hence d_ff=0). [arXiv:2405.04517]
 
 SSM family → runs the ``long_500k`` cell (recurrent state is O(1) in
-sequence length).  The port has the configuration only: ``build_model``
-refuses the ssm family.
+sequence length).  ``build_model`` gives ``models.xlstm_model.XLSTMLM``.
 """
 
 from repro_torch.configs.base import ModelConfig, XLSTMConfig, register

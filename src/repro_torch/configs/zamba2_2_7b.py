@@ -2,8 +2,8 @@
 ssm_state=64. Mamba2 backbone + shared attention blocks. [arXiv:2411.15242]
 
 Hybrid family → runs the ``long_500k`` cell (SSM state is O(1) in sequence;
-only the shared-attention KV cache scales with context).  The port has
-the configuration only: ``build_model`` refuses the hybrid family.
+only the shared-attention KV cache scales with context).  ``build_model``
+gives ``models.hybrid.HybridLM``.
 """
 
 from repro_torch.configs.base import HybridConfig, ModelConfig, SSMConfig, register

@@ -32,14 +32,16 @@
 //     otherwise).
 //   * scores: a dot product q_g · k_c is split into 4 parts of dh / 4, one
 //     a lane; q's part stays in registers (a lane has one or two heads), the
-//     K part is read as 16-byte words and converted exactly by byte permute
+//     K part is read as 16-byte words (4-byte words at dh 80, whose 20-byte
+//     parts are only 4-byte aligned) and converted exactly by byte permute
 //     (no I2F), once for the lane's heads; the parts are summed by two
 //     shuffles, (p0 + p1) + (p2 + p3).
 //   * the chunk's softmax with its own (local) max m_i: p = exp(s - m_i),
 //     l_i = sum p (a fixed shuffle tree); p * v_scale goes to shared memory.
-//   * values: lanes along dh (16 lanes a row, dh / 16 dims a lane), the two
-//     half-warps over alternate positions in order, summed by one shuffle:
-//     the chunk's accumulator acc_i, kept as the chunk's partial.
+//   * values: lanes along dh (16 lanes a row, dh / 16 dims a lane; at dh 80
+//     a lane's 5 bytes are read one at a time), the two half-warps over
+//     alternate positions in order, summed by one shuffle: the chunk's
+//     accumulator acc_i, kept as the chunk's partial.
 //   * fold, in ascending chunk order from chunk 0, always with one formula:
 //     M' = max(M, m_i); A = A e^(M - M') + acc_i e^(m_i - M'); likewise L.
 //     Unsplit, the block folds each round of W chunks after one barrier.
@@ -68,6 +70,14 @@ namespace cg = cooperative_groups;
 
 #ifndef REPRO_DA_CHUNK
 #define REPRO_DA_CHUNK 32
+#endif
+
+// The build compiles this file as two units in parallel, each with the
+// kernels of one query dtype: REPRO_DA_UNIT 0 holds the float kernels and
+// the entry points, 1 the bfloat16 kernels behind one C launcher (the
+// kernels' instantiations are most of the build's time).
+#if !defined(REPRO_DA_UNIT) || (REPRO_DA_UNIT != 0 && REPRO_DA_UNIT != 1)
+#error "compile with -DREPRO_DA_UNIT=0 and =1 (kernels/build.py: UNITS)"
 #endif
 
 namespace {
@@ -255,7 +265,9 @@ __device__ __forceinline__ void part_dots(const float (&qr)[GH][DH / 4],
     w[0] = v.x;
     w[1] = v.y;
   } else {
-    w[0] = *reinterpret_cast<const uint32_t*>(k);
+    // one word, or dh 80's five: a 20-byte part is 4-byte aligned only
+#pragma unroll
+    for (int i = 0; i < NW; ++i) w[i] = reinterpret_cast<const uint32_t*>(k)[i];
   }
   float acc[GH][4];
 #pragma unroll
@@ -284,7 +296,7 @@ __device__ __forceinline__ void part_dots(const float (&qr)[GH][DH / 4],
 template <int DPL>
 __device__ __forceinline__ void load_v(const unsigned char* p,
                                        float (&v)[DPL]) {
-  if constexpr (DPL >= 4) {
+  if constexpr (DPL % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < DPL / 4; ++i) {
       const uint32_t f =
@@ -300,7 +312,10 @@ __device__ __forceinline__ void load_v(const unsigned char* p,
     v[0] = s8_at<0>(f);
     v[1] = s8_at<1>(f);
   } else {
-    v[0] = static_cast<float>(*reinterpret_cast<const int8_t*>(p));
+    // one byte, or dh 80's five at an odd offset: a byte at a time (exact)
+#pragma unroll
+    for (int u = 0; u < DPL; ++u)
+      v[u] = static_cast<float>(reinterpret_cast<const int8_t*>(p)[u]);
   }
 }
 
@@ -775,13 +790,41 @@ cudaError_t launch_dh(const Args& a, int dh, int GP, bool paged, int grid,
     case 16: return launch_gp<T, 16>(a, GP, paged, grid, device, stream);
     case 32: return launch_gp<T, 32>(a, GP, paged, grid, device, stream);
     case 64: return launch_gp<T, 64>(a, GP, paged, grid, device, stream);
+    case 80: return launch_gp<T, 80>(a, GP, paged, grid, device, stream);
     case 128: return launch_gp<T, 128>(a, GP, paged, grid, device, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+#if REPRO_DA_UNIT == 1
+}  // namespace
+
+// the bfloat16 unit's launches, for the entry points of unit 0 (``a`` is
+// unit 0's Args: the same source, so the same layout)
+extern "C" int repro_decode_attention_launch_bf16(const void* a, int dh,
+                                                  int GP, int paged, int grid,
+                                                  int device, void* stream) {
+  return static_cast<int>(launch_dh<__nv_bfloat16>(
+      *static_cast<const Args*>(a), dh, GP, paged != 0, grid, device,
+      static_cast<cudaStream_t>(stream)));
+}
+
+#else  // unit 0: the entry points
+
+}  // namespace
+extern "C" int repro_decode_attention_launch_bf16(const void* a, int dh,
+                                                  int GP, int paged, int grid,
+                                                  int device, void* stream);
+namespace {
+
+cudaError_t launch_bf16(const Args& a, int dh, int GP, bool paged, int grid,
+                        int device, cudaStream_t stream) {
+  return static_cast<cudaError_t>(repro_decode_attention_launch_bf16(
+      &a, dh, GP, paged ? 1 : 0, grid, device, stream));
+}
+
 bool supported(int dh) {
-  return dh == 16 || dh == 32 || dh == 64 || dh == 128;
+  return dh == 16 || dh == 32 || dh == 64 || dh == 80 || dh == 128;
 }
 
 // the block's head tile and its padded width
@@ -817,9 +860,8 @@ int run(Args& a, int B, int dh, int dtype, bool paged, int device,
   cudaSetDevice(device);
   const int g = static_cast<int>(grid);
   const cudaError_t err =
-      dtype == 1
-          ? launch_dh<__nv_bfloat16>(a, dh, GP, paged, g, device, stream)
-          : launch_dh<float>(a, dh, GP, paged, g, device, stream);
+      dtype == 1 ? launch_bf16(a, dh, GP, paged, g, device, stream)
+                 : launch_dh<float>(a, dh, GP, paged, g, device, stream);
   return static_cast<int>(err);
 }
 
@@ -900,3 +942,5 @@ extern "C" int repro_decode_attention_paged(
   return run(a, B, dh, dtype, true, device,
              static_cast<cudaStream_t>(stream));
 }
+
+#endif  // REPRO_DA_UNIT

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels; count their launches.
 
 The sources are ``repro_torch/csrc/*.cu``, each with a plain C interface.
-At first use every source is compiled by its own ``nvcc`` process (all
-started together) for ``sm_90a``, and the objects are linked into one
-shared library that :mod:`ctypes` loads.  The library's file name carries
+At first use every compilation unit (a source, or for the attention
+source each of its two dtype halves) is compiled by its own ``nvcc``
+process (all started together) for ``sm_90a``, and the objects are linked
+into one shared library that :mod:`ctypes` loads.  The library's file name carries
 a hash of the sources and flags, so an edited source is never served from a
 stale build.  The build directory is ``repro_torch/_build`` (git-ignored);
 nothing is compiled when this module is imported.
@@ -26,8 +27,12 @@ from typing import Dict, Optional, Tuple
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("quantize.cu", "int8_matmul.cu", "int4_matmul.cu",
-           "decode_attention.cu")
+# (source, its -D flags) of each compilation unit: decode_attention.cu's
+# float and bfloat16 kernels compile in parallel units (csrc: REPRO_DA_UNIT)
+UNITS = (("quantize.cu", ()), ("int8_matmul.cu", ()), ("int4_matmul.cu", ()),
+         ("decode_attention.cu", ("-DREPRO_DA_UNIT=0",)),
+         ("decode_attention.cu", ("-DREPRO_DA_UNIT=1",)))
+SOURCES = tuple(dict.fromkeys(name for name, _ in UNITS))
 # no --use_fast_math: the quantizers need IEEE division and rint
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -83,12 +88,13 @@ def library_path(defines: Tuple[str, ...] = ()) -> Path:
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
+    h.update(repr(UNITS).encode())
     h.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
 def build(defines: Tuple[str, ...] = ()) -> Path:
-    """Compile the sources (one nvcc each, in parallel) and link the library.
+    """Compile the units (one nvcc each, in parallel) and link the library.
 
     ``defines`` are extra ``-D`` flags (a tool's variant of a kernel; the
     port itself builds with none).  Returns the library path; a library
@@ -102,12 +108,12 @@ def build(defines: Tuple[str, ...] = ()) -> Path:
     nvcc = _nvcc()
     tag = f"{so.stem}.{os.getpid()}"
     objs, procs = [], []
-    for name in SOURCES:
-        obj = BUILD_DIR / f"{Path(name).stem}.{tag}.o"
+    for i, (name, unit_defines) in enumerate(UNITS):
+        obj = BUILD_DIR / f"{Path(name).stem}.{i}.{tag}.o"
         objs.append(obj)
-        procs.append((name, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *defines, "-c", str(CSRC_DIR / name), "-o",
-             str(obj)],
+        procs.append((" ".join((name, *unit_defines)), subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *unit_defines, *defines, "-c",
+             str(CSRC_DIR / name), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
     for name, proc in procs:          # wait for every compiler, failed or not

@@ -26,7 +26,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.int8_matmul import SMS
 
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)  # csrc instantiations
+HEAD_DIMS = (16, 32, 64, 80, 128)  # csrc instantiations (80: zamba2)
 WARPS = (2, 4, 8)              # warps a block can have
 SPLITS = (1, 2, 4, 8)          # cluster ranks (powers of two up to the
 MAX_SPLIT = SPLITS[-1]         # portable cluster size)

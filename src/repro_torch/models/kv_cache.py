@@ -116,6 +116,31 @@ class LayerCacheView:
     block_tables: Optional[torch.Tensor] = None
 
 
+def layer_view(cache: KVCache, layer: int) -> LayerCacheView:
+    """Layer ``layer`` of a contiguous cache, as attention reads it."""
+    pick = lambda a: None if a is None else a[layer]
+    return LayerCacheView(k=cache.k[layer], v=cache.v[layer],
+                          k_scale=pick(cache.k_scale),
+                          v_scale=pick(cache.v_scale), lengths=cache.lengths)
+
+
+def write_prompt(cache: KVCache, layer: int, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """Write a prompt's K/V (B, S, HKV, dh) into positions [0, S) of
+    ``layer`` in place, quantized to int8 for an INT8 cache."""
+    S = k.shape[1]
+    if cache.quantized:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        cache.k[layer, :, :S] = kq
+        cache.v[layer, :, :S] = vq
+        cache.k_scale[layer, :, :S] = ks
+        cache.v_scale[layer, :, :S] = vs
+    else:
+        cache.k[layer, :, :S] = k.to(cache.k.dtype)
+        cache.v[layer, :, :S] = v.to(cache.v.dtype)
+
+
 def _put(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
     """``cache[b, pos[b]] = new[b]`` in place, for rows with ``pos < S``.
 

@@ -14,23 +14,21 @@ Every model exposes the reference's protocol, on a ``device``:
 from __future__ import annotations
 
 from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.xlstm_model import XLSTMLM
 
 _FAMILIES = {
     "dense": DecoderLM,
     "moe": DecoderLM,
     "vlm": DecoderLM,
     "audio": EncDecLM,
+    "hybrid": HybridLM,
+    "ssm": XLSTMLM,
 }
-# the reference's other families, still to port
-_NOT_PORTED = ("hybrid", "ssm")
 
 
 def build_model(cfg, *, device: str = "cuda"):
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP Queue 1: "
-            "the rest of the model zoo)")
     if cfg.family not in _FAMILIES:
         raise KeyError(f"unknown family {cfg.family}")
     return _FAMILIES[cfg.family](cfg, device=device)

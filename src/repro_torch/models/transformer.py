@@ -152,16 +152,7 @@ class DecoderLM:
             x, (k, v), _ = self._block_apply(
                 params[f"blocks.{i}"], x, site=f"blocks.{i}", quant=quant,
                 taps=None, positions=positions, kv_lengths=lengths)
-            if cache.quantized:
-                kq, ks = kvc.quantize_kv(k)
-                vq, vs = kvc.quantize_kv(v)
-                cache.k[i, :, :S] = kq
-                cache.v[i, :, :S] = vq
-                cache.k_scale[i, :, :S] = ks
-                cache.v_scale[i, :, :S] = vs
-            else:
-                cache.k[i, :, :S] = k.to(cache.k.dtype)
-                cache.v[i, :, :S] = v.to(cache.v.dtype)
+            kvc.write_prompt(cache, i, k, v)
         state = dict(state)
         state["cache"] = kvc.with_lengths(cache, lengths)
 
@@ -185,14 +176,10 @@ class DecoderLM:
         else:
             x = tokens_or_embeds.to(cfg.activation_dtype)
         for i in range(cfg.n_layers):
-            view = kvc.LayerCacheView(
-                k=cache.k[i], v=cache.v[i],
-                k_scale=None if cache.k_scale is None else cache.k_scale[i],
-                v_scale=None if cache.v_scale is None else cache.v_scale[i],
-                lengths=cache.lengths)
             x, _, _ = self._block_apply(
                 params[f"blocks.{i}"], x, site=f"blocks.{i}", quant=quant,
-                taps=None, positions=None, kv_lengths=None, cache_view=view)
+                taps=None, positions=None, kv_lengths=None,
+                cache_view=kvc.layer_view(cache, i))
         state = dict(state)
         state["cache"] = kvc.with_lengths(cache, cache.lengths + 1)
         x = norm(params["final_norm"], x, cfg.norm)

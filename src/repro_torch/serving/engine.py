@@ -93,6 +93,16 @@ from repro_torch.serving.scheduler import (
 # the ROADMAP item, by title, of the part of ``serve`` not ported yet
 _MESH = "ROADMAP Queue 1: multi-GPU and the cost accounting"
 
+# how the reference fails where the port refuses a recurrent model (the
+# hybrid and ssm families, whose decode state keeps rows off axis 0)
+_RECURRENT_BEAM = (
+    "the reference's generate_beam fails on it with a TypeError from its "
+    "while_loop carry: _reorder gathers rows on axis 0, the layer or group "
+    "axis of the recurrent states (ROADMAP Queue 3)")
+_RECURRENT_SERVE = (
+    "the reference's serve fails on it with TypeError: init_decode_state() "
+    "got an unexpected keyword argument 'enc_len'")
+
 # a new beam group's seed score: row 0 scores 0 and rows 1..B-1 this, so the
 # shared beam step's first top-k draws only row 0's candidates, which is
 # generate_beam's first step (top-k over the beam-0 log-probs)
@@ -734,7 +744,13 @@ class ServingEngine:
     def generate_beam(self, batch: Dict[str, np.ndarray], *, beam: int = 4,
                       max_new_tokens: int = 64, alpha: float = 0.6,
                       burst_len: Optional[int] = None) -> GenerationResult:
-        """Beam search with per-step cache reordering (paper's GatherNd)."""
+        """Beam search with per-step cache reordering (paper's GatherNd).
+        A recurrent model (``model.recurrent``) raises
+        ``NotImplementedError``, as the reference fails on it."""
+        if getattr(self.model, "recurrent", False):
+            raise NotImplementedError(
+                f"generate_beam is not available for "
+                f"{type(self.model).__name__}: {_RECURRENT_BEAM}")
         K = self._static_burst(burst_len)
         batch = self._device_batch(batch)
         B = next(iter(batch.values())).shape[0]
@@ -1231,10 +1247,14 @@ class ServingEngine:
         ``acceptance_rate`` report the drafts; the tokens are those of
         plain greedy serving.
 
-        A model without ``encode_cross_kv`` (the decoder-only family)
-        raises ``NotImplementedError``: the reference has no such
-        ``serve`` either.
+        A model without ``encode_cross_kv`` (the decoder-only and the
+        recurrent families) raises ``NotImplementedError``: the reference
+        has no such ``serve`` either.
         """
+        if getattr(self.model, "recurrent", False):
+            raise NotImplementedError(
+                f"serve() is not available for {type(self.model).__name__}: "
+                f"{_RECURRENT_SERVE}")
         if not hasattr(self.model, "encode_cross_kv"):
             raise NotImplementedError(
                 f"serve() needs an encoder-decoder model; "

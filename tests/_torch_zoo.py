@@ -1,7 +1,8 @@
-"""What the zoo's CPU tests share: the reduced models built once a process
-from the reference's ``init(PRNGKey(0))`` (carried across with
-``checkpoint/bridge.py``), both packages' FP, INT8-dynamic and calibrated
-INT8-static trees, the tolerances and the comparison helpers."""
+"""What the zoo's CPU tests share: the reduced models (the attention archs
+and the recurrent ones) built once a process from the reference's
+``init(PRNGKey(0))`` (carried across with ``checkpoint/bridge.py``), both
+packages' FP, INT8-dynamic and calibrated INT8-static trees, the
+tolerances and the comparison helpers."""
 
 import numpy as np
 import pytest
@@ -32,7 +33,7 @@ from repro_torch.core import (
     quantize_model,
 )
 from repro_torch.data import make_corpus, pad_batch
-from repro_torch.models import DecoderLM, EncDecLM
+from repro_torch.models import DecoderLM, EncDecLM, build_model
 
 # the reduced decoder-only models of the zoo: (arch, reduced() overrides)
 DECODERS = {
@@ -110,6 +111,34 @@ def decoder(name):
                             jcalibs=jcalibs,
                             model=DecoderLM(cfg, device="cpu"))
     return _CACHE[name]
+
+
+# the reduced recurrent models: zamba2-2.7b (hybrid: Mamba2 layers and a
+# shared attention block every 2nd layer) and xlstm-1.3b (ssm: an mLSTM and
+# an sLSTM layer)
+RECURRENT = ("zamba2-2.7b", "xlstm-1.3b")
+
+
+def recurrent(arch):
+    """As :func:`decoder`, for a reduced recurrent arch (``HybridLM`` or
+    ``XLSTMLM`` through ``build_model``)."""
+    key = ("recurrent", arch)
+    if key not in _CACHE:
+        jcfg = jget_config(arch).reduced()
+        cfg = get_config(arch).reduced()
+        jmodel = jbuild_model(jcfg)
+        jparams = jmodel.init(jax.random.PRNGKey(0))
+        fp = params_from_flat(_flatten_with_paths(jparams), device="cpu")
+        toks, lens = prompts(seed=5, n=8)
+        sides, jcalibs = sides_of(
+            jmodel, jparams, fp,
+            lambda: {"tokens": jnp.asarray(toks),
+                     "lengths": jnp.asarray(lens)})
+        _CACHE[key] = dict(jcfg=jcfg, cfg=cfg, jmodel=jmodel,
+                           jparams=jparams, fp=fp, sides=sides,
+                           jcalibs=jcalibs,
+                           model=build_model(cfg, device="cpu"))
+    return _CACHE[key]
 
 
 def assert_logits_close(got, want, kind, msg=""):

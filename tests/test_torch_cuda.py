@@ -573,6 +573,42 @@ def test_decode_attention_every_plan_equals_plain(gen, G, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G", [1, 2, 4])
+def test_decode_attention_head_dim_80_every_plan(gen, G, dtype):
+    """zamba2's head dim 80 (score parts of 20 bytes, 5 value dims a
+    lane): K4 and K5 (pages of 16) within the tolerance of the plain
+    version under every plan, the same bits under every plan, and K5 equal
+    to K4 on the linearized cache."""
+    S, ps = 80, 16
+    q, kq, ks, vq, vs, lengths = _k4_inputs(gen, 5, S, 2, G,
+                                            _attention_lengths(S), dh=80)
+    q = q.to(dtype)
+    want = ref.ref_decode_attention(q, kq, ks, vq, vs, lengths, 0.125)
+    pq, pkq, pks, pvq, pvs, tables, plens = _paged_pool(
+        gen, _attention_lengths(S), 2, G, ps, S // ps, dh=80)
+    pq = pq.to(dtype)
+    pwant = ref.ref_decode_attention_paged(pq, pkq, pks, pvq, pvs, tables,
+                                           plens, 0.125)
+    lin = lambda a: linearize_pages(a, tables).contiguous()
+    first = pfirst = None
+    for p in all_plans(S):
+        got = decode_attention_cuda(q, kq, ks, vq, vs, lengths,
+                                    sm_scale=0.125, tile=p)
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+        first = got if first is None else first
+        assert torch.equal(got, first), p
+        pgot = decode_attention_paged_cuda(pq, pkq, pks, pvq, pvs, tables,
+                                           plens, sm_scale=0.125, tile=p)
+        torch.testing.assert_close(pgot.float(), pwant.float(),
+                                   **_tol(dtype))
+        pfirst = pgot if pfirst is None else pfirst
+        assert torch.equal(pgot, pfirst), p
+        assert torch.equal(pgot, decode_attention_cuda(
+            pq, lin(pkq), lin(pks), lin(pvq), lin(pvs), plens,
+            sm_scale=0.125, tile=p)), p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 2, 4])
 @pytest.mark.parametrize("ps,maxP", [(4, 18), (16, 5)])
 def test_decode_attention_paged_every_plan(gen, ps, maxP, G, dtype):
     """K5 under every plan: within the tolerance of the plain version, and
@@ -655,7 +691,8 @@ def test_decode_attention_shared_memory_as_planned(gen):
     lib = build.lib()
     assert lib.repro_decode_attention_chunk() == CHUNK
     for G, dh, S, maxP in ((1, 64, 64, 0), (2, 64, 80, 0), (2, 64, 64, 4),
-                           (12, 128, 300, 0), (3, 16, 4096, 256)):
+                           (12, 128, 300, 0), (3, 16, 4096, 256),
+                           (1, 80, 80, 5), (4, 80, 300, 0)):
         for p in all_plans(S):
             assert lib.repro_decode_attention_smem_bytes(
                 G, dh, S, maxP, p.split, p.warps) == smem_bytes(

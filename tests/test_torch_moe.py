@@ -162,8 +162,8 @@ def test_build_model_routes_families():
     assert isinstance(build_model(cfg, device="cpu"), DecoderLM)
     tb = get_config("transformer-base").reduced()
     assert isinstance(build_model(tb, device="cpu"), EncDecLM)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(cfg, family="ssm"), device="cpu")
+    with pytest.raises(KeyError, match="unknown family"):
+        build_model(dataclasses.replace(cfg, family="rwkv"), device="cpu")
     with pytest.raises(ValueError, match="encoder-decoder"):
         DecoderLM(tb, device="cpu")
 

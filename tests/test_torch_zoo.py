@@ -67,7 +67,13 @@ from repro_torch.core import (
     quantize_model,
 )
 from repro_torch.kernels import ops
-from repro_torch.models import DecoderLM, EncDecLM, build_model
+from repro_torch.models import (
+    XLSTMLM,
+    DecoderLM,
+    EncDecLM,
+    HybridLM,
+    build_model,
+)
 from repro_torch.models import ffn
 
 from _torch_zoo import (  # noqa: F401  (one_torch_thread: a fixture)
@@ -149,17 +155,14 @@ def test_published_widths():
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_build_model_routes_every_family(arch):
-    """dense, moe and vlm build ``DecoderLM``, audio ``EncDecLM``; hybrid
-    and ssm stay refused, naming the ROADMAP item by its title."""
+    """dense, moe and vlm build ``DecoderLM``, audio ``EncDecLM``, hybrid
+    ``HybridLM`` and ssm ``XLSTMLM``; each model's ``init`` has the
+    reference's leaves, shape for shape."""
     cfg = get_config(arch).reduced()
-    if cfg.family in ("hybrid", "ssm"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1: the rest of the model "
-                                 "zoo"):
-            build_model(cfg, device="cpu")
-        return
     model = build_model(cfg, device="cpu")
-    assert isinstance(model, EncDecLM if cfg.enc_dec else DecoderLM)
+    want_cls = {"hybrid": HybridLM, "ssm": XLSTMLM}.get(
+        cfg.family, EncDecLM if cfg.enc_dec else DecoderLM)
+    assert type(model) is want_cls
     params = model.init(torch.Generator().manual_seed(0))
     want = _flatten_with_paths(jbuild_model(jget_config(arch).reduced())
                                .init(jax.random.PRNGKey(0)))
