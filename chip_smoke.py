@@ -40,7 +40,12 @@ final line):
    ``torch._int_mm``), K4 and K5 at zamba2's attention (16 rows, 32
    heads of 80 over 32, a cache of 80: every plan the same bits), and K3
    with a nonzero activation zero point (the affine modes' epilogue) at
-   every shape;
+   every shape; K3's two halves for a product split across ranks (the s32
+   accumulator alone, and the epilogue alone on it) at every K3 shape,
+   bit for bit equal to fused K3 and to their plain versions, f32 and
+   bf16, with and without a zero point, with a per-row, a per-tensor and
+   a by-value activation scale, and timed at phase 5e's sharded shapes
+   (transformer-base's linears at half their N or K, at 16 and 736 rows);
 4. end to end — transformer-base at full width (bf16 activations, float32
    weights from ``torch.Generator`` seed 0): after a two-token warm-up,
    KL-calibrate, quantize to INT8, greedy ``generate`` and beam-4
@@ -76,7 +81,7 @@ final line):
    ``impl="torch"``; then a profiled greedy run (busy time, idle share,
    K6's time and kernels);
 7. the decoder-only MoE family — granite-moe-1b-a400m at its published
-   widths and 8 of its 24 layers (32 experts top-8; random weights from
+   widths and 2 of its 24 layers (32 experts top-8; random weights from
    ``torch.Generator`` seed 0, bf16 activations) on 16 right-padded
    prompts: INT8 greedy and beam-4 ``generate`` with dynamic activation
    scales, and greedy with static scales after KL calibration on 16
@@ -89,8 +94,8 @@ final line):
    with static scales, and a profiled greedy run (busy time, idle share,
    K7's share, K4's device time);
 7b. the dense SwiGLU family (after phase 7's trees are freed) —
-   mistral-nemo-12b at its published widths and, since phase 7d took
-   the time, 20 of its 40 layers (d_model 5120, 32 heads of 128 over 8,
+   mistral-nemo-12b at its published widths and, since phases 7d and 5e
+   took the time, 4 of its 40 layers (d_model 5120, 32 heads of 128 over 8,
    d_ff 14336, vocab 131072, rope theta 1e6; float32 weights from ``torch.Generator`` seed 0 on the card,
    bf16 activations) on phase 7's 16 prompts, 24 new tokens, cache 80:
    INT8 greedy ``generate`` with dynamic scales; KL calibration on 8
@@ -161,7 +166,28 @@ final line):
    rates, tokens/s beside the plain serves' and the K4/K5 launches are
    logged, and one macro-step's verify logits against sequential decode's
    (the largest |Δ| by position);
-4t. train → calibrate → quantize → translate (after 5d; its MoE step
+5e. tensor-parallel serving and the replica router (after 5d) — phase
+   4's INT8 static weights saved, and two ranks (spawned as 5d starts,
+   so their imports overlap it) run on ``cuda:0``
+   over gloo (NCCL cannot put two ranks of one communicator on one
+   card), each cutting its shard of transformer-base at full width on a
+   ``(1, 2)`` mesh (4 of 8 heads, d_ff 1024, vocab 18500 a rank): greedy
+   ``generate`` of phase 4's batch, phase 5's 48 requests through a paged
+   ``serve`` (16 slots, burst 8, pages of 16) and a paged
+   ``serve(speculative_k=2)`` of phase 5d's 24.  Each rank's tokens, host
+   syncs and counters must equal the unsharded runs' (phase 4's, phase
+   5's, and the same speculative serve here); its first 3 decode steps'
+   logits must equal the other rank's bit for bit and the unsharded ones
+   bit for bit or within ``LOGIT_ATOL`` (the difference logged); K1, K3,
+   K3's two halves, K4 and K5 must launch on every rank and no plain
+   version run; a rank's exception, nonzero exit or timeout fails the
+   phase.  Beside the ranks, this process serves phase 5's requests on a
+   ``(1, 1)`` mesh (equal to phase 5's paged serve bit for bit) and
+   through a two-replica ``ReplicaRouter``, threaded and serial (phase
+   5's tokens, an even split).  Tokens/s are logged beside the unsharded
+   runs': the ranks' collectives go through the host, so none is a
+   multi-GPU speed;
+4t. train → calibrate → quantize → translate (after 5e; its MoE step
    just before phase 7) — a full-width transformer-base training step
    (phase 4's weights, bf16 activations, ``AdamW(lr=warmup_cosine(2e-3,
    2, 20))``, ``TranslationBatches`` of 32 over an 800-sentence corpus):
@@ -192,11 +218,12 @@ final line):
    ``--weight-bits 4``, continuous paged beam 4 with ``--burst-len
    auto``), ``python -m repro_torch.launch.train`` for 20 steps with a
    checkpoint every 10 and then for 30 from the same directory (it must
-   restore step 20), and for 10 steps of the reduced MoE model; each
-   must exit 0;
+   restore step 20), and for 10 steps of the reduced MoE model, and the
+   serving driver on a ``--mesh 1,2 --backend gloo`` (two ranks on the
+   card) and with ``--replicas 2``; each must exit 0;
 9. launch counts of each path, and one JSON line describing each kernel
-   (its launches summed over every path of phases 4-7, 4t, 5c, 5d, 7b,
-   7c and 7d);
+   (its launches summed over every path of phases 4-7, 4t, 5c, 5d, 5e
+   (both ranks), 7b, 7c and 7d);
 10. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package.
@@ -238,9 +265,10 @@ INT4_GROUP = 128               # rows per INT4 scale/min block
 LONG_S = 4096                  # phase 3: a long decode cache (K4, K5)
 
 MOE_ARCH = "granite-moe-1b-a400m"
-# phase 7 runs the published widths at 8 of the 24 layers: the time the
-# full depth took (every kernel shape is a width's) went to phase 7b
-MOE_LAYERS = 8
+# phase 7 runs the published widths at 2 of the 24 layers: the time the
+# full depth took (every kernel shape is a width's) went to phases 7b and
+# 5e
+MOE_LAYERS = 2
 # the longest prompt (46 tokens) plus 24 new tokens must fit the cache
 MOE_MAX_LEN = 80
 
@@ -389,8 +417,9 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
     from repro_torch.core import quantize_block
     from repro_torch.kernels.int4_matmul import int4_matmul_cuda
     from repro_torch.kernels.int4_matmul import plan as plan4
-    from repro_torch.kernels.int8_matmul import (int8_matmul_batched_cuda,
-                                                 int8_matmul_cuda, plan)
+    from repro_torch.kernels.int8_matmul import (
+        int8_matmul_accumulate_cuda, int8_matmul_batched_cuda,
+        int8_matmul_cuda, int8_matmul_epilogue_cuda, plan)
     from repro_torch.kernels.quantize import (is_aligned,
                                               plan as quant_plan,
                                               quantize_rowwise_cuda,
@@ -502,10 +531,17 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
     # without the epilogue, M padded to 17 where it wants more than 16 rows.
     # No cold time at Table 1's shapes: that model's weights (under 1 MB)
     # stay in the L2 on its path.
+    # Phase 5e's two ranks run transformer-base's column-parallel linears
+    # at half their N (q, k, v 512 -> 256, FFN in 512 -> 1024) and its
+    # row-parallel ones at half their K (o 256 -> 512, FFN out 1024 ->
+    # 512) through K3's two halves, at 16 slots and a prefill's rows.
+    tp_gemms = [(M, K, N) for M in (SERVE_SLOTS, N_REQUESTS * s_enc)
+                for K, N in ((512, 256), (512, 1024), (256, 512),
+                             (1024, 512))]
     for M, K, N in ([(M, K, N) for M in rows_m
                      for K, N in ((512, 512), (512, 2048), (2048, 512))]
                     + [(M, d_moe, N) for M in moe_m for N in (d_moe, d_kv)]
-                    + t1_gemms + d_gemms + r_gemms
+                    + t1_gemms + d_gemms + r_gemms + tp_gemms
                     + [(M, K, 512) for M in (1, 17, 65)
                        for K in (1024, 2048)]):
         a = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
@@ -523,18 +559,37 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
             raise AssertionError(f"int8_matmul accumulator differs at "
                                  f"{(M, K, N)}")
         zp = float(torch.rand((), generator=gen, device=dev)) * 200 - 100
+        # K3's two halves (a product split on K across ranks): the s32
+        # accumulator alone, exact and equal to its plain version, and the
+        # epilogue alone on it, equal bit for bit to fused K3 and to its
+        # plain version, also with a calibrated scale given by value
+        acc_split = int8_matmul_accumulate_cuda(a, w)
+        if not (torch.equal(acc_split.double(), exact) and torch.equal(
+                acc_split, ref.ref_int8_matmul_accumulate(a, w))):
+            raise AssertionError(f"int8_matmul_accumulate differs at "
+                                 f"{(M, K, N)}")
+        colsum = w.to(torch.int32).sum(dim=0).to(torch.float32)
         for dt, scale, z in itertools.product(
                 (torch.float32, torch.bfloat16),
-                (a_scale, a_scale[:1]), (None, zp)):
+                (a_scale, a_scale[:1], float(a_scale[0, 0])), (None, zp)):
             got = int8_matmul_cuda(a, scale, w, b_scale, z, bias,
                                    out_dtype=dt)
             want = ref.ref_int8_matmul(a, scale, w, b_scale, z, bias,
                                        out_dtype=dt)
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"int8_matmul {dt} (scale {tuple(scale.shape)}, zp "
-                    f"{z}) differs at {(M, K, N)} by "
-                    f"{float((got.float() - want.float()).abs().max())}")
+            cs = None if z is None else colsum
+            split = int8_matmul_epilogue_cuda(acc_split, scale, b_scale, z,
+                                              cs, bias, out_dtype=dt)
+            plain = ref.ref_int8_matmul_epilogue(acc_split, scale, b_scale,
+                                                 z, cs, bias, out_dtype=dt)
+            for what, x in (("int8_matmul", want),
+                            ("int8_matmul_epilogue", split),
+                            ("ref_int8_matmul_epilogue", plain)):
+                if not torch.equal(got, x):
+                    raise AssertionError(
+                        f"{what} {dt} (scale "
+                        f"{getattr(scale, 'shape', 'by value')}, zp {z}) "
+                        f"differs from fused K3 at {(M, K, N)} by "
+                        f"{float((got.float() - x.float()).abs().max())}")
         run = lambda wi=w: int8_matmul_cuda(a, a_scale, wi, b_scale, None,
                                             bias, out_dtype=torch.bfloat16)
         a_lib = torch.nn.functional.pad(a, (0, 0, 0, max(0, 17 - M)))
@@ -550,6 +605,26 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
             r["cold_ms"] = cold_ms(run, w, M * K + M * N * 2)
         log(f"  cold_ms={r.get('cold_ms', 'n/a')} tile={r['tile']}")
         results.setdefault("int8_matmul", []).append(r)
+        if (M, K, N) in tp_gemms:
+            b, o = bound(M * K + K * N + M * N * 4, 2 * M * N * K,
+                         INT8_OPS_PER_S)
+            results.setdefault("int8_matmul_accumulate", []).append(row(
+                "int8_matmul_accumulate", [M, K, N], 0.0,
+                time_ms(lambda: int8_matmul_accumulate_cuda(a, w)),
+                time_ms(lambda: ref.ref_int8_matmul_accumulate(a, w)), b, o,
+                lib_ms))
+            # s32 in, bf16 out, the row scales, b_scale and bias read once;
+            # three float operations an element
+            b, o = bound(M * N * 6 + M * 4 + N * 8, 3 * M * N,
+                         F32_FLOPS_PER_S)
+            results.setdefault("int8_matmul_epilogue", []).append(row(
+                "int8_matmul_epilogue", [M, K, N], 0.0,
+                time_ms(lambda: int8_matmul_epilogue_cuda(
+                    acc_split, a_scale, b_scale, None, None, bias,
+                    out_dtype=torch.bfloat16)),
+                time_ms(lambda: ref.ref_int8_matmul_epilogue(
+                    acc_split, a_scale, b_scale, None, None, bias,
+                    out_dtype=torch.bfloat16)), b, o, None))
 
     # K7: the grouped expert GEMM of the MoE FFN at granite-moe's shapes:
     # 32 experts, gate/up 1024 -> 512 and down 512 -> 1024, at the rows
@@ -1193,7 +1268,7 @@ def run_serving(model, qparams, qctx):
     return counts, results, toks
 
 
-GENERATE_CHECKS = 12           # served requests run again alone
+GENERATE_CHECKS = 6            # served requests run again alone
 
 
 def serve_vs_generate(model, qparams, qctx, toks) -> None:
@@ -1380,7 +1455,7 @@ def run_beam_serving(model, params, qparams, qctx):
     return counts, results, toks
 
 
-GENERATE_BEAM_CHECKS = 12      # beam-served requests run again alone
+GENERATE_BEAM_CHECKS = 6       # beam-served requests run again alone
 
 
 def beam_serve_vs_generate_beam(model, qparams, qctx, toks) -> None:
@@ -1464,9 +1539,11 @@ def log_serve(name, res) -> None:
         f"peak_running={res.peak_running} page_hwm={res.page_hwm}")
 
 
-# the plain versions that no run of phases 5c, 5d and 4t may call on the card
+# the plain versions that no run of phases 5c, 5d, 5e and 4t may call on
+# the card
 PLAIN_VERSIONS = ("ref_quantize_static", "ref_quantize_rowwise",
-                  "ref_int8_matmul", "ref_int8_matmul_batched",
+                  "ref_int8_matmul", "ref_int8_matmul_accumulate",
+                  "ref_int8_matmul_epilogue", "ref_int8_matmul_batched",
                   "ref_int4_matmul", "ref_decode_attention",
                   "ref_decode_attention_paged")
 
@@ -1881,6 +1958,300 @@ def verify_vs_sequential(model, qparams, qctx, batch, k: int = SPEC_K,
              for j in range(k + 1)]
     log(f"verify vs sequential decode (k={k}, {vlg.shape[0]} rows): max |dlogit| by position {deltas}; argmax equal by position "
         f"{agree}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: tensor-parallel serving on two ranks of the card, and the router
+# ---------------------------------------------------------------------------
+
+TP = 2                         # phase 5e: ranks of the "model" axis
+TP_SPEC_K = 2                  # draft window of its speculative serve
+TP_TIMEOUT_S = 600             # the ranks' whole run
+TP_LOGIT_STEPS = 3             # decode steps whose logits are compared
+# every rank must launch these on its runs (static INT8: K1; K3 at the
+# column-parallel linears and its two halves at the row-parallel ones)
+TP_KERNELS = {"generate": ("quantize_static", "int8_matmul",
+                           "int8_matmul_accumulate", "int8_matmul_epilogue",
+                           "decode_attention"),
+              "paged": ("quantize_static", "int8_matmul",
+                        "int8_matmul_accumulate", "int8_matmul_epilogue",
+                        "decode_attention_paged")}
+
+
+def first_logits(engine, qctx, batch, steps: int = TP_LOGIT_STEPS):
+    """The prefill's and ``steps`` greedy decode steps' logits (on the
+    host) through ``engine``'s model, weights and decode state (a rank's
+    shard of them on a mesh)."""
+    import torch
+    b = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    state = engine._new_state(N_REQUESTS)
+    logits, state = engine.model.prefill(engine.params, b, state, quant=qctx)
+    out = [logits.cpu()]
+    for _ in range(steps):
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        logits, state = engine.model.decode_step(engine.params, tok, state,
+                                                 quant=qctx)
+        out.append(logits.cpu())
+    return out
+
+
+TP_COUNTERS = ("host_syncs", "decode_steps", "busy_slot_steps",
+               "prefill_rounds", "page_hwm", "pages_in_use", "peak_running",
+               "draft_tokens", "accepted_tokens")
+
+
+def outcome(res) -> dict:
+    """What phase 5e compares of a ``GenerationResult`` or ``ServeResult``."""
+    if not hasattr(res, "requests"):
+        return dict(tokens=[list(map(int, t)) for t in res.tokens],
+                    host_syncs=res.host_syncs, steps=res.steps,
+                    tokens_per_s=res.tokens_per_s)
+    return dict(tokens=[list(map(int, r.tokens)) for r in res.requests],
+                tokens_per_s=res.tokens_per_s,
+                **{k: getattr(res, k) for k in TP_COUNTERS},
+                mesh_shape=tuple(res.mesh_shape), tp_degree=res.tp_degree,
+                collective_bytes_per_step=res.collective_bytes_per_step)
+
+
+def tp_runs(model, qparams, qctx, batch, mesh, only=None) -> dict:
+    """Phase 5e's runs on one engine setup (``mesh``: a rank's, or None),
+    each with its launches read from zero and no plain version allowed:
+    greedy ``generate`` of phase 4's batch, phase 5's 48 requests through a
+    paged ``serve`` (16 slots, burst 8, pages of 16), and a paged
+    ``serve(speculative_k=2)`` of phase 5d's 24; then the first decode
+    steps' logits.  ``only``: the names to run."""
+    from repro_torch.serving import ServingEngine
+
+    corpus, budgets = serve_requests(model.cfg.vocab)
+    spec = (corpus[:CHUNK_REQUESTS], budgets[:CHUNK_REQUESTS])
+    paged = dict(paged=True, page_size=PAGE)
+
+    def engine(**kw):
+        return ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN,
+                             burst_len=SERVE_BURST, mesh=mesh, **kw)
+
+    runs = {"generate": lambda: engine().generate(batch,
+                                                  max_new_tokens=MAX_NEW),
+            "paged": lambda: engine(**paged).serve(
+                corpus, n_slots=SERVE_SLOTS, max_new_tokens=budgets),
+            f"speculative_k={TP_SPEC_K}": lambda: engine(**paged).serve(
+                spec[0], n_slots=SERVE_SLOTS, max_new_tokens=spec[1],
+                speculative_k=TP_SPEC_K)}
+    # warm-up of the serve and verify shapes (uncounted)
+    engine(**paged).serve(corpus[:SERVE_SLOTS + 2], n_slots=SERVE_SLOTS,
+                          max_new_tokens=4, speculative_k=TP_SPEC_K)
+    out, counts = {}, {}
+    for name, fn in runs.items():
+        if only is None or name in only:
+            out[name] = outcome(run_counted(name, counts, fn))
+            out[name]["launches"] = counts[name]
+    if only is None or "logits" in only:
+        out["logits"] = first_logits(engine(), qctx, batch)
+    return out
+
+
+def tp_rank(rank: int, world: int, rdzv: str, state_path: str,
+            out_path: str) -> None:
+    """One rank of phase 5e on ``cuda:0``: joins a gloo group of ``world``
+    ranks and waits (at most ``TP_TIMEOUT_S``) for ``state_path``'s
+    ``.ready`` mark; then the ``(1, world)`` mesh, phase 4's weights cut to
+    this rank's shard, :func:`tp_runs`; its results (or its traceback) to
+    ``out_path``."""
+    import traceback
+    import torch
+    import torch.distributed as dist
+
+    sys.stdout = open(os.devnull, "w")
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models import EncDecLM
+        dist.init_process_group("gloo", init_method=rdzv, rank=rank,
+                                world_size=world)
+        try:
+            deadline = time.perf_counter() + TP_TIMEOUT_S
+            while not os.path.exists(state_path + ".ready"):
+                if time.perf_counter() > deadline:
+                    raise TimeoutError("phase 5e's state never came")
+                time.sleep(0.05)
+            torch.cuda.set_device(0)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            saved = torch.load(state_path, weights_only=False)
+            model = EncDecLM(get_config("transformer-base"), device="cuda")
+            out = tp_runs(model, saved["qparams"], saved["qctx"],
+                          saved["batch"], make_host_mesh(1, world))
+        finally:
+            dist.destroy_process_group()
+        torch.save(out, out_path)
+    except BaseException:
+        with open(out_path + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def start_tp_ranks() -> dict:
+    """Spawn phase 5e's ranks ahead of it (daemons, so they end with this
+    process): they import and join their group while phase 5d runs, and
+    touch the card only once :func:`run_tensor_parallel` hands them the
+    weights."""
+    import tempfile
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    ranks = dict(tmp=tmp, state=os.path.join(tmp, "state.pt"),
+                 outs=[os.path.join(tmp, f"rank{r}.pt") for r in range(TP)])
+    ctx = mp.get_context("spawn")
+    ranks["procs"] = [ctx.Process(target=tp_rank, daemon=True, args=(
+        r, TP, f"file://{tmp}/rdzv", ranks["state"], ranks["outs"][r]))
+        for r in range(TP)]
+    for p in ranks["procs"]:
+        p.start()
+    return ranks
+
+
+def compare_logits(name: str, got, want) -> None:
+    """Bit for bit, or else within ``LOGIT_ATOL`` with the largest
+    difference and the count of differing elements logged."""
+    for step, (g, w) in enumerate(zip(got, want)):
+        diff = (g - w).abs()
+        n = int((diff != 0).sum())
+        log(f"  {name} logits step {step}: "
+            + ("bit for bit" if n == 0 else
+               f"max |Δ| {float(diff.max()):.3g} on {n} of {diff.numel()} "
+               f"elements"))
+        if not bool(g.isfinite().all()) or float(diff.max()) > LOGIT_ATOL:
+            raise AssertionError(f"{name} logits step {step} differ by "
+                                 f"{float(diff.max())}")
+
+
+def run_mesh_one_and_router(model, qparams, qctx, batch, want,
+                            counts) -> None:
+    """Phase 5e in this process: a ``(1, 1)`` mesh (a world-size-1 gloo
+    group) equal to phase 5's paged serve bit for bit, and two replicas
+    behind a ``ReplicaRouter``, threaded and serial, with phase 5's paged
+    tokens and an even split."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import ReplicaRouter, ServingEngine
+
+    one = tp_runs(model, qparams, qctx, batch, make_host_mesh(1, 1),
+                  only=("paged",))["paged"]
+    counts["mesh (1,1) paged"] = one["launches"]
+    bad = [k for k in ("tokens",) + TP_COUNTERS
+           if one[k] != want["paged"][k]]
+    log(f"5e (1, 1) mesh paged serve: tokens/s {one['tokens_per_s']:.1f}, "
+        f"mesh {one['mesh_shape']}, differs in {bad or 'nothing'}")
+    if bad or one["mesh_shape"] != (1, 1):
+        raise AssertionError(f"5e (1, 1) mesh differs in {bad}")
+
+    corpus, budgets = serve_requests(model.cfg.vocab)
+    for parallel in (True, False):
+        name = f"router x2 parallel={parallel}"
+        engines = [ServingEngine(model, qparams, quant=qctx, max_len=MAX_LEN,
+                                 burst_len=SERVE_BURST, paged=True,
+                                 page_size=PAGE) for _ in range(2)]
+        res = run_counted(name, counts, lambda: ReplicaRouter(engines).serve(
+            corpus, n_slots=SERVE_SLOTS, max_new_tokens=budgets,
+            parallel=parallel))
+        got = [list(map(int, res.tokens_for(i))) for i in range(len(corpus))]
+        n_eq = sum(a == b for a, b in zip(got, want["paged"]["tokens"]))
+        split = [res.assignment.count(i) for i in range(2)]
+        log(f"5e {name}: tokens/s {res.tokens_per_s:.1f} (one engine "
+            f"{want['paged']['tokens_per_s']:.1f}), assignment {split}, "
+            f"{n_eq} of {len(corpus)} token lists equal phase 5's paged")
+        if n_eq != len(corpus) or abs(split[0] - split[1]) > 1:
+            raise AssertionError(f"5e {name}: {n_eq} equal, assignment "
+                                 f"{split}")
+
+
+def run_tensor_parallel(tp_ranks: dict, model, qparams, qctx, batch,
+                        plain_generate, paged_serve) -> dict:
+    """Phase 5e: ``TP`` ranks on the one card over gloo (NCCL cannot put
+    two ranks of a communicator on one device; :func:`start_tp_ranks`
+    spawned them), each running :func:`tp_runs` on its shard of phase 4's
+    weights; every rank's tokens and counters must equal the unsharded
+    runs' (phase 4's greedy ``generate``, phase 5's paged serve, and a
+    speculative serve run here), the ranks' logits must agree with each
+    other bit for bit and with the unsharded ones as
+    :func:`compare_logits` says, and every rank must launch
+    ``TP_KERNELS``.  While the ranks run, this process runs the unsharded
+    references and :func:`run_mesh_one_and_router`, so the tokens/s of
+    those runs and of the ranks (logged) are taken beside each other; and
+    the ranks' collectives go through the host: none of them measures
+    multi-GPU speed.  Returns the launch counts of every run."""
+    import shutil
+    import torch
+
+    counts = {}
+    procs, outs = tp_ranks["procs"], tp_ranks["outs"]
+    t0 = time.perf_counter()
+    try:
+        torch.save({"qparams": qparams, "qctx": qctx, "batch": batch},
+                   tp_ranks["state"])
+        open(tp_ranks["state"] + ".ready", "w").close()
+        try:
+            # while the ranks run: the unsharded references they are held
+            # to, the (1, 1) mesh and the router
+            want = tp_runs(model, qparams, qctx, batch, None,
+                           only=(f"speculative_k={TP_SPEC_K}", "logits"))
+            want["generate"] = outcome(plain_generate)
+            want["paged"] = outcome(paged_serve)
+            run_mesh_one_and_router(model, qparams, qctx, batch, want,
+                                    counts)
+            log(f"5e: this process's runs {time.perf_counter() - t0:.1f} s")
+        finally:
+            deadline = t0 + TP_TIMEOUT_S
+            for p in procs:
+                p.join(timeout=max(1.0, deadline - time.perf_counter()))
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        for r, p in enumerate(procs):
+            if os.path.exists(outs[r] + ".err"):
+                with open(outs[r] + ".err") as f:
+                    raise AssertionError(f"5e rank {r} failed:\n{f.read()}")
+        if hung or any(p.exitcode for p in procs):
+            raise AssertionError(f"5e ranks: hung {hung}, exit codes "
+                                 f"{[p.exitcode for p in procs]}")
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+    finally:
+        shutil.rmtree(tp_ranks["tmp"], ignore_errors=True)
+    log(f"5e: {TP} ranks on one card over gloo, from their weights to "
+        f"their results: {time.perf_counter() - t0:.1f} s")
+
+    for r, got in enumerate(ranks):
+        for name in ("generate", "paged", f"speculative_k={TP_SPEC_K}"):
+            g, w = got[name], want[name]
+            counts[f"rank{r} {name}"] = g["launches"]
+            fields = [k for k in w if k not in ("tokens_per_s", "launches",
+                                                "mesh_shape", "tp_degree",
+                                                "collective_bytes_per_step")]
+            bad = [k for k in fields if g[k] != w[k]]
+            log(f"5e rank {r} {name}: tokens/s {g['tokens_per_s']:.1f} "
+                f"(unsharded {w['tokens_per_s']:.1f}), host_syncs "
+                f"{g['host_syncs']}, launches "
+                + json.dumps({k: v for k, v in g["launches"].items() if v})
+                + ("" if "mesh_shape" not in g else
+                   f", mesh {g['mesh_shape']}, predicted collective bytes "
+                   f"a step {g['collective_bytes_per_step']}"))
+            if bad:
+                n_eq = sum(a == b for a, b in zip(g["tokens"], w["tokens"]))
+                raise AssertionError(
+                    f"5e rank {r} {name} differs from the unsharded run in "
+                    f"{bad} ({n_eq} of {len(w['tokens'])} token lists "
+                    f"equal)")
+            for k in TP_KERNELS.get(name, ()):
+                if g["launches"][k] <= 0:
+                    raise AssertionError(f"5e rank {r} {name}: {k} never "
+                                         "launched")
+        compare_logits(f"5e rank {r} vs unsharded", got["logits"],
+                       want["logits"])
+    for a, b in zip(ranks[0]["logits"], ranks[1]["logits"]):
+        if not torch.equal(a, b):
+            raise AssertionError("5e: the ranks' logits differ")
+
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2390,8 +2761,8 @@ def moe_prompts(vocab: int):
 
 
 def run_moe(model, params):
-    """granite-moe-1b-a400m at its published widths and 8 of its 24
-    layers (``model``, its random float32 weights ``params``), bf16
+    """granite-moe-1b-a400m at its published widths and ``MOE_LAYERS`` of
+    its 24 layers (``model``, its random float32 weights ``params``), bf16
     activations: INT8 with
     dynamic activation scales (greedy and beam-4 ``generate``) and, after
     KL calibration on the held-out prompts, with static scales (greedy).
@@ -2553,9 +2924,10 @@ def profile_moe(model, qparams, qctx, batch) -> None:
 # ---------------------------------------------------------------------------
 
 DENSE_ARCH = "mistral-nemo-12b"
-# phase 7b runs the published widths at 20 of the 40 layers: the time the
-# full depth took (every kernel shape is a width's) went to phase 7d
-DENSE_LAYERS = 20
+# phase 7b runs the published widths at 4 of the 40 layers: the time the
+# full depth took (every kernel shape is a width's) went to phases 7d and
+# 5e
+DENSE_LAYERS = 4
 DENSE_CALIB = 8                # held-out prompts for its KL calibration
 DENSE_PROFILE_NEW = 8          # new tokens of the profiled greedy call
 AUDIO_ARCH = "whisper-base"
@@ -3032,6 +3404,10 @@ DRIVER_RUNS = (
      "16", "--slots", "4", "--max-new-tokens", "8"],
     ["--mode", "continuous", "--paged", "--beam", "4", "--burst-len", "auto",
      "--requests", "16", "--slots", "16", "--max-new-tokens", "8"],
+    ["--mode", "continuous", "--paged", "--mesh", "1,2", "--backend", "gloo",
+     "--requests", "16", "--slots", "4", "--max-new-tokens", "8"],
+    ["--mode", "continuous", "--paged", "--replicas", "2", "--requests", "16",
+     "--slots", "4", "--max-new-tokens", "8"],
 )
 
 
@@ -3164,7 +3540,7 @@ def main() -> int:
 
     # 5. continuous serving, contiguous and paged
     phase("continuous serving")
-    serve_counts, _, toks = run_serving(model, qparams, qctx)
+    serve_counts, serve_results, toks = run_serving(model, qparams, qctx)
     phase("serve vs per-request generate")
     serve_vs_generate(model, qparams, qctx, toks)
 
@@ -3191,11 +3567,19 @@ def main() -> int:
     phase("spill and resume")
     spill_resume_ms(model, qparams, qctx)
 
-    # 5d. chunked prefill and self-speculative decoding
+    # 5d. chunked prefill and self-speculative decoding (phase 5e's ranks
+    # start their imports meanwhile)
+    tp_ranks = start_tp_ranks()
     phase("chunked prefill and speculative decoding")
     staged_counts = run_chunked_and_speculative(
         model, qparams, qctx, batch, runs["greedy_static"], toks,
         beam_results["beam_paged"])
+
+    # 5e. tensor-parallel serving on two ranks of the card, and the router
+    phase("5e: tensor parallel on two ranks of the card, and the router")
+    tp_counts = run_tensor_parallel(tp_ranks, model, qparams, qctx, batch,
+                                    runs["greedy_static"],
+                                    serve_results["paged"])
 
     # 4t. train -> calibrate -> quantize -> translate
     phase("4t: transformer-base training step")
@@ -3247,6 +3631,8 @@ def main() -> int:
     headline = {"quantize_static": [N_REQUESTS * s_enc, 512],
                 "quantize_rowwise": [N_REQUESTS * s_enc, 512],
                 "int8_matmul": [N_REQUESTS * BEAM, 512, 512],
+                "int8_matmul_accumulate": [SERVE_SLOTS, 1024, 512],
+                "int8_matmul_epilogue": [SERVE_SLOTS, 1024, 512],
                 "int8_matmul_batched": [
                     moe_cfg.moe.n_experts, moe_expert_rows(moe_cfg, N_REQUESTS),
                     moe_cfg.d_model, moe_cfg.d_ff],
@@ -3258,6 +3644,8 @@ def main() -> int:
         "quantize_static": "src/repro/kernels/quantize.py:79",
         "quantize_rowwise": "src/repro/kernels/quantize.py:38",
         "int8_matmul": "src/repro/kernels/int8_matmul.py:145",
+        "int8_matmul_accumulate": "src/repro/kernels/int8_matmul.py:145",
+        "int8_matmul_epilogue": "src/repro/kernels/int8_matmul.py:145",
         "int8_matmul_batched": "src/repro/kernels/int8_matmul.py:82",
         "int4_matmul": "src/repro/kernels/int4_matmul.py:104",
         "decode_attention": "src/repro/kernels/decode_attention.py:80",
@@ -3266,6 +3654,8 @@ def main() -> int:
         "quantize_static": "src/repro_torch/csrc/quantize.cu",
         "quantize_rowwise": "src/repro_torch/csrc/quantize.cu",
         "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
+        "int8_matmul_accumulate": "src/repro_torch/csrc/int8_matmul.cu",
+        "int8_matmul_epilogue": "src/repro_torch/csrc/int8_matmul.cu",
         "int8_matmul_batched": "src/repro_torch/csrc/int8_matmul.cu",
         "int4_matmul": "src/repro_torch/csrc/int4_matmul.cu",
         "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
@@ -3273,14 +3663,16 @@ def main() -> int:
     # each kernel's launches over every path driven with the counts read
     # from zero: generate, the four serves, the six beam serves, the INT4
     # phase, the prefix-cache and overload serves, the chunked and
-    # speculative runs, the Table-1 runs of phase 4t, the MoE phase, the
-    # dense, the audio and the recurrent phases
+    # speculative runs, the ranks, the (1, 1) mesh and the router of phase
+    # 5e, the Table-1 runs of phase 4t, the MoE phase, the dense, the audio
+    # and the recurrent phases
     path_counts = {"generate": counts,
                    **{f"serve {k}": v for k, v in serve_counts.items()},
                    **{f"serve {k}": v for k, v in beam_counts.items()},
                    "INT4": int4_counts,
                    **{f"serve {k}": v for k, v in prefix_counts.items()},
                    **{f"5d {k}": v for k, v in staged_counts.items()},
+                   **{f"5e {k}": v for k, v in tp_counts.items()},
                    **{f"4t {k}": v for k, v in table1_counts.items()},
                    "MoE": moe_counts,
                    **{f"7b {k}": v for k, v in dense_counts.items()},

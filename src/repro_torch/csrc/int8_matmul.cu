@@ -134,6 +134,7 @@ struct Args {
   int32_t* ws;              // (S, E, M, N) s32 partials when splits > 1
   int E, M, N, K;
   int splits, slice_k;      // slice s covers [s * slice_k, ...); the last to K
+  int acc_only = 0;         // out is the (E, M, N) s32 sum, no epilogue
 };
 
 // ---------------------------------------------------------------------------
@@ -312,7 +313,7 @@ __device__ __forceinline__ void store_row(const Args& p, int e, int s, int m,
   const int N = p.N;
   const long long row = (static_cast<long long>(e) * p.M + m) * N;
   const bool full = n0 + 8 <= N;
-  if (p.splits > 1) {
+  if (p.splits > 1 || p.acc_only) {
     int32_t* dst = p.ws + static_cast<long long>(s) * p.E * p.M * N + row + n0;
     if (full && N % 4 == 0) {
       reinterpret_cast<int4*>(dst)[0] = make_int4(v[0], v[1], v[2], v[3]);
@@ -469,6 +470,10 @@ __device__ __forceinline__ void reduce_partials(const Args& p) {
        i < total; i += stride) {
     int32_t acc = 0;
     for (int s = 0; s < p.splits; ++s) acc += p.ws[s * total + i];
+    if (p.acc_only) {
+      static_cast<int32_t*>(p.out)[i] = acc;
+      continue;
+    }
     const int n = static_cast<int>(i % p.N);
     const long long em = i / p.N;
     const int m = static_cast<int>(em % p.M), e = static_cast<int>(em / p.M);
@@ -591,6 +596,56 @@ extern "C" int repro_int8_matmul(const void* a, const void* b,
          static_cast<const float*>(bias), out, out_dtype,
          static_cast<int32_t*>(workspace), 1, M, N, K, splits, slice_k};
   return run<false>(p, bm, device, static_cast<cudaStream_t>(stream));
+}
+
+// K3's first half, for a product split on K across ranks: acc (M,N) s32 =
+// a (M,K) s8 @ b (K,N) s8, the tile without the epilogue.  bm, splits,
+// slice_k as for K3; unsplit, the tile writes acc itself, split, the slices'
+// partials go to workspace (splits, M, N) and the reduction writes their sum
+// in ascending slice order.  Returns cudaGetLastError() (or
+// cudaErrorInvalidValue).
+extern "C" int repro_int8_matmul_accumulate(const void* a, const void* b,
+                                            void* acc, int M, int N, int K,
+                                            int bm, int splits, int slice_k,
+                                            void* workspace, int device,
+                                            void* stream) {
+  Args p{static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
+         nullptr, 0.0f, 0, nullptr, nullptr, 0.0f, 0, 0, nullptr, acc, 0,
+         static_cast<int32_t*>(splits > 1 ? workspace : acc), 1, M, N, K,
+         splits, slice_k, 1};
+  return run<false>(p, bm, device, static_cast<cudaStream_t>(stream));
+}
+
+// K3's second half: out (M,N) = the K3 epilogue of acc (M,N) s32, exactly
+// as the split K3's reduction computes it (one slice).  a_scale, b_scale,
+// colsum, zp, bias and out_dtype as for K3.  Returns cudaGetLastError() (or
+// cudaErrorInvalidValue).
+extern "C" int repro_int8_matmul_epilogue(const void* acc,
+                                          const void* a_scale,
+                                          float a_scale_value,
+                                          int a_scale_per_row,
+                                          const void* b_scale,
+                                          const void* colsum, float zp,
+                                          int has_zp, const void* bias,
+                                          void* out, int M, int N,
+                                          int out_dtype, int device,
+                                          void* stream) {
+  if (M < 0 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
+  Args p{nullptr, nullptr, static_cast<const float*>(a_scale), a_scale_value,
+         a_scale_per_row, static_cast<const float*>(b_scale),
+         static_cast<const float*>(colsum), zp, has_zp,
+         a_scale == nullptr && !a_scale_per_row,
+         static_cast<const float*>(bias), out, out_dtype,
+         const_cast<int32_t*>(static_cast<const int32_t*>(acc)), 1, M, N, 0,
+         1, 0};
+  cudaSetDevice(device);
+  const long long total = static_cast<long long>(M) * N;
+  const long long want = (total + kReduceThreads - 1) / kReduceThreads;
+  const int blocks = static_cast<int>(want < 65535 ? want : 65535);
+  if (blocks > 0)
+    int8_matmul_reduce_kernel<<<blocks, kReduceThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K7.  a (E,M,K) s8, b (E,K,N) s8, out (E,M,N), all row-major.  a_scale:

@@ -1,0 +1,134 @@
+"""Tensor-parallel collectives, and the marks that tell a sharded layer
+which of them to run.
+
+Every collective is an ``all_reduce``: SUM, or MAX where asked.  An
+all-gather is a SUM into a zero-filled buffer in which each rank has
+written its own slice; ``x + 0`` is ``x``, so it is exact for integers and
+floats.  One body then serves gloo on the CPU, gloo with CUDA tensors on
+one card (gloo has no CUDA ``all_gather``) and NCCL across cards.  The
+backend is the caller's choice (``init_process_group``); a collective that
+fails raises, and nothing falls back to a whole-weight compute.
+
+:func:`mark_parallel` adds a ``"tp"`` entry to the nodes of a rank's shard
+(``distributed.sharding.shard_params``) that need a collective:
+
+* ``Parallel("row")`` — an out-projection split on its input features:
+  ``models.layers.dense`` reduces its partial products across the group;
+* ``Parallel("gather")`` — a replicated weight behind a split producer (an
+  INT4 out-projection, whose rows the rules never split): the input is
+  gathered first;
+* ``Parallel("vocab")`` — a vocab-split embedding table: a masked lookup
+  plus a SUM, and logits gathered over the vocabulary;
+* ``HeadSlice`` on an attention node — the GQA fallback, where the kv heads
+  do not divide the group: the K/V projections and pools stay whole and
+  this rank's query heads read kv heads ``[lo, lo + n)`` of them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.qtensor import BlockQTensor, QTensor
+from repro_torch.distributed.sharding import IN_PROJ, OUT_PROJ, axis_dim
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+@dataclasses.dataclass(frozen=True)
+class TPGroup:
+    """This rank's place in a tensor-parallel group."""
+    rank: int
+    size: int
+    group: Optional[Any] = None      # a ProcessGroup (None: the default)
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``x`` reduced over the group, in place."""
+        if self.size > 1:
+            dist.all_reduce(x, op=_OPS[op], group=self.group)
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``x`` concatenated along ``dim`` in rank order."""
+        if self.size == 1:
+            return x
+        dim = dim % x.dim()
+        n = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = n * self.size
+        out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        out.narrow(dim, self.rank * n, n).copy_(x)
+        return self.all_reduce(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Parallel:
+    """The collective a sharded linear or embedding node runs."""
+    kind: str                        # "row" | "gather" | "vocab"
+    group: TPGroup
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadSlice:
+    """GQA fallback: this rank's query heads read kv heads [lo, lo + n)."""
+    lo: int
+    n: int
+
+
+def _w_spec(spec_node) -> Optional[tuple]:
+    w = spec_node.get("w") if isinstance(spec_node, dict) else None
+    return w.data if isinstance(w, (QTensor, BlockQTensor)) else w
+
+
+def _splits(spec_node, dim: int, tensor: str) -> bool:
+    w = _w_spec(spec_node)
+    return w is not None and axis_dim(w, tensor) == len(w) + dim
+
+
+def head_slice(rank: int, tp: int, n_heads: int, n_kv_heads: int
+               ) -> HeadSlice:
+    """The kv heads rank ``rank``'s query heads read when the kv heads stay
+    whole; raises unless they are ``n`` consecutive heads each serving an
+    equal run of the rank's query heads (every case with
+    ``G % (H / tp) == 0``, ``G = H / HKV``)."""
+    h = n_heads // tp
+    g = n_heads // n_kv_heads
+    q0 = rank * h
+    kv = [(q0 + i) // g for i in range(h)]
+    lo, n = kv[0], kv[-1] - kv[0] + 1
+    if h % n or any(kv[i] - lo != i // (h // n) for i in range(h)):
+        raise NotImplementedError(
+            f"{n_heads} query heads over {n_kv_heads} kv heads on {tp} "
+            f"ranks: rank {rank}'s query heads do not map onto an even run "
+            "of kv heads")
+    return HeadSlice(lo, n)
+
+
+def mark_parallel(params: Any, specs: Any, group: TPGroup, *,
+                  n_heads: int, n_kv_heads: int,
+                  tensor: str = "model") -> Any:
+    """A copy of a rank's shard with the ``"tp"`` marks (module docstring)
+    its layers read; ``specs`` is the full tree's
+    ``distributed.sharding.param_specs``."""
+    if group.size == 1 or not isinstance(params, dict):
+        return params
+    out = {k: mark_parallel(v, specs[k], group, n_heads=n_heads,
+                            n_kv_heads=n_kv_heads, tensor=tensor)
+           if isinstance(v, dict) else v for k, v in params.items()}
+    producer = any(_splits(specs[k], -1, tensor) for k in params
+                   if k in IN_PROJ)
+    for k in params:
+        if k in OUT_PROJ and isinstance(params[k], dict):
+            kind = ("row" if _splits(specs[k], -2, tensor)
+                    else "gather" if producer else None)
+            if kind:
+                out[k] = dict(out[k], tp=Parallel(kind, group))
+    if "table" in params and axis_dim(specs["table"], tensor) == 0:
+        out["tp"] = Parallel("vocab", group)
+    if ("q_proj" in params and _splits(specs["q_proj"], -1, tensor)
+            and not _splits(specs["k_proj"], -1, tensor)):
+        out["tp"] = head_slice(group.rank, group.size, n_heads, n_kv_heads)
+    return out

@@ -10,7 +10,9 @@ stale build.  The build directory is ``repro_torch/_build`` (git-ignored);
 nothing is compiled when this module is imported.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; each wrapper
-adds one right after a launch that the runtime accepted, and nowhere else.
+adds one right after a launch that the runtime accepted, and nowhere else,
+under ``LAUNCH_LOCK`` (engines behind a ``ReplicaRouter`` launch from
+threads of their own).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -38,7 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"quantize_static": 0, "quantize_rowwise": 0,
-                            "int8_matmul": 0, "int8_matmul_batched": 0,
+                            "int8_matmul": 0, "int8_matmul_accumulate": 0,
+                            "int8_matmul_epilogue": 0,
+                            "int8_matmul_batched": 0,
                             "int4_matmul": 0,
                             "decode_attention": 0,
                             "decode_attention_paged": 0}
@@ -52,6 +57,10 @@ _SIGNATURES = {
     "repro_quantize_rowwise": [_P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
     "repro_int8_matmul": [_P, _P, _P, _F, _I, _P, _P, _F, _I, _P, _P, _I, _I,
                           _I, _I, _I, _I, _I, _P, _I, _P],
+    "repro_int8_matmul_accumulate": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                                     _I, _P],
+    "repro_int8_matmul_epilogue": [_P, _P, _F, _I, _P, _P, _F, _I, _P, _P, _I,
+                                   _I, _I, _I, _P],
     "repro_int8_matmul_batched": [_P, _P, _P, _F, _I, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _P, _I, _P],
     "repro_int4_matmul": [_P, _P, _P, _F, _I, _P, _P, _I, _P, _F, _I, _P, _P,
@@ -64,6 +73,15 @@ _SIGNATURES = {
                                      _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
                                      _P],
 }
+
+LAUNCH_LOCK = threading.Lock()
+
+
+def count(kernel: str) -> None:
+    """Add one launch of ``kernel`` to ``LAUNCHES``."""
+    with LAUNCH_LOCK:
+        LAUNCHES[kernel] += 1
+
 
 _lib: Optional[ctypes.CDLL] = None
 # compiler messages of the last build, per source (ptxas register/smem use)

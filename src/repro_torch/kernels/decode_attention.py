@@ -217,7 +217,7 @@ def decode_attention_cuda(
             p.warps, dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, "decode_attention")
-        build.LAUNCHES["decode_attention"] += 1
+        build.count("decode_attention")
     return out
 
 
@@ -276,5 +276,5 @@ def decode_attention_paged_cuda(
             float(sm_scale), Q_DTYPES[q.dtype], p.split, p.warps, dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, "decode_attention_paged")
-        build.LAUNCHES["decode_attention_paged"] += 1
+        build.count("decode_attention_paged")
     return out

@@ -160,5 +160,5 @@ def int4_matmul_cuda(
             p.groups_per_slice, None if ws is None else ws.data_ptr(),
             dev.index, torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, "int4_matmul")
-        build.LAUNCHES["int4_matmul"] += 1
+        build.count("int4_matmul")
     return out

@@ -1,5 +1,6 @@
-"""s8·s8→s32 matmul with the dequantize epilogue fused (K3), and its
-per-expert grouped form (K7), on the card.
+"""s8·s8→s32 matmul with the dequantize epilogue fused (K3), its two
+halves for a product split across ranks (the accumulator alone, and the
+epilogue alone), and its per-expert grouped form (K7), on the card.
 
 Ports of ``repro/kernels/int8_matmul.py:int8_matmul_pallas`` and
 ``:int8_matmul_batched_pallas``.  Both run the tensor-core tile in
@@ -158,7 +159,95 @@ def int8_matmul_cuda(
             None if ws is None else ws.data_ptr(), dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, "int8_matmul")
-        build.LAUNCHES["int8_matmul"] += 1
+        build.count("int8_matmul")
+    return out
+
+
+def int8_matmul_accumulate_cuda(
+    a_q: torch.Tensor,                      # (M, K) int8
+    b_q: torch.Tensor,                      # (K, N) int8
+    *,
+    tile: Optional[Plan] = None,
+) -> torch.Tensor:
+    """K3's tile without its epilogue: the exact s32 ``a_q @ b_q``, (M, N)
+    int32, for a product whose K is split across ranks (the ranks'
+    accumulators are summed, then :func:`int8_matmul_epilogue_cuda` runs
+    once).  The plan is K3's at the same shapes."""
+    kernel = "int8_matmul_accumulate"
+    if not a_q.is_cuda:
+        raise ValueError(f"{kernel}: needs CUDA tensors, got {a_q.device}")
+    if a_q.dim() != 2 or b_q.dim() != 2 or a_q.shape[1] != b_q.shape[0]:
+        raise ValueError(f"{kernel}: shapes {tuple(a_q.shape)} x "
+                         f"{tuple(b_q.shape)} do not multiply")
+    M, K = a_q.shape
+    N = b_q.shape[1]
+    dev = a_q.device
+    _check(a_q, "a_q", torch.int8, (M, K), dev, kernel)
+    _check(b_q, "b_q", torch.int8, (K, N), dev, kernel)
+    acc = torch.empty((M, N), dtype=torch.int32, device=dev)
+    if acc.numel():
+        p = tile or plan(1, M, N, K)
+        ws = _workspace(p, 1, M, N, dev)
+        err = build.lib().repro_int8_matmul_accumulate(
+            a_q.data_ptr(), b_q.data_ptr(), acc.data_ptr(), M, N, K, p.bm,
+            p.splits, p.slice_k, None if ws is None else ws.data_ptr(),
+            dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        build.check(err, kernel)
+        build.count(kernel)
+    return acc
+
+
+def int8_matmul_epilogue_cuda(
+    acc: torch.Tensor,                      # (M, N) int32
+    a_scale: Union[torch.Tensor, float],    # (M, 1) / (1, 1) f32, or a float
+    b_scale: torch.Tensor,                  # (1, N) f32
+    a_zero_point: Optional[float] = None,   # q-space offset
+    colsum: Optional[torch.Tensor] = None,  # (N,) f32, with a zero point
+    bias: Optional[torch.Tensor] = None,    # (N,) f32
+    *,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """K3's epilogue alone on an s32 accumulator: the split K3's reduction
+    over one slice, so ``epilogue(accumulate(a, b))`` is K3 bit for bit."""
+    kernel = "int8_matmul_epilogue"
+    if not acc.is_cuda:
+        raise ValueError(f"{kernel}: needs CUDA tensors, got {acc.device}")
+    if acc.dim() != 2:
+        raise ValueError(f"{kernel}: acc must be (M, N), got "
+                         f"{tuple(acc.shape)}")
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"{kernel}: out_dtype must be float32 or bfloat16, "
+                        f"got {out_dtype}")
+    M, N = acc.shape
+    dev = acc.device
+    _check(acc, "acc", torch.int32, (M, N), dev, kernel)
+    _check(b_scale, "b_scale", torch.float32, (1, N), dev, kernel)
+    a_scale_ptr, a_scale_value, per_row = None, 0.0, 0
+    if isinstance(a_scale, torch.Tensor):
+        per_row = int(a_scale.numel() != 1)
+        _check(a_scale, "a_scale", torch.float32, (M, 1) if per_row else (1, 1),
+               dev, kernel)
+        a_scale_ptr = a_scale.data_ptr()
+    else:
+        a_scale_value = float(a_scale)
+    zp = 0.0
+    if a_zero_point is not None:
+        zp = float(a_zero_point)
+        _check(colsum, "colsum", torch.float32, (N,), dev, kernel)
+    if bias is not None:
+        _check(bias, "bias", torch.float32, (N,), dev, kernel)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    if out.numel():
+        err = build.lib().repro_int8_matmul_epilogue(
+            acc.data_ptr(), a_scale_ptr, a_scale_value, per_row,
+            b_scale.data_ptr(),
+            None if a_zero_point is None else colsum.data_ptr(), zp,
+            int(a_zero_point is not None),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), M, N,
+            OUT_DTYPES[out_dtype], dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(err, kernel)
+        build.count(kernel)
     return out
 
 
@@ -216,5 +305,5 @@ def int8_matmul_batched_cuda(
             None if ws is None else ws.data_ptr(), dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, kernel)
-        build.LAUNCHES[kernel] += 1
+        build.count(kernel)
     return out

@@ -30,8 +30,10 @@ from repro_torch.kernels.decode_attention import (
 )
 from repro_torch.kernels.int4_matmul import int4_matmul_cuda
 from repro_torch.kernels.int8_matmul import (
+    int8_matmul_accumulate_cuda,
     int8_matmul_batched_cuda,
     int8_matmul_cuda,
+    int8_matmul_epilogue_cuda,
 )
 from repro_torch.kernels.quantize import (
     quantize_rowwise_cuda,
@@ -42,12 +44,14 @@ IMPLS = ("auto", "cuda", "torch")
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(build.LAUNCHES)
+    with build.LAUNCH_LOCK:
+        return dict(build.LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for name in build.LAUNCHES:
-        build.LAUNCHES[name] = 0
+    with build.LAUNCH_LOCK:
+        for name in build.LAUNCHES:
+            build.LAUNCHES[name] = 0
 
 
 def use_kernel(impl: str, x: torch.Tensor) -> bool:
@@ -117,6 +121,60 @@ def int8_matmul(
     else:
         out = ref.ref_int8_matmul(a2, a_scale, b.data, b_scale, zp, bias,
                                   out_dtype=out_dtype)
+    return out.reshape(*batch_shape, N)
+
+
+def int8_matmul_accumulate(a_q: torch.Tensor, b_q: torch.Tensor, *,
+                           impl: str = "auto") -> torch.Tensor:
+    """The exact s32 ``a_q @ b_q`` of int8 codes (..., K) × (K, N), with no
+    epilogue: one rank's share of a product split on K."""
+    batch_shape = a_q.shape[:-1]
+    K = a_q.shape[-1]
+    N = b_q.shape[-1]
+    a2 = a_q.reshape(-1, K)
+    if use_kernel(impl, a2):
+        acc = int8_matmul_accumulate_cuda(a2.contiguous(), b_q.contiguous())
+    else:
+        acc = ref.ref_int8_matmul_accumulate(a2, b_q)
+    return acc.reshape(*batch_shape, N)
+
+
+def int8_matmul_epilogue(
+    acc: torch.Tensor,
+    a_scale,
+    b_scale: torch.Tensor,
+    a_zero_point=0.0,
+    colsum: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    out_dtype: torch.dtype = torch.float32,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """K3's epilogue on an s32 accumulator (..., N): ``(acc - zp·colsum) ·
+    a_scale · b_scale + bias``, as :func:`int8_matmul` computes it.
+    ``a_scale`` per row (..., 1) or scalar; ``b_scale`` (1, N) or scalar;
+    ``colsum`` (N,): the weight codes' column sums over the whole K, needed
+    with a nonzero zero point."""
+    batch_shape = acc.shape[:-1]
+    N = acc.shape[-1]
+    acc2 = acc.reshape(-1, N)
+    M = acc2.shape[0]
+    a_scale = _row_scale(a_scale, M)
+    b_scale = torch.as_tensor(b_scale, dtype=torch.float32,
+                              device=acc.device)
+    b_scale = (b_scale.reshape(1, 1).expand(1, N) if b_scale.numel() == 1
+               else b_scale.reshape(1, N))
+    zp = _fold_zero_point(a_zero_point)
+    if zp is not None:
+        colsum = colsum.reshape(N).to(torch.float32)
+    if use_kernel(impl, acc2):
+        out = int8_matmul_epilogue_cuda(
+            acc2.contiguous(), a_scale, b_scale.contiguous(), zp,
+            None if zp is None else colsum.contiguous(), bias,
+            out_dtype=out_dtype)
+    else:
+        out = ref.ref_int8_matmul_epilogue(acc2, a_scale, b_scale, zp,
+                                           colsum, bias, out_dtype=out_dtype)
     return out.reshape(*batch_shape, N)
 
 

@@ -193,7 +193,7 @@ def quantize_static_cuda(x: torch.Tensor, amax: float, *, clamp: bool = True,
             X_DTYPES[x.dtype], int(p.vector), p.blocks, x.device.index,
             torch.cuda.current_stream(x.device).cuda_stream)
         build.check(err, "quantize_static")
-        build.LAUNCHES["quantize_static"] += 1
+        build.count("quantize_static")
     return q
 
 
@@ -218,6 +218,6 @@ def quantize_rowwise_cuda(x: torch.Tensor, *,
             X_DTYPES[x.dtype], p.vecs, p.warps_per_row, x.device.index,
             torch.cuda.current_stream(x.device).cuda_stream)
         build.check(err, "quantize_rowwise")
-        build.LAUNCHES["quantize_rowwise"] += 1
+        build.count("quantize_rowwise")
     return q, scale
 

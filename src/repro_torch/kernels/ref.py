@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the port's seven kernels.
+"""Plain PyTorch versions of the port's seven kernels (and of K3's two
+halves, the accumulator and the epilogue, for a product split on K).
 
 Each ``ref_*`` function computes its kernel's result with plain torch ops at
 full (exact integer / float32) precision, mirroring
@@ -28,6 +29,46 @@ _EPS = 1e-12
 Scale = Union[torch.Tensor, float]
 
 
+def ref_int8_matmul_accumulate(a_q: torch.Tensor,     # (M, K) int8
+                               b_q: torch.Tensor,     # (K, N) int8
+                               ) -> torch.Tensor:
+    """The exact s32 accumulator ``a_q @ b_q``, (M, N) int32.
+
+    It is formed in float64, where every partial sum of int8 products
+    (< 2^53) is an exact integer, so it equals the s32 sum on any device
+    while 127² · K < 2^31."""
+    acc = torch.matmul(a_q.to(torch.float64), b_q.to(torch.float64))
+    return acc.to(torch.int32)
+
+
+def ref_int8_matmul_epilogue(
+    acc: torch.Tensor,             # (M, N) int32
+    a_scale: Scale,                # (M, 1) / (1, 1) f32 or a float
+    b_scale: torch.Tensor,         # (1, N) f32
+    a_zero_point: Optional[Scale] = None,   # scalar (q-space offset)
+    colsum: Optional[torch.Tensor] = None,  # (N,) / (1, N) f32 with a zp
+    bias: Optional[torch.Tensor] = None,    # (N,) f32
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """K3's affine epilogue on an s32 accumulator: the int32 -> f32
+    conversion, ``(acc - zp · colsum)``, then a tensor activation scale
+    (dynamic, per row) multiplies first, ``(acc · a_scale) · b_scale``, and
+    a float one (a calibrated constant) is folded into the weight scales
+    first, ``acc · (a_scale · b_scale)``, as XLA folds it in the jitted
+    engine; ``+ bias`` and the cast last."""
+    acc = acc.to(torch.float32)
+    if a_zero_point is not None:
+        acc = acc - torch.as_tensor(a_zero_point, dtype=torch.float32) \
+            * colsum.reshape(1, -1).to(torch.float32)
+    if isinstance(a_scale, torch.Tensor):
+        out = acc * a_scale * b_scale
+    else:
+        out = acc * (float(a_scale) * b_scale)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.to(out_dtype)
+
+
 def ref_int8_matmul(
     a_q: torch.Tensor,             # (M, K) int8
     a_scale: Scale,                # (M, 1) / (1, 1) f32 or a float
@@ -37,28 +78,14 @@ def ref_int8_matmul(
     bias: Optional[torch.Tensor] = None,    # (N,) f32
     out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Exact integer accumulation, then the affine epilogue.
-
-    The s32 accumulator is formed in float64, where every partial sum of
-    int8 products (< 2^25 here, < 2^53 in general) is an exact integer, so it
-    equals the s32 sum on any device; rounding it to f32 is the reference's
-    int32 -> f32 conversion.  A tensor activation scale (dynamic, per row)
-    multiplies first, ``(acc · a_scale) · b_scale``; a float one (a
-    calibrated constant) is folded into the weight scales first,
-    ``acc · (a_scale · b_scale)``, as XLA folds it in the jitted engine.
-    """
-    acc = torch.matmul(a_q.to(torch.float64), b_q.to(torch.float64))
-    acc = acc.to(torch.float32)
-    if a_zero_point is not None:
-        colsum = b_q.to(torch.int32).sum(dim=0, keepdim=True).to(torch.float32)
-        acc = acc - torch.as_tensor(a_zero_point, dtype=torch.float32) * colsum
-    if isinstance(a_scale, torch.Tensor):
-        out = acc * a_scale * b_scale
-    else:
-        out = acc * (float(a_scale) * b_scale)
-    if bias is not None:
-        out = out + bias.to(torch.float32)
-    return out.to(out_dtype)
+    """Exact integer accumulation, then the affine epilogue (K3 is
+    :func:`ref_int8_matmul_accumulate` then :func:`ref_int8_matmul_epilogue`,
+    with the zero-point column sums of ``b_q``)."""
+    colsum = (None if a_zero_point is None else
+              b_q.to(torch.int32).sum(dim=0).to(torch.float32))
+    return ref_int8_matmul_epilogue(ref_int8_matmul_accumulate(a_q, b_q),
+                                    a_scale, b_scale, a_zero_point, colsum,
+                                    bias, out_dtype)
 
 
 def ref_int8_matmul_batched(

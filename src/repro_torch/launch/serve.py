@@ -29,16 +29,27 @@ encode of a source longer than N tokens over serving rounds, one encoder
 layer a round; they are reported on the "prefix cache:" and "overload:"
 lines.
 
+``--mesh DATA,MODEL`` (``--mode continuous``) serves tensor-parallel:
+the driver spawns ``DATA·MODEL`` ranks (``torch.multiprocessing``,
+``spawn``), joined by a ``--backend`` process group (default gloo on
+``--device cpu``, nccl on cuda) through a file rendezvous in a temporary
+directory; every rank builds the same model and serves the same requests
+with its shard, and rank 0 prints.  NCCL needs a card a rank; where ranks
+share a card, ``--backend gloo`` all-reduces the CUDA tensors through the
+host.  ``--replicas N`` (``--mode continuous``) serves through a
+``ReplicaRouter`` of N engines.
+
 The model runs on ``--device`` (``cuda`` unless the caller asks for the
-CPU), with random weights from ``torch.Generator`` seed 0.  Flags of
-features the port does not have yet exit with a message naming their
-ROADMAP item by title.
+CPU; rank ``r`` of a mesh on card ``r`` mod the cards), with random weights
+from ``torch.Generator`` seed 0.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import tempfile
 import time
 from typing import Optional, Sequence
 
@@ -57,8 +68,10 @@ from repro_torch.core import (
 )
 from repro_torch.data import make_corpus, pack_batches_token_budget
 from repro_torch.models import EncDecLM
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.serving import (
     ParallelStreams,
+    ReplicaRouter,
     Request,
     ServingEngine,
     TokenSortedScheduler,
@@ -147,25 +160,28 @@ def _parser() -> argparse.ArgumentParser:
                     help="chunked prefill: a source longer than this many "
                          "tokens is encoded one encoder layer per serving "
                          "round (fused admission only)")
-    # flags of features that are not ported yet (they exit with a message)
-    ap.add_argument("--mesh", default=None)
-    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="serve tensor-parallel on a (data, model) mesh, "
+                         "e.g. '1,2': DATA·MODEL ranks, weights and K/V "
+                         "heads split on the model axis, the tokens of the "
+                         "unsharded engine (--mode continuous)")
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="process group of --mesh (default: gloo on "
+                         "--device cpu, nccl on cuda; nccl needs a card a "
+                         "rank, gloo lets ranks share a card)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="data-parallel engine replicas behind the "
+                         "free-page/queue-depth router (--mode continuous; "
+                         "each replica serves its share in a thread)")
     return ap
 
 
-def _refuse_unported(args) -> None:
-    """Exit with the ROADMAP item, by title, of the first unported feature
-    asked for."""
-    unported = [
-        (args.mesh is not None, "--mesh: tensor-parallel serving",
-         "multi-GPU and the cost accounting"),
-        (args.replicas > 1, "--replicas: the replica router",
-         "multi-GPU and the cost accounting"),
-    ]
-    for asked, what, item in unported:
-        if asked:
-            raise SystemExit(f"{what} is not ported yet (ROADMAP Queue 1: "
-                             f"{item})")
+def _mesh_shape(args) -> tuple:
+    try:
+        data, model = (int(x) for x in args.mesh.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh wants 'DATA,MODEL', got {args.mesh!r}")
+    return data, model
 
 
 def _calibrate(model, params, sentences, mode: str, device, weight_bits: int,
@@ -196,13 +212,17 @@ def _calibrate(model, params, sentences, mode: str, device, weight_bits: int,
     return params, qctx
 
 
-def _serve_continuous(args, model, params, qctx, requests) -> None:
-    engine = ServingEngine(model, params, quant=qctx, max_len=MAX_LEN,
-                           burst_len=args.burst_len, paged=args.paged,
-                           page_size=args.page_size, n_pages=args.n_pages,
-                           prefix_cache=args.prefix_cache,
-                           prefix_pages=args.prefix_pages,
-                           device=args.device)
+def _serve_continuous(args, model, params, qctx, requests,
+                      mesh=None) -> None:
+    def mk_engine():
+        return ServingEngine(model, params, quant=qctx, max_len=MAX_LEN,
+                             burst_len=args.burst_len, paged=args.paged,
+                             page_size=args.page_size, n_pages=args.n_pages,
+                             prefix_cache=args.prefix_cache,
+                             prefix_pages=args.prefix_pages, mesh=mesh,
+                             device=args.device)
+
+    engine = mk_engine()
     bins = pack_batches_token_budget(requests, args.token_budget)
     order = [i for b in bins for i in b]         # FFD admission order
     reqs = [requests[i] for i in order]
@@ -214,18 +234,39 @@ def _serve_continuous(args, model, params, qctx, requests) -> None:
     beam = args.beam if args.beam > 1 else None
     chaos = (make_chaos(args.chaos_seed, n_rounds=256, preempt_every=2)
              if args.chaos_seed is not None else None)
+    serve_kw = dict(n_slots=args.slots, max_new_tokens=args.max_new_tokens,
+                    beam=beam, fused_admission=not args.unfused_admission,
+                    overcommit=args.overcommit, chaos=chaos,
+                    prefill_chunk=args.prefill_chunk)
+    if args.replicas > 1:
+        router = ReplicaRouter(
+            [engine] + [mk_engine() for _ in range(args.replicas - 1)])
+        rres = router.serve(reqs, **serve_kw)
+        print(f"router x{args.replicas}: {len(rres.requests)} requests "
+              f"in {rres.wall_s:.2f}s ({rres.tokens_per_s:.1f} tok/s), "
+              f"per-replica peak_running {rres.peak_running_per_replica}, "
+              f"assignment counts "
+              f"{[rres.assignment.count(i) for i in range(args.replicas)]}")
+        for i, r in enumerate(rres.results):
+            print(f"  replica {i}: {sum(len(q.tokens) for q in r.requests)}"
+                  f" tokens, {r.host_syncs} syncs, "
+                  f"utilization {r.utilization:.2f}"
+                  + (f", tp={r.tp_degree} mesh={r.mesh_shape}"
+                     if r.tp_degree > 1 else ""))
+        return
     t0 = time.perf_counter()
-    res = engine.serve(reqs, n_slots=args.slots,
-                       max_new_tokens=args.max_new_tokens, beam=beam,
-                       fused_admission=not args.unfused_admission,
-                       overcommit=args.overcommit, chaos=chaos,
-                       prefill_chunk=args.prefill_chunk)
+    res = engine.serve(reqs, **serve_kw)
     dt = time.perf_counter() - t0
     met = res.metrics()
     print(f"served {args.requests} requests in {dt:.2f}s "
           f"({res.tokens_per_s:.1f} tok/s, "
           f"slot utilization {res.utilization:.2f}, "
           f"{res.prefill_rounds} admission rounds)")
+    if res.tp_degree > 1:
+        print(f"tensor-parallel: mesh {res.mesh_shape} "
+              f"(tp={res.tp_degree}), predicted "
+              f"{res.collective_bytes_per_step} collective "
+              f"bytes/step/device")
     if beam:
         print(f"beam={res.beam}: {res.n_groups} groups of {res.beam} "
               f"rows in a {res.n_slots}-row grid"
@@ -307,16 +348,10 @@ def _serve_static(args, model, params, qctx, requests) -> None:
           f"stream utilization {out['utilization']:.2f})")
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
-    args = _parser().parse_args(argv)
-    if args.burst_len != "auto":
-        args.burst_len = int(args.burst_len)
-    _refuse_unported(args)
+def _run(args, mesh=None) -> None:
+    """Build the model, quantize it and serve: the whole driver in one
+    process, or one rank of a ``--mesh``."""
     device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --device cpu to run on the "
-                         "CPU")
-
     cfg = get_config(args.arch).reduced()
     if not cfg.enc_dec:
         raise SystemExit("serve driver expects an enc-dec (NMT) arch")
@@ -332,9 +367,68 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             args.quant, device, args.weight_bits, args.weight_group_size)
 
     if args.mode == "continuous":
-        _serve_continuous(args, model, params, qctx, requests)
+        _serve_continuous(args, model, params, qctx, requests, mesh)
     else:
         _serve_static(args, model, params, qctx, requests)
+
+
+def _rank_main(rank: int, world: int, init_method: str, args) -> None:
+    """One rank of ``--mesh``: join the group, serve, leave it."""
+    import torch.distributed as dist
+    if args.device.startswith("cuda"):
+        args.device = f"cuda:{rank % torch.cuda.device_count()}"
+        torch.cuda.set_device(torch.device(args.device))
+    else:
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    dist.init_process_group(args.backend, init_method=init_method,
+                            rank=rank, world_size=world)
+    try:
+        _run(args, make_host_mesh(*_mesh_shape(args)))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_mesh(args) -> None:
+    import torch.multiprocessing as mp
+    data, model = _mesh_shape(args)
+    world = data * model
+    on_cuda = torch.device(args.device).type == "cuda"
+    args.backend = args.backend or ("nccl" if on_cuda else "gloo")
+    if args.backend == "nccl" and (
+            not on_cuda or world > torch.cuda.device_count()):
+        raise SystemExit(
+            f"--backend nccl needs a card a rank: {world} ranks, "
+            f"{torch.cuda.device_count() if on_cuda else 0} cards on "
+            f"--device {args.device}; pass --backend gloo to let ranks "
+            "share a card (its collectives go through the host)")
+    print(f"mesh data={data} model={model}: {world} ranks over "
+          f"{args.backend}")
+    sys.stdout.flush()
+    with tempfile.TemporaryDirectory() as tmp:
+        from repro_torch.launch import serve as this
+        mp.spawn(this._rank_main,
+                 args=(world, f"file://{os.path.join(tmp, 'rdzv')}", args),
+                 nprocs=world, join=True)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = _parser().parse_args(argv)
+    if args.burst_len != "auto":
+        args.burst_len = int(args.burst_len)
+    if args.mesh and args.mode != "continuous":
+        raise SystemExit("--mesh needs --mode continuous")
+    if args.replicas > 1 and args.mode != "continuous":
+        raise SystemExit("--replicas needs --mode continuous")
+    if (torch.device(args.device).type == "cuda"
+            and not torch.cuda.is_available()):
+        raise SystemExit("no CUDA device: pass --device cpu to run on the "
+                         "CPU")
+    if args.mesh:
+        _spawn_mesh(args)
+    else:
+        _run(args)
 
 
 if __name__ == "__main__":

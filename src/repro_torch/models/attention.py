@@ -123,12 +123,15 @@ def attention(
     """
     B, S, _ = x.shape
     H, HKV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    # tensor parallel, GQA fallback: this rank's query heads read a slice
+    # of the whole kv heads (distributed.collectives.HeadSlice)
+    hs = params.get("tp")
 
     q = dense(params["q_proj"], x, site=f"{site}/q_proj", quant=quant,
               taps=taps).reshape(B, S, H, dh)
 
     if memory is not None:
-        k, v = memory
+        k, v = _heads(memory[0], hs), _heads(memory[1], hs)
         if per_query and S > 1:
             out = torch.cat(
                 [chunked_attention(q[:, j:j + 1], k, v, causal=False,
@@ -176,6 +179,7 @@ def attention(
                 cache.k, cache.v, cache.k_scale, cache.v_scale, k, v,
                 cache.lengths)
             k_r, v_r, ks_r, vs_r = k_c, v_c, ks_c, vs_c
+        k_r, v_r, ks_r, vs_r = (_heads(a, hs) for a in (k_r, v_r, ks_r, vs_r))
         sm_scale = 1.0 / math.sqrt(dh)
         outs = []
         for j in range(S):
@@ -196,12 +200,22 @@ def attention(
                   taps=taps)
         return y, (k_c, v_c, ks_c, vs_c)
 
-    out = chunked_attention(q, k, v, causal=causal, q_positions=positions,
-                            kv_lengths=kv_lengths)
+    out = chunked_attention(q, _heads(k, hs), _heads(v, hs), causal=causal,
+                            q_positions=positions, kv_lengths=kv_lengths)
     out = out.reshape(B, S, H * dh)
     y = dense(params["o_proj"], out, site=f"{site}/o_proj", quant=quant,
               taps=taps)
     return y, (k, v)
+
+
+def _heads(t: Optional[torch.Tensor], hs) -> Optional[torch.Tensor]:
+    """Kv heads ``[hs.lo, hs.lo + hs.n)`` of a (..., HKV, dh) tensor or a
+    (..., HKV) scale (axis 2 of either), as a contiguous copy the kernels
+    can read; everything with no ``HeadSlice``.  The copy is the GQA
+    fallback's cost: a layer's whole cache a decode step."""
+    if hs is None or t is None:
+        return t
+    return t.narrow(2, hs.lo, hs.n).contiguous()
 
 
 def _fp_decode_attention(q, k, v, lengths, sm_scale):

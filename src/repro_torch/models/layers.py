@@ -78,6 +78,10 @@ def dense(
     weight keeps the INT8 activation and runs the INT4-weight matmul with
     the nibbles dequantized in the kernel (K6).
     """
+    par = node.get("tp")
+    if par is not None:
+        return _dense_parallel(node, x, par, site=site, quant=quant,
+                               taps=taps)
     w = node["w"]
     b = node.get("b")
     record(taps, site, x)
@@ -107,6 +111,64 @@ def dense(
     return y
 
 
+def _dense_parallel(node, x: torch.Tensor, par, *, site: str,
+                    quant: QuantContext, taps: Optional[Taps]
+                    ) -> torch.Tensor:
+    """The tensor-parallel forms of :func:`dense` (``node["tp"]``, from
+    ``distributed.collectives.mark_parallel``).
+
+    ``"gather"``: a replicated weight behind a split producer (an INT4
+    out-projection): gather the input's features, then the plain dense.
+
+    ``"row"``: the weight's input features are split and ``x`` holds this
+    rank's.  INT8: the codes' s32 accumulators are summed over the ranks
+    and the epilogue runs once, which is what a partitioned s8·s8→s32 dot
+    computes, so the result is the unsharded one bit for bit.  Dynamic
+    scales (K2) quantize the gathered whole row and keep this rank's
+    codes; a static threshold (K1) is a scalar and needs nothing; the zero
+    point's column sums are summed over the ranks too.  Float: the partial
+    products are summed in float32 and cast once; the bias is added after
+    the sum.
+    """
+    g = par.group
+    rest = {k: v for k, v in node.items() if k != "tp"}
+    if par.kind == "gather":
+        return dense(rest, g.all_gather(x, -1), site=site, quant=quant,
+                     taps=taps)
+    if par.kind != "row":
+        raise ValueError(f"{site}: a linear has no {par.kind!r} form")
+    w, b = node["w"], node.get("b")
+    record(taps, site, x)
+    if isinstance(w, BlockQTensor):
+        raise ValueError(f"{site}: INT4 weights never split their rows")
+    if isinstance(w, QTensor):
+        thr = quant.activation_thresholds(site)
+        if thr is None:
+            full = ops.quantize_rowwise(g.all_gather(x, -1), impl=quant.impl)
+            k = x.shape[-1]
+            xq = QTensor(full.data[..., g.rank * k:(g.rank + 1) * k]
+                         .contiguous(), full.scale, 0.0, None)
+        elif thr.symmetric:
+            xq = ops.quantize_static(x, thr.t_max, impl=quant.impl)
+        else:
+            xq = quantize_with_thresholds(x, thr)
+        acc = g.all_reduce(ops.int8_matmul_accumulate(xq.data, w.data,
+                                                      impl=quant.impl))
+        colsum = None
+        if not (isinstance(xq.zero_point, float) and xq.zero_point == 0.0):
+            colsum = g.all_reduce(w.data.to(torch.int32).sum(dim=0))
+        N = w.data.shape[-1]
+        return ops.int8_matmul_epilogue(
+            acc, xq.scale, w.scale.reshape(1, N), xq.zero_point, colsum,
+            None if b is None else b.to(torch.float32), out_dtype=x.dtype,
+            impl=quant.impl)
+    part = torch.matmul(x.to(torch.float32), w.to(x.dtype).to(torch.float32))
+    y = g.all_reduce(part).to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)
+    return y
+
+
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``jax.lax.top_k`` semantics: the k largest along the last axis,
     descending, ties broken toward the lower index.  ``torch.topk`` promises
@@ -116,14 +178,29 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def embed(node, ids: torch.Tensor, dtype) -> torch.Tensor:
-    # gather, then cast: the same values as casting the table first
-    return node["table"][ids].to(dtype)
+    """Rows of the table, cast to ``dtype`` (gather, then cast: the same
+    values as casting the table first).  Vocab-parallel (``node["tp"]``):
+    each rank looks up the ids in its rows, zeros elsewhere, and the ranks'
+    rows are summed, which is exact."""
+    table = node["table"]
+    par = node.get("tp")
+    if par is None:
+        return table[ids].to(dtype)
+    v = table.shape[0]
+    local = ids.long() - par.group.rank * v
+    mine = (local >= 0) & (local < v)
+    rows = table[torch.where(mine, local, torch.zeros_like(local))]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return par.group.all_reduce(rows).to(dtype)
 
 
 def unembed(node, x: torch.Tensor) -> torch.Tensor:
-    """Logits head via the tied embedding transpose, in float32."""
-    return torch.matmul(x.to(torch.float32),
-                        node["table"].to(torch.float32).t())
+    """Logits head via the tied embedding transpose, in float32.
+    Vocab-parallel: this rank's logits, gathered over the vocabulary."""
+    logits = torch.matmul(x.to(torch.float32),
+                          node["table"].to(torch.float32).t())
+    par = node.get("tp")
+    return logits if par is None else par.group.all_gather(logits, -1)
 
 
 def layernorm(node, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Serving (port of ``repro/serving``): static translation, continuous
 greedy and beam serving with the adaptive burst, the prefix cache, the
 overload machinery (overcommit, preempt-by-page-spill, the chaos harness),
-chunked prefill, self-speculative decoding, the schedulers and the
-parallel streams.  Not ported yet: the replica router (ROADMAP Queue 1:
-multi-GPU and the cost accounting)."""
+chunked prefill, self-speculative decoding, the schedulers, the
+parallel streams, tensor-parallel serving on a mesh
+(``ServingEngine(mesh=...)``, ``serving.sharding``) and the replica
+router."""
 
 from repro_torch.serving.burst_control import AdaptiveBurst  # noqa: F401
 from repro_torch.serving.chaos import ChaosSchedule, make_chaos  # noqa: F401
@@ -22,6 +23,7 @@ from repro_torch.serving.prefix_cache import (  # noqa: F401
     PrefixCache,
     PrefixCacheStats,
 )
+from repro_torch.serving.router import ReplicaRouter, RouterResult  # noqa: F401
 from repro_torch.serving.scheduler import (  # noqa: F401
     AdmissionPlan,
     BatchQueue,

@@ -56,8 +56,15 @@ done.  ``generate`` and greedy ``serve`` take ``speculative_k=k``:
 each macro-step drafts ``k`` tokens with ``draft_quant`` (the engine's
 ``quant`` unless given), verifies them in one multi-position pass with
 ``quant`` and emits the longest agreeing prefix plus the verifier's
-correction, so the tokens are those of plain greedy decode.  Not ported
-yet (``NotImplementedError`` naming the ROADMAP item by title): meshes.
+correction, so the tokens are those of plain greedy decode.
+
+``ServingEngine(mesh=...)`` serves tensor-parallel (the encoder-decoder
+model; the other families raise ``NotImplementedError`` naming the ROADMAP
+item by title): every rank runs this engine on the same requests with its
+shard of the weights and of the decode state's heads
+(``serving.sharding``), the layers run the collectives, and the host side
+(scheduler, pages, prefix cache, spills) is the same on every rank, so the
+tokens and ``host_syncs`` are the unsharded engine's.
 """
 
 from __future__ import annotations
@@ -74,7 +81,9 @@ from repro_torch.core.ptq import FP_CONTEXT, QuantContext
 from repro_torch.data.sorting import next_pow2
 from repro_torch.data.synthetic import EOS, pad_batch
 from repro_torch.distributed.fault import StepWatchdog
+from repro_torch.launch.roofline import decode_collective_bytes
 from repro_torch.models import kv_cache as kvc
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.layers import top_k
 from repro_torch.serving.burst_control import AdaptiveBurst
 from repro_torch.serving.chaos import ChaosSchedule
@@ -89,8 +98,14 @@ from repro_torch.serving.scheduler import (
     Request,
     pad_rows_pow2,
 )
+from repro_torch.serving.sharding import (
+    mesh_axis_sizes,
+    shard_decode_state,
+    shard_for_serving,
+    tp_degree,
+)
 
-# the ROADMAP item, by title, of the part of ``serve`` not ported yet
+# the ROADMAP item, by title, of the families not yet served on a mesh
 _MESH = "ROADMAP Queue 1: multi-GPU and the cost accounting"
 
 # how the reference fails where the port refuses a recurrent model (the
@@ -228,6 +243,13 @@ class ServeResult:
     speculative_k: int = 0            # draft window (0 = speculation off)
     draft_tokens: int = 0             # tokens the draft passes proposed
     accepted_tokens: int = 0          # drafted tokens the verifier kept
+    # multi-GPU serving: the engine's mesh (tensor parallel) and the
+    # replicas behind a ReplicaRouter (set by the router after the merge)
+    mesh_shape: Tuple[int, ...] = ()  # mesh axis sizes, () = unsharded
+    tp_degree: int = 1                # "model"-axis width the serve ran at
+    replicas: int = 1                 # engine replicas behind the router
+    collective_bytes_per_step: int = 0  # predicted per-device wire bytes
+    #                                     of a decode step (ring all-reduce)
 
     @property
     def acceptance_rate(self) -> float:
@@ -316,6 +338,10 @@ class ServeResult:
             "draft_tokens": float(self.draft_tokens),
             "accepted_tokens": float(self.accepted_tokens),
             "acceptance_rate": self.acceptance_rate,
+            "tp_degree": float(self.tp_degree),
+            "replicas": float(self.replicas),
+            "collective_bytes_per_step":
+                float(self.collective_bytes_per_step),
             "first_token_latency_mean_s":
                 float(np.mean(first)) if first else 0.0,
             "first_token_latency_p95_s": pct(first, 95),
@@ -346,10 +372,20 @@ class ServingEngine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
+        # tensor parallel: every rank runs this engine on the same requests
+        # with its shard of the weights (serving.sharding) and its slice of
+        # the decode state's heads; the layers run the collectives
+        self.mesh = mesh
+        self.tp = tp_degree(mesh)
+        self._full_model = model
         if mesh is not None:
-            raise NotImplementedError(
-                f"tensor-parallel serving on a mesh is not ported yet "
-                f"({_MESH})")
+            if not isinstance(model, EncDecLM):
+                raise NotImplementedError(
+                    f"tensor-parallel serving of {type(model).__name__} is "
+                    f"not ported yet ({_MESH}); the encoder-decoder "
+                    f"EncDecLM serves on a mesh")
+            params, local_cfg = shard_for_serving(params, mesh, model.cfg)
+            model = EncDecLM(local_cfg, device=str(model.device))
         self.model = model
         self.params = params
         self.quant = quant
@@ -417,9 +453,32 @@ class ServingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _init_state(self, batch_size: int):
-        return self.model.init_decode_state(batch_size, self.max_len,
-                                            quantized=self.quant.quantize_kv)
+    def _new_state(self, batch_size: int, **kw):
+        """A fresh decode state, this rank's shard of it on a mesh."""
+        return self._shard_state(self._full_model.init_decode_state(
+            batch_size, self.max_len, quantized=self.quant.quantize_kv, **kw))
+
+    def _shard_state(self, state):
+        """This rank's shard of a fresh decode state (or prefix pool): the
+        K/V pools cut to its heads, the rest whole.  No-op without a
+        mesh."""
+        if self.mesh is None:
+            return state
+        cfg = self._full_model.cfg
+        return shard_decode_state(state, self.mesh, kv_heads=cfg.n_kv_heads,
+                                  head_dim=cfg.hd)
+
+    def _mesh_result_fields(self, rows: int) -> Dict[str, Any]:
+        """ServeResult fields of the mesh the serve ran on."""
+        if self.mesh is None:
+            return {}
+        cfg = self._full_model.cfg
+        return dict(
+            mesh_shape=mesh_axis_sizes(self.mesh), tp_degree=self.tp,
+            collective_bytes_per_step=decode_collective_bytes(
+                n_layers=cfg.n_layers, d_model=cfg.d_model, rows=rows,
+                tp=self.tp, act_bytes=cfg.activation_dtype.itemsize,
+                vocab=cfg.vocab))
 
     def _device_batch(self, batch: Dict[str, np.ndarray]):
         return {k: torch.as_tensor(np.asarray(v), device=self.device)
@@ -694,7 +753,7 @@ class ServingEngine:
         B = next(iter(batch.values())).shape[0]
 
         t0 = time.perf_counter()
-        state = self._init_state(B)
+        state = self._new_state(B)
         logits, state = self.model.prefill(self.params, batch, state,
                                            quant=self.quant)
         self._sync()
@@ -759,7 +818,7 @@ class ServingEngine:
         BB = B * beam
 
         t0 = time.perf_counter()
-        state = self._init_state(BB)
+        state = self._new_state(BB)
         logits, state = self.model.prefill(self.params, beam_batch, state,
                                            quant=self.quant)
         self._sync()
@@ -931,8 +990,7 @@ class ServingEngine:
         replay row 0 and are dropped by the splice).  Returns
         ``(logits, sub_state, width)``."""
         src_rows, len_rows, width = pad_rows_pow2(src_rows, len_rows)
-        sub = self.model.init_decode_state(width, self.max_len,
-                                           quantized=self.quant.quantize_kv)
+        sub = self._new_state(width)
         logits, sub = self.model.prefill(
             self.params, self._device_batch({"src_tokens": src_rows,
                                              "src_lengths": len_rows}),
@@ -977,12 +1035,12 @@ class ServingEngine:
         if self._prefix_cache_obj is None:
             self._prefix_cache_obj = PrefixCache(
                 kvc.PageAllocator(self.prefix_pages, self.page_size))
-            cfg = self.model.cfg
+            cfg = self._full_model.cfg
             shape = (cfg.n_layers, self.prefix_pages, self.page_size,
                      cfg.n_kv_heads, cfg.hd)
-            self._prefix_pool = tuple(
+            self._prefix_pool = self._shard_state(tuple(
                 torch.zeros(shape, dtype=cfg.activation_dtype,
-                            device=self.device) for _ in range(2))
+                            device=self.device) for _ in range(2)))
         return self._prefix_cache_obj
 
     def _resolve_prefix_cache(self, prefix_cache: Optional[bool]
@@ -1334,7 +1392,8 @@ class ServingEngine:
                                fused_admission=fused_admission,
                                auto_burst=ctrl is not None,
                                paged=self.paged, page_size=self.page_size,
-                               speculative_k=spec)
+                               speculative_k=spec,
+                               **self._mesh_result_fields(n_slots))
         self._check_budgets(reqs)
         enc_len = self._enc_bucket(reqs, pad_to_multiple)
         # under speculation a macro-step appends up to spec + 1 positions,
@@ -1511,7 +1570,8 @@ class ServingEngine:
             encoder_tokens=encoder_tokens, fused_admission=fused_admission,
             auto_burst=ctrl is not None, speculative_k=spec,
             draft_tokens=draft_tokens, accepted_tokens=accepted_tokens,
-            **run.result_fields(reqs, peak_running))
+            **run.result_fields(reqs, peak_running),
+            **self._mesh_result_fields(n_slots))
 
     # ------------------------------------------------- continuous beam search
     def _beam_widths(self, reqs: Sequence[Request], beam
@@ -1594,7 +1654,8 @@ class ServingEngine:
                                wall_s=0.0, burst_len=ctrl.k if ctrl else K,
                                beam=beam, fused_admission=fused_admission,
                                auto_burst=ctrl is not None,
-                               paged=self.paged, page_size=self.page_size)
+                               paged=self.paged, page_size=self.page_size,
+                               **self._mesh_result_fields(R))
         self._check_budgets(reqs)
         enc_len = self._enc_bucket(reqs, pad_to_multiple)
         # host-side per-row beam state, sent up and drained every burst
@@ -1849,7 +1910,8 @@ class ServingEngine:
             encoder_tokens=encoder_tokens, fused_admission=fused_admission,
             auto_burst=ctrl is not None,
             reorder_bytes=reorder_step_bytes * decode_steps,
-            **run.result_fields(reqs, peak_running))
+            **run.result_fields(reqs, peak_running),
+            **self._mesh_result_fields(R))
 
 
 class _ServeRun:
@@ -1902,9 +1964,9 @@ class _ServeRun:
                 if self.overcommitted else None),
             prefill_chunk=prefill_chunk)
         self.sched.submit_many(reqs)
-        self.state = eng.model.init_decode_state(
-            n_rows, eng.max_len, quantized=eng.quant.quantize_kv,
-            enc_len=enc_len, paged=eng.paged, page_size=eng.page_size,
+        self.state = eng._new_state(
+            n_rows, enc_len=enc_len, paged=eng.paged,
+            page_size=eng.page_size,
             n_pages=alloc.n_pages if alloc else None)
         self.tokens = torch.zeros((n_rows,), dtype=torch.int32,
                                   device=eng.device)

@@ -33,8 +33,10 @@ from repro_torch.core import quantize_block
 from repro_torch.kernels.int4_matmul import int4_matmul_cuda
 from repro_torch.kernels.int8_matmul import (
     Plan,
+    int8_matmul_accumulate_cuda,
     int8_matmul_batched_cuda,
     int8_matmul_cuda,
+    int8_matmul_epilogue_cuda,
     plan,
 )
 from repro_torch.kernels.quantize import (
@@ -755,6 +757,18 @@ def test_engine_runs_through_every_kernel(gen):
                              weight_bits=4)
     ServingEngine(model, qp, quant=ctx, max_len=32).generate(
         batch, max_new_tokens=4)
+    # a row-parallel linear (a group of one rank) runs K3's two halves
+    from repro_torch.distributed.collectives import Parallel, TPGroup
+    from repro_torch.models.layers import dense
+    qp, ctx = quantize_model(params, {}, QuantPolicy(act_quant="dynamic"))
+    out = qp["dec_blocks.0"]["ffn"]["out"]
+    x = torch.randn((4, cfg.d_ff), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    site = "dec_blocks.0/ffn/out"
+    assert torch.equal(
+        dense(dict(out, tp=Parallel("row", TPGroup(0, 1))), x, site=site,
+              quant=ctx),
+        dense(out, x, site=site, quant=ctx))
     # the decoder-only MoE model runs K7
     cfg = get_config("granite-moe-1b-a400m").reduced(vocab=512,
                                                       dtype="bfloat16")
@@ -902,3 +916,32 @@ def test_train_step_on_card_equals_cpu(gen):
         errs.append(err.reshape(-1))
     assert float(torch.cat(errs).mean()) <= 1e-3 * lr
     assert int(gs.step) == int(cs.step) == 1
+
+
+@pytest.mark.parametrize("M,K,N", [(16, 1024, 512), (16, 2048, 512),
+                                   (736, 256, 512), (5, 100, 72)])
+def test_k3_halves_equal_fused_k3(gen, M, K, N):
+    """K3's two halves for a product split across ranks: the accumulator
+    alone and the epilogue alone equal fused K3 and their plain versions
+    bit for bit (f32 and bf16, with and without a zero point, per-row,
+    per-tensor and by-value scales)."""
+    a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    a_scale = torch.rand((M, 1), generator=gen, device="cuda") * 0.02
+    b_scale = torch.rand((1, N), generator=gen, device="cuda") * 0.02
+    bias = torch.randn((N,), generator=gen, device="cuda")
+    acc = int8_matmul_accumulate_cuda(a, w)
+    assert torch.equal(acc, ref.ref_int8_matmul_accumulate(a, w))
+    colsum = w.to(torch.int32).sum(dim=0).to(torch.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        for scale in (a_scale, a_scale[:1], float(a_scale[0, 0])):
+            for zp in (None, -37.5):
+                cs = None if zp is None else colsum
+                fused = int8_matmul_cuda(a, scale, w, b_scale, zp, bias,
+                                         out_dtype=dt)
+                assert torch.equal(fused, int8_matmul_epilogue_cuda(
+                    acc, scale, b_scale, zp, cs, bias, out_dtype=dt))
+                assert torch.equal(fused, ref.ref_int8_matmul_epilogue(
+                    acc, scale, b_scale, zp, cs, bias, out_dtype=dt))

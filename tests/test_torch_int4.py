@@ -399,8 +399,8 @@ def test_bridge_refuses_an_unnamed_int4_triple(nmt_random):
 def test_port_and_chip_smoke_import_no_jax():
     """Import every ``repro_torch`` module (the prefix cache, preemption,
     chaos and watchdog modules, the training path's optimizer, step,
-    loop, data pipeline, checkpointer and driver, and the recurrent
-    families' modules among them),
+    loop, data pipeline, checkpointer and driver, the recurrent
+    families' modules and the multi-GPU modules among them),
     ``chip_smoke`` and the chip tools in a fresh interpreter: neither
     ``jax`` nor ``repro`` may be in ``sys.modules``."""
     code = (
@@ -422,7 +422,11 @@ def test_port_and_chip_smoke_import_no_jax():
         "'repro_torch.checkpoint.checkpointer', 'repro_torch.launch.train', "
         "'repro_torch.tree', 'repro_torch.models.ssm', "
         "'repro_torch.models.hybrid', 'repro_torch.models.xlstm', "
-        "'repro_torch.models.xlstm_model'}\n"
+        "'repro_torch.models.xlstm_model', "
+        "'repro_torch.distributed.sharding', "
+        "'repro_torch.distributed.collectives', 'repro_torch.launch.mesh', "
+        "'repro_torch.launch.roofline', 'repro_torch.serving.sharding', "
+        "'repro_torch.serving.router'}\n"
         "missing = sorted(want - set(names))\n"
         "print(len(names), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(names) < 20 else 0)\n")

@@ -427,21 +427,28 @@ def test_serve_driver_runs_on_cpu(argv, capsys):
 
 @pytest.mark.parametrize("flag", [["--mode", "continuous",
                                    "--prefill-chunk", "8"],
-                                  ["--mesh", "1,2"],
+                                  ["--mode", "continuous", "--mesh", "1,2",
+                                   "--quant", "none"],
                                   ["--mode", "continuous", "--beam", "4",
-                                   "--prefill-chunk", "8"]])
-def test_serve_driver_flags_run_or_refuse(flag, capsys):
-    """``--mesh`` is refused by its ROADMAP title; ``--prefill-chunk``, once
-    refused, runs and reports its staged admissions."""
-    if "--mesh" in flag:
-        with pytest.raises(SystemExit, match="ROADMAP Queue 1: multi-GPU "
-                           "and the cost accounting"):
-            serve_driver.main(["--device", "cpu", *flag])
-        return
+                                   "--prefill-chunk", "8"],
+                                  ["--mode", "continuous", "--replicas", "2"]])
+def test_serve_driver_flags_run_or_refuse(flag, capfd):
+    """``--mesh 1,2`` serves on two gloo ranks (rank 0 prints),
+    ``--replicas 2`` through the router; ``--prefill-chunk``, once refused,
+    runs and reports its staged admissions."""
     serve_driver.main(["--device", "cpu", *flag, "--requests", "6",
                        "--slots", "4", "--max-new-tokens", "4"])
-    out = capsys.readouterr().out
+    out = capfd.readouterr().out
+    if "--replicas" in flag:
+        assert "router x2: 6 requests" in out
+        assert "assignment counts [3, 3]" in out
+        return
     assert "served 6 requests" in out
+    if "--mesh" in flag:
+        assert "2 ranks over gloo" in out
+        assert "tensor-parallel: mesh (1, 2) (tp=2)" in out
+        assert out.count("served 6 requests") == 1      # rank 0 prints
+        return
     line = next(x for x in out.splitlines() if "chunked admissions" in x)
     n = int(line.split()[0])
     assert n > 0 and f"({n * 2} staged encoder rounds)" in line
