@@ -45,7 +45,11 @@ final line):
    bit for bit equal to fused K3 and to their plain versions, f32 and
    bf16, with and without a zero point, with a per-row, a per-tensor and
    a by-value activation scale, and timed at phase 5e's sharded shapes
-   (transformer-base's linears at half their N or K, at 16 and 736 rows);
+   (transformer-base's linears at half their N or K, at 16 and 736 rows)
+   and at phase 5f's (mistral-nemo-12b's o 2048 -> 5120 and down 7168 ->
+   5120 at 16 rows, beside fused K3 at its column-parallel q, k/v and
+   gate/up at half their N); K7 also at phase 5f's 16 experts a rank
+   (5 and 20 rows an expert);
 4. end to end — transformer-base at full width (bf16 activations, float32
    weights from ``torch.Generator`` seed 0): after a two-token warm-up,
    KL-calibrate, quantize to INT8, greedy ``generate`` and beam-4
@@ -116,12 +120,15 @@ final line):
    from ``src_embeds`` of 4 × 1500 frames: greedy ``generate`` (K2, K3,
    K4, no plain version), then the prefill and 8 decode steps against the
    plain versions as in 7b;
-7d. the recurrent families at their published widths and depths (after
-   7c), one model at a time: zamba2-2.7b (``HybridLM``: 54 Mamba2 layers,
+7d. the recurrent families at their published widths, zamba2-2.7b at its
+   depth and xlstm-1.3b, since phase 5f took the time, at 24 of its 48
+   layers (after 5f), one model at a time: zamba2-2.7b (``HybridLM``: 54
+   Mamba2 layers,
    d_model 2560, 80 SSD heads of 64, state 64, chunk 256; a shared
    attention + GELU block every 6th layer, 32 heads of 80) and xlstm-1.3b
-   (``XLSTMLM``: 42 mLSTM and 6 sLSTM layers, d_model 2048, 4 heads of
-   1024); float32 weights from ``torch.Generator`` seed 0 on the card,
+   (``XLSTMLM``: an sLSTM layer after every 7 mLSTM layers, 21 and 3 of
+   them at 24 layers, d_model 2048, 4 heads of 1024); float32 weights
+   from ``torch.Generator`` seed 0 on the card,
    bf16 activations, phase 7's 16 prompts padded to 46, 24 new tokens,
    cache 80: KL calibration on 8 held-out prompts, then INT8 greedy
    ``generate`` with dynamic and with static scales.  Each run's launches
@@ -187,6 +194,25 @@ final line):
    5's tokens, an even split).  Tokens/s are logged beside the unsharded
    runs': the ranks' collectives go through the host, so none is a
    multi-GPU speed;
+5f. the decoder-only families on 5e's two ranks (their dynamic runs go
+   beside phase 4t's Table 1, the static ones after phase 7c, checked
+   then, before 7d): each rank remakes phases 7's and 7b's float32 trees
+   from seed 0 (granite-moe-1b-a400m at 2 layers, mistral-nemo-12b at
+   4), quantizes the whole tree and cuts its shard on the ``(1, 2)``
+   mesh: 8 of 16 heads over 4 of 8 kv heads and 16 of 32 experts (vocab
+   49155 stays whole), and 16 of 32 heads over 4 of 8, d_ff 7168 and
+   vocab 65536; INT8 dynamic greedy and beam-4 ``generate`` of the MoE
+   and dynamic greedy of mistral, then static greedy of both on this
+   process's thresholds (phases 7's and 7b's calibrations).  Every
+   rank's tokens, steps and host syncs must equal phases 7's and 7b's
+   runs; its prefill's and first 3 decode steps' logits must equal the
+   other rank's bit for bit and the unsharded ones bit for bit or within
+   ``LOGIT_ATOL`` (logged); its launches of K1, K2, K4 and K7 (over its
+   16 experts) must equal the unsharded run's, K3 fused plus its
+   accumulator half the unsharded K3, both halves must launch, and no
+   plain version may run.  Each rank's seconds, launches, tokens/s beside
+   the unsharded runs' and peak memory are logged, and the expert
+   gather's bytes a layer;
 4t. train → calibrate → quantize → translate (after 5e; its MoE step
    just before phase 7) — a full-width transformer-base training step
    (phase 4's weights, bf16 activations, ``AdamW(lr=warmup_cosine(2e-3,
@@ -223,7 +249,7 @@ final line):
    card) and with ``--replicas 2``; each must exit 0;
 9. launch counts of each path, and one JSON line describing each kernel
    (its launches summed over every path of phases 4-7, 4t, 5c, 5d, 5e
-   (both ranks), 7b, 7c and 7d);
+   and 5f (both ranks), 7b, 7c and 7d);
 10. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package.
@@ -271,6 +297,11 @@ MOE_ARCH = "granite-moe-1b-a400m"
 MOE_LAYERS = 2
 # the longest prompt (46 tokens) plus 24 new tokens must fit the cache
 MOE_MAX_LEN = 80
+DENSE_ARCH = "mistral-nemo-12b"
+# phase 7b runs the published widths at 4 of the 40 layers: the time the
+# full depth took (every kernel shape is a width's) went to phases 7d and
+# 5e
+DENSE_LAYERS = 4
 
 
 T_START = time.perf_counter()
@@ -538,10 +569,16 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
     tp_gemms = [(M, K, N) for M in (SERVE_SLOTS, N_REQUESTS * s_enc)
                 for K, N in ((512, 256), (512, 1024), (256, 512),
                              (1024, 512))]
+    # Phase 5f's ranks run mistral-nemo-12b's column-parallel linears at
+    # half their N (q 5120 -> 2048, k and v -> 512, gate and up -> 7168)
+    # fused, and its row-parallel o (2048 -> 5120) and down (7168 -> 5120)
+    # through the two halves, at the decode's 16 rows
+    dtp_col, dtp_row = tp_dense_gemms(dense_cfg)
+    tp_gemms += dtp_row
     for M, K, N in ([(M, K, N) for M in rows_m
                      for K, N in ((512, 512), (512, 2048), (2048, 512))]
                     + [(M, d_moe, N) for M in moe_m for N in (d_moe, d_kv)]
-                    + t1_gemms + d_gemms + r_gemms + tp_gemms
+                    + t1_gemms + d_gemms + r_gemms + tp_gemms + dtp_col
                     + [(M, K, 512) for M in (1, 17, 65)
                        for K in (1024, 2048)]):
         a = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
@@ -633,8 +670,13 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
     # for bit (the same exact accumulator, the same two rounded products
     # and one rounding to bf16).  Library: one torch._int_mm per expert
     # (no epilogue; M padded to 17 where _int_mm wants M > 16).
-    E = moe_cfg.moe.n_experts
-    for M in [moe_expert_rows(moe_cfg, t) for t in moe_m]:
+    # Phase 5f's ranks hold E / TP = 16 experts each at the greedy and
+    # beam-4 decode's rows (5 and 20 an expert).
+    E_all = moe_cfg.moe.n_experts
+    k7_shapes = ([(E_all, moe_expert_rows(moe_cfg, t)) for t in moe_m]
+                 + [(E_all // TP, moe_expert_rows(moe_cfg, t))
+                    for t in moe_m[:2]])
+    for E, M in k7_shapes:
         for K, N in ((d_moe, moe_cfg.d_ff), (moe_cfg.d_ff, d_moe)):
             a = torch.randint(-127, 128, (E, M, K), generator=gen,
                               device=dev, dtype=torch.int8)
@@ -657,7 +699,7 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
                 a, a_scale, wi, b_scale, out_dtype=torch.bfloat16)
             a_lib = a if M > 16 else torch.nn.functional.pad(
                 a, (0, 0, 0, 17 - M))
-            # 32 launches a call: ten calls keep the launch queue short
+            # E launches a call: ten calls keep the launch queue short
             # enough to stay behind the sleep
             lib_ms = time_ms(lambda: [torch._int_mm(a_lib[e], w[e])
                                       for e in range(E)], iters=10)
@@ -2050,13 +2092,30 @@ def tp_runs(model, qparams, qctx, batch, mesh, only=None) -> dict:
     return out
 
 
-def tp_rank(rank: int, world: int, rdzv: str, state_path: str,
-            out_path: str) -> None:
-    """One rank of phase 5e on ``cuda:0``: joins a gloo group of ``world``
-    ranks and waits (at most ``TP_TIMEOUT_S``) for ``state_path``'s
-    ``.ready`` mark; then the ``(1, world)`` mesh, phase 4's weights cut to
-    this rank's shard, :func:`tp_runs`; its results (or its traceback) to
-    ``out_path``."""
+def save_atomic(obj, path: str) -> None:
+    """``torch.save`` to ``path`` through a rename, so a reader polling for
+    ``path`` never loads half a file."""
+    import torch
+    torch.save(obj, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def wait_for_file(path: str, deadline: float, what: str) -> None:
+    while not os.path.exists(path):
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"{what} never came")
+        time.sleep(0.05)
+
+
+def tp_rank(rank: int, world: int, rdzv: str, paths: dict) -> None:
+    """One rank of phases 5e and 5f on ``cuda:0``: joins a gloo group of
+    ``world`` ranks and waits (at most ``TP_TIMEOUT_S``) for phase 5e's
+    state (``paths["state"]`` and its ``.ready`` mark); then the ``(1,
+    world)`` mesh, phase 4's weights cut to this rank's shard,
+    :func:`tp_runs`, its results to ``paths["outs"][rank]``; then phase
+    5f's :func:`decoder_tp_runs` on the same mesh, to
+    ``paths["outs_5f"][rank]``.  A traceback goes to
+    ``paths["errs"][rank]``."""
     import traceback
     import torch
     import torch.distributed as dist
@@ -2069,22 +2128,25 @@ def tp_rank(rank: int, world: int, rdzv: str, state_path: str,
         dist.init_process_group("gloo", init_method=rdzv, rank=rank,
                                 world_size=world)
         try:
-            deadline = time.perf_counter() + TP_TIMEOUT_S
-            while not os.path.exists(state_path + ".ready"):
-                if time.perf_counter() > deadline:
-                    raise TimeoutError("phase 5e's state never came")
-                time.sleep(0.05)
+            t0 = time.perf_counter()
+            wait_for_file(paths["state"] + ".ready", t0 + TP_TIMEOUT_S,
+                          "phase 5e's state")
             torch.cuda.set_device(0)
             torch.backends.cuda.matmul.allow_tf32 = False
-            saved = torch.load(state_path, weights_only=False)
+            saved = torch.load(paths["state"], weights_only=False)
             model = EncDecLM(get_config("transformer-base"), device="cuda")
+            mesh = make_host_mesh(1, world)
             out = tp_runs(model, saved["qparams"], saved["qctx"],
-                          saved["batch"], make_host_mesh(1, world))
+                          saved["batch"], mesh)
+            save_atomic(out, paths["outs"][rank])
+            del saved, model, out
+            torch.cuda.empty_cache()
+            save_atomic(decoder_tp_runs(mesh, rank, paths, t0),
+                        paths["outs_5f"][rank])
         finally:
             dist.destroy_process_group()
-        torch.save(out, out_path)
     except BaseException:
-        with open(out_path + ".err", "w") as f:
+        with open(paths["errs"][rank], "w") as f:
             f.write(traceback.format_exc())
         raise
 
@@ -2093,20 +2155,66 @@ def start_tp_ranks() -> dict:
     """Spawn phase 5e's ranks ahead of it (daemons, so they end with this
     process): they import and join their group while phase 5d runs, and
     touch the card only once :func:`run_tensor_parallel` hands them the
-    weights."""
+    weights.  They go on to phase 5f (:func:`decoder_tp_runs`) after it,
+    beside this process's phases."""
+    import atexit
+    import shutil
     import tempfile
     import torch.multiprocessing as mp
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
     ranks = dict(tmp=tmp, state=os.path.join(tmp, "state.pt"),
-                 outs=[os.path.join(tmp, f"rank{r}.pt") for r in range(TP)])
+                 outs=[os.path.join(tmp, f"rank{r}.pt") for r in range(TP)],
+                 outs_5f=[os.path.join(tmp, f"rank{r}-5f.pt")
+                          for r in range(TP)],
+                 errs=[os.path.join(tmp, f"rank{r}.err")
+                       for r in range(TP)],
+                 recs={m: os.path.join(tmp, f"recs-{m}.pt")
+                       for m in TP_DECODERS},
+                 go=os.path.join(tmp, "go-5f"),
+                 dynamic_done=[os.path.join(tmp, f"rank{r}-5f-dynamic")
+                               for r in range(TP)])
+    paths = {k: v for k, v in ranks.items() if k != "tmp"}
     ctx = mp.get_context("spawn")
     ranks["procs"] = [ctx.Process(target=tp_rank, daemon=True, args=(
-        r, TP, f"file://{tmp}/rdzv", ranks["state"], ranks["outs"][r]))
-        for r in range(TP)]
+        r, TP, f"file://{tmp}/rdzv", paths)) for r in range(TP)]
     for p in ranks["procs"]:
         p.start()
     return ranks
+
+
+def wait_for_ranks(tp_ranks: dict, outs, timeout_s: float, what: str,
+                   load: bool = True):
+    """Every rank's results (``outs[r]``, loaded unless ``load`` is
+    False: a mark), waiting at most ``timeout_s``; a rank's traceback, its
+    exit without results, or the timeout fails ``what``."""
+    import torch
+    procs, errs = tp_ranks["procs"], tp_ranks["errs"]
+    deadline = time.perf_counter() + timeout_s
+
+    def failed():
+        for r, e in enumerate(errs):
+            if os.path.exists(e):
+                with open(e) as f:
+                    raise AssertionError(f"{what} rank {r} failed:\n"
+                                         f"{f.read()}")
+
+    while not all(os.path.exists(o) for o in outs):
+        failed()
+        dead = [r for r, (p, o) in enumerate(zip(procs, outs))
+                if not p.is_alive() and not os.path.exists(o)]
+        if dead:
+            time.sleep(0.5)
+            failed()
+            raise AssertionError(f"{what}: ranks {dead} exited "
+                                 f"({[p.exitcode for p in procs]}) without "
+                                 "results")
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{what}: the ranks did not finish in "
+                                 f"{timeout_s} s")
+        time.sleep(0.05)
+    return [torch.load(o, weights_only=False) for o in outs] if load else None
 
 
 def compare_logits(name: str, got, want) -> None:
@@ -2177,48 +2285,30 @@ def run_tensor_parallel(tp_ranks: dict, model, qparams, qctx, batch,
     references and :func:`run_mesh_one_and_router`, so the tokens/s of
     those runs and of the ranks (logged) are taken beside each other; and
     the ranks' collectives go through the host: none of them measures
-    multi-GPU speed.  Returns the launch counts of every run."""
-    import shutil
+    multi-GPU speed.  The ranks go on to phase 5f; their results are read
+    here without waiting for them to end.  Returns the launch counts of
+    every run."""
     import torch
 
     counts = {}
-    procs, outs = tp_ranks["procs"], tp_ranks["outs"]
     t0 = time.perf_counter()
-    try:
-        torch.save({"qparams": qparams, "qctx": qctx, "batch": batch},
-                   tp_ranks["state"])
-        open(tp_ranks["state"] + ".ready", "w").close()
-        try:
-            # while the ranks run: the unsharded references they are held
-            # to, the (1, 1) mesh and the router
-            want = tp_runs(model, qparams, qctx, batch, None,
-                           only=(f"speculative_k={TP_SPEC_K}", "logits"))
-            want["generate"] = outcome(plain_generate)
-            want["paged"] = outcome(paged_serve)
-            run_mesh_one_and_router(model, qparams, qctx, batch, want,
-                                    counts)
-            log(f"5e: this process's runs {time.perf_counter() - t0:.1f} s")
-        finally:
-            deadline = t0 + TP_TIMEOUT_S
-            for p in procs:
-                p.join(timeout=max(1.0, deadline - time.perf_counter()))
-            hung = [r for r, p in enumerate(procs) if p.is_alive()]
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        for r, p in enumerate(procs):
-            if os.path.exists(outs[r] + ".err"):
-                with open(outs[r] + ".err") as f:
-                    raise AssertionError(f"5e rank {r} failed:\n{f.read()}")
-        if hung or any(p.exitcode for p in procs):
-            raise AssertionError(f"5e ranks: hung {hung}, exit codes "
-                                 f"{[p.exitcode for p in procs]}")
-        ranks = [torch.load(o, weights_only=False) for o in outs]
-    finally:
-        shutil.rmtree(tp_ranks["tmp"], ignore_errors=True)
+    save_atomic({"qparams": qparams, "qctx": qctx, "batch": batch},
+                tp_ranks["state"])
+    open(tp_ranks["state"] + ".ready", "w").close()
+    # while the ranks run: the unsharded references they are held to, the
+    # (1, 1) mesh and the router
+    want = tp_runs(model, qparams, qctx, batch, None,
+                   only=(f"speculative_k={TP_SPEC_K}", "logits"))
+    want["generate"] = outcome(plain_generate)
+    want["paged"] = outcome(paged_serve)
+    run_mesh_one_and_router(model, qparams, qctx, batch, want, counts)
+    log(f"5e: this process's runs {time.perf_counter() - t0:.1f} s")
+    ranks = wait_for_ranks(tp_ranks, tp_ranks["outs"],
+                           TP_TIMEOUT_S - (time.perf_counter() - t0), "5e")
+    os.remove(tp_ranks["state"])
     log(f"5e: {TP} ranks on one card over gloo, from their weights to "
-        f"their results: {time.perf_counter() - t0:.1f} s")
+        f"their results: {time.perf_counter() - t0:.1f} s (they go on "
+        "to phase 5f)")
 
     for r, got in enumerate(ranks):
         for name in ("generate", "paged", f"speculative_k={TP_SPEC_K}"):
@@ -2251,6 +2341,218 @@ def run_tensor_parallel(tp_ranks: dict, model, qparams, qctx, batch,
         if not torch.equal(a, b):
             raise AssertionError("5e: the ranks' logits differ")
 
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5f: the decoder-only families on phase 5e's two ranks
+# ---------------------------------------------------------------------------
+
+# model -> (arch, layers): phases 7's and 7b's trees
+TP_DECODERS = {"moe": (MOE_ARCH, MOE_LAYERS),
+               "dense": (DENSE_ARCH, DENSE_LAYERS)}
+# a rank's runs in order: (model, activation scales, calls).  The dynamic
+# ones start when this process starts phase 4t's Table 1 (after the timed
+# training steps) and end before its MoE step; the static ones wait for
+# this process's thresholds, which it hands over after phase 7c.  So the
+# ranks run beside no timed run but Table 1's 500 training steps, whose
+# seconds then include the ranks' share of the card and the host
+TP_DECODER_RUNS = (("moe", "dynamic", ("greedy", "beam4")),
+                   ("dense", "dynamic", ("greedy",)),
+                   ("moe", "static", ("greedy",)),
+                   ("dense", "static", ("greedy",)))
+TP_DECODER_TIMEOUT_S = 1200    # a rank's whole run, from its start
+# kernels whose launches a rank's run must equal the unsharded run's: the
+# quantizers, K4 and K7 (over the rank's experts) run once where the
+# unsharded run runs them; K3 at a row-parallel linear runs as its halves
+TP_EQUAL_LAUNCHES = ("quantize_static", "quantize_rowwise",
+                     "decode_attention", "int8_matmul_batched")
+
+
+def decoder_tree(model, recs):
+    """Phase 7's or 7b's whole INT8 tree and context: float32 weights from
+    ``torch.Generator`` seed 0 on the card (as phases 7 and 7b make them),
+    quantized with dynamic scales (``recs`` None) or static ones, the
+    float tree freed."""
+    import torch
+    from repro_torch.core import QuantPolicy, quantize_model
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    act = "dynamic" if recs is None else "static"
+    out = quantize_model(params, recs or {}, QuantPolicy(act_quant=act))
+    del params
+    return out
+
+
+def decoder_run(engine, batch, call: str, new: int = MAX_NEW):
+    """Greedy ``generate`` or beam-4 ``generate_beam`` of ``new`` tokens."""
+    return (engine.generate(batch, max_new_tokens=new)
+            if call == "greedy" else
+            engine.generate_beam(batch, beam=BEAM, max_new_tokens=new))
+
+
+def decoder_tp_runs(mesh, rank: int, paths: dict, t_start: float) -> dict:
+    """Phase 5f on one rank (after 5e, on its mesh): ``TP_DECODER_RUNS``
+    at the published widths and phases 7's and 7b's depths.  Each tree is
+    remade here from seed 0 and quantized whole (per-channel scales span
+    the whole input dimension), then the engine cuts this rank's shard;
+    the dynamic runs wait for ``paths["go"]`` and mark their end
+    (``paths["dynamic_done"][rank]``), the static ones wait for this
+    process's thresholds (``paths["recs"]``).  Each run is counted with no
+    plain version
+    allowed; then the prefill's and the first decode steps' logits.
+    Returns the outcomes, launches, logits, seconds and peak memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.serving import ServingEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    out, counts = {"seconds": {}}, {}
+    deadline = t_start + TP_DECODER_TIMEOUT_S
+    wait_for_file(paths["go"], deadline, "phase 5f's start")
+    t0 = time.perf_counter()
+    for m, act, calls in TP_DECODER_RUNS:
+        arch, layers = TP_DECODERS[m]
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        model = DecoderLM(cfg, device="cuda")
+        batch = moe_prompts(cfg.vocab)[0]
+        recs = None
+        if act == "static":
+            if not os.path.exists(paths["dynamic_done"][rank]):
+                open(paths["dynamic_done"][rank], "w").close()
+            t = time.perf_counter()
+            wait_for_file(paths["recs"][m] + ".ready", deadline,
+                          f"phase 5f's {m} thresholds")
+            recs = torch.load(paths["recs"][m], weights_only=False)
+            out["seconds"][f"{m} {act} wait"] = time.perf_counter() - t
+        t = time.perf_counter()
+        qparams, qctx = decoder_tree(model, recs)
+        engine = ServingEngine(model, qparams, quant=qctx,
+                               max_len=MOE_MAX_LEN, mesh=mesh)
+        del qparams
+        torch.cuda.empty_cache()
+        if m == "moe":
+            out["experts a rank"] = int(engine.params["blocks.0"]["moe"][
+                "experts"]["gate"]["w"].data.shape[0])
+        for call in calls:                   # warm-up, uncounted
+            decoder_run(engine, batch, call, new=2)
+        out["seconds"][f"{m} {act} build"] = time.perf_counter() - t
+        for call in calls:
+            name = f"{m} {call} {act}"
+            res = run_counted(name, counts, lambda: decoder_run(
+                engine, batch, call))
+            out[name] = dict(outcome(res), launches=counts[name])
+        out[f"{m} {act} logits"] = first_logits(engine, qctx, batch)
+        del engine, model
+        torch.cuda.empty_cache()
+    out["seconds"]["all"] = time.perf_counter() - t0
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def start_decoder_tp(tp_ranks: dict) -> None:
+    """Start phase 5f's dynamic runs on the ranks."""
+    open(tp_ranks["go"], "w").close()
+
+
+def end_decoder_tp_dynamic(tp_ranks: dict) -> None:
+    """Wait for the ranks' dynamic runs to end."""
+    t0 = time.perf_counter()
+    wait_for_ranks(tp_ranks, tp_ranks["dynamic_done"], TP_DECODER_TIMEOUT_S,
+                   "5f", load=False)
+    log(f"5f: waited {time.perf_counter() - t0:.1f} s for the ranks' "
+        "dynamic runs")
+
+
+def hand_recs(tp_ranks: dict, recs: dict) -> None:
+    """Give phase 5f's ranks each model's calibrated thresholds."""
+    for m, r in recs.items():
+        save_atomic(r, tp_ranks["recs"][m])
+        open(tp_ranks["recs"][m] + ".ready", "w").close()
+
+
+def check_decoder_tp(tp_ranks: dict, want: dict, moe_cfg) -> dict:
+    """Phase 5f's results against phases 7's and 7b's unsharded runs of
+    the same trees (``want``: outcome, launches and logits by run name):
+    every rank's tokens, steps and host syncs equal, its logits equal the
+    other rank's bit for bit and the unsharded ones as
+    :func:`compare_logits` says, its launches of ``TP_EQUAL_LAUNCHES``
+    equal the unsharded run's, K3 fused plus its accumulate half equal to
+    the unsharded K3, both halves launched, and K7 run over ``E / TP``
+    experts.  Then the ranks are joined (their trees freed before phase
+    7d).  Returns the launch counts of every run."""
+    import shutil
+    import torch
+
+    t0 = time.perf_counter()
+    try:
+        ranks = wait_for_ranks(tp_ranks, tp_ranks["outs_5f"],
+                               TP_DECODER_TIMEOUT_S, "5f")
+        for p in tp_ranks["procs"]:
+            p.join(timeout=60)
+        codes = [p.exitcode for p in tp_ranks["procs"]]
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"5f ranks' exit codes {codes}")
+    finally:
+        shutil.rmtree(tp_ranks["tmp"], ignore_errors=True)
+    log(f"5f: waited {time.perf_counter() - t0:.1f} s for the ranks")
+    E, D = moe_cfg.moe.n_experts, moe_cfg.d_model
+    act_bytes = moe_cfg.activation_dtype.itemsize
+    gather = {k: E * moe_expert_rows(moe_cfg, n) * D * act_bytes
+              for k, n in (("decode", N_REQUESTS),
+                           ("prefill", N_REQUESTS * moe_prompts(
+                               moe_cfg.vocab)[0]["tokens"].shape[1]))}
+    log(f"5f: the expert gather moves E·G·C·D activations a layer: "
+        f"{gather['decode']} B a greedy decode step, {gather['prefill']} B "
+        "a prefill")
+    counts = {}
+    shown = ("quantize_static", "quantize_rowwise", "int8_matmul",
+             "int8_matmul_accumulate", "int8_matmul_epilogue",
+             "decode_attention", "int8_matmul_batched")
+    for r, got in enumerate(ranks):
+        log(f"5f rank {r}: seconds "
+            + json.dumps({k: round(v, 2) for k, v in got["seconds"].items()})
+            + f", max_memory_allocated {got['max_memory_allocated']} B, "
+            f"experts a rank {got['experts a rank']}")
+        if got["experts a rank"] != E // TP:
+            raise AssertionError(f"5f rank {r} holds "
+                                 f"{got['experts a rank']} experts")
+        for name, w in want.items():
+            if name.endswith("logits"):
+                compare_logits(f"5f rank {r} {name[:-len(' logits')]}",
+                               got[name], w)
+                continue
+            g = got[name]
+            gl, wl = g["launches"], w["launches"]
+            counts[f"rank{r} {name}"] = gl
+            bad = [k for k in ("tokens", "steps", "host_syncs")
+                   if g[k] != w[k]]
+            log(f"5f rank {r} {name}: tokens/s {g['tokens_per_s']:.1f} "
+                f"(unsharded {w['tokens_per_s']:.1f}), steps {g['steps']}, "
+                f"host_syncs {g['host_syncs']}, launches "
+                + json.dumps({k: gl[k] for k in shown})
+                + " (unsharded " + json.dumps({k: wl[k] for k in shown})
+                + ")")
+            if bad:
+                n_eq = sum(a == b for a, b in zip(g["tokens"], w["tokens"]))
+                raise AssertionError(
+                    f"5f rank {r} {name} differs from the unsharded run in "
+                    f"{bad} ({n_eq} of {len(w['tokens'])} token lists "
+                    "equal)")
+            off = [k for k in TP_EQUAL_LAUNCHES if gl[k] != wl[k]]
+            if off or gl["int8_matmul"] + gl["int8_matmul_accumulate"] != \
+                    wl["int8_matmul"] or gl["int8_matmul_accumulate"] <= 0 \
+                    or gl["int8_matmul_epilogue"] != \
+                    gl["int8_matmul_accumulate"] or (
+                        name.startswith("moe")
+                        and gl["int8_matmul_batched"] <= 0):
+                raise AssertionError(f"5f rank {r} {name}: launches {gl} "
+                                     f"against the unsharded {wl}")
+    for name in want:
+        if name.endswith("logits"):
+            for a, b in zip(ranks[0][name], ranks[1][name]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"5f: the ranks' {name} differ")
     return counts
 
 
@@ -2768,7 +3070,9 @@ def run_moe(model, params):
     KL calibration on the held-out prompts, with static scales (greedy).
     Launch counts are read from zero over the three runs; K7's plain
     version must not run.  Returns (launch counts, static params and
-    context, dynamic params and context, the prompt batch)."""
+    context, dynamic params and context, the prompt batch, and for phase
+    5f each run's outcome, launches and first logits, and the
+    thresholds)."""
     import torch
     from repro_torch.core import (Calibrator, QuantPolicy, Taps,
                                   count_quantized, quantize_model)
@@ -2823,6 +3127,7 @@ def run_moe(model, params):
         ops.reset_launch_counts()
         runs["moe_beam4_dynamic"] = engine.generate_beam(
             batch, beam=BEAM, max_new_tokens=MAX_NEW)
+        beam_counts = ops.launch_counts()
         t0 = time.perf_counter()
         cal = Calibrator()
         for src in held_out:
@@ -2839,9 +3144,10 @@ def run_moe(model, params):
             f"{time.perf_counter() - t0:.3f} s, {n_q}/{len(recs)} "
             f"calibrated sites quantizable")
         before_static = ops.launch_counts()
-        runs["moe_greedy_static"] = ServingEngine(
-            model, sparams, quant=sctx, max_len=MOE_MAX_LEN,
-            device=device).generate(batch, max_new_tokens=MAX_NEW)
+        static_engine = ServingEngine(model, sparams, quant=sctx,
+                                      max_len=MOE_MAX_LEN, device=device)
+        runs["moe_greedy_static"] = static_engine.generate(
+            batch, max_new_tokens=MAX_NEW)
         after = ops.launch_counts()
         static_counts = {k: after[k] - before_static[k] for k in after}
         counts = {k: greedy_counts[k] + after[k] for k in after}
@@ -2899,7 +3205,16 @@ def run_moe(model, params):
     if any(counts[k] <= 0 for k in path) or counts["int4_matmul"] or \
             counts["decode_attention_paged"]:
         raise AssertionError(f"MoE path launches: {counts}")
-    return counts, (sparams, sctx), (dparams, dctx), batch
+    want = {"moe greedy dynamic": dict(outcome(greedy),
+                                       launches=greedy_counts),
+            "moe beam4 dynamic": dict(outcome(runs["moe_beam4_dynamic"]),
+                                      launches=beam_counts),
+            "moe greedy static": dict(outcome(static),
+                                      launches=static_counts),
+            "moe dynamic logits": first_logits(engine, dctx, batch),
+            "moe static logits": first_logits(static_engine, sctx, batch),
+            "recs": recs}
+    return counts, (sparams, sctx), (dparams, dctx), batch, want
 
 
 def profile_moe(model, qparams, qctx, batch) -> None:
@@ -2919,15 +3234,10 @@ def profile_moe(model, qparams, qctx, batch) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 7b: the dense SwiGLU family at full width and depth
+# phase 7b: the dense SwiGLU family at full width
 # phase 7c: the audio stub's src_embeds input at full width
 # ---------------------------------------------------------------------------
 
-DENSE_ARCH = "mistral-nemo-12b"
-# phase 7b runs the published widths at 4 of the 40 layers: the time the
-# full depth took (every kernel shape is a width's) went to phases 7d and
-# 5e
-DENSE_LAYERS = 4
 DENSE_CALIB = 8                # held-out prompts for its KL calibration
 DENSE_PROFILE_NEW = 8          # new tokens of the profiled greedy call
 AUDIO_ARCH = "whisper-base"
@@ -2949,6 +3259,17 @@ def dense_kernel_shapes(s_prompt: int, cfg):
              for K, N in ((d, qd), (d, kvd), (d, ff), (qd, d), (ff, d))]
     attn = (N_REQUESTS, MOE_MAX_LEN, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
     return quant, gemms, attn
+
+
+def tp_dense_gemms(cfg, tp: int = TP):
+    """Phase 5f's K3 shapes of the dense model on ``tp`` ranks at 16 rows:
+    (the column-parallel linears, fused: q, k/v, gate/up at N / tp; the
+    row-parallel ones, K3's halves: o and down at K / tp)."""
+    d, qd, kvd, ff = (cfg.d_model, cfg.n_heads * cfg.hd,
+                      cfg.n_kv_heads * cfg.hd, cfg.d_ff)
+    col = [(N_REQUESTS, d, n // tp) for n in (qd, kvd, ff)]
+    row = [(N_REQUESTS, k // tp, d) for k in (qd, ff)]
+    return col, row
 
 
 def check_deep_against_plain(model, qparams, qctx, batch, steps: int = 3, *,
@@ -3069,7 +3390,9 @@ def run_dense():
     held-out prompts, with static scales; a prefill from ``embeds`` equal
     to the prompts' embedding rows against the token prefill (bit for
     bit); each run's kernels against their plain versions; a profiled
-    greedy call.  Returns the launch counts of the two generate runs."""
+    greedy call.  Returns the launch counts of the two generate runs, and
+    for phase 5f each run's outcome, launches and first logits, and the
+    thresholds."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import (Calibrator, QuantPolicy, Taps,
@@ -3136,6 +3459,9 @@ def run_dense():
         batch, max_new_tokens=MAX_NEW))
     log_run("dense greedy dynamic", r)
     check_counts("dense greedy dynamic", r, "quantize_rowwise")
+    want = {"dense greedy dynamic": dict(
+                outcome(r), launches=counts["dense greedy dynamic"]),
+            "dense dynamic logits": first_logits(engine, dctx, batch)}
     phase("7b: against the plain versions, dynamic scales")
     check_deep_against_plain(model, dparams, dctx, batch)
     del engine, dparams
@@ -3167,6 +3493,7 @@ def run_dense():
         f"{t_q:.2f} s; {n_q}/{len(recs)} sites quantizable")
     if n_q != len(recs) or len(recs) != pass_sites:
         raise AssertionError(f"{n_q} of {len(recs)} sites quantizable")
+    want["recs"] = recs
     del params, recs, cal
     torch.cuda.empty_cache()
     log(f"float32 tree freed: {torch.cuda.memory_allocated()} B allocated")
@@ -3176,6 +3503,9 @@ def run_dense():
         batch, max_new_tokens=MAX_NEW))
     log_run("dense greedy static", r)
     check_counts("dense greedy static", r, "quantize_static")
+    want["dense greedy static"] = dict(
+        outcome(r), launches=counts["dense greedy static"])
+    want["dense static logits"] = first_logits(engine, sctx, batch)
     log(f"  launch counts met: K1 or K2 and K3 {pass_sites} a forward "
         f"pass, K4 {cfg.n_layers} a decode step, no other kernel, no plain "
         "version")
@@ -3213,7 +3543,7 @@ def run_dense():
         f"(at {time.perf_counter() - T_START:.1f} s)")
     del engine, sparams
     torch.cuda.empty_cache()
-    return counts
+    return counts, want
 
 
 def run_audio():
@@ -3270,10 +3600,14 @@ def run_audio():
 
 
 # ---------------------------------------------------------------------------
-# phase 7d: the recurrent families at full width and depth
+# phase 7d: the recurrent families at full width
 # ---------------------------------------------------------------------------
 
 RECURRENT_ARCHS = ("zamba2-2.7b", "xlstm-1.3b")
+# phase 7d runs xlstm-1.3b at its published widths and 24 of its 48
+# layers (21 mLSTM, 3 sLSTM: its pattern kept), to pay for phase 5f; the
+# widths give every kernel shape
+RECURRENT_LAYERS = {"xlstm-1.3b": 24}
 RECURRENT_CALIB = 8            # held-out prompts for the KL calibration
 RECURRENT_PROFILE_NEW = 8      # new tokens of the profiled greedy call
 
@@ -3288,7 +3622,8 @@ def linears_a_pass(model, qparams) -> int:
 
 
 def run_recurrent(arch: str):
-    """One recurrent arch at its published widths and depth: random
+    """One recurrent arch at its published widths and depth (xlstm-1.3b
+    at ``RECURRENT_LAYERS``): random
     float32 weights from ``torch.Generator`` seed 0, bf16 activations, KL
     calibration on ``RECURRENT_CALIB`` held-out prompts, then INT8 greedy
     ``generate`` on phase 7's 16 prompts with dynamic and with static
@@ -3304,6 +3639,8 @@ def run_recurrent(arch: str):
     from repro_torch.tree import tree_leaves
 
     cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=RECURRENT_LAYERS.get(
+        arch, cfg.n_layers))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda")
@@ -3586,7 +3923,9 @@ def main() -> int:
     train_transformer_base(model, params)
     del model, params, qparams, q4params
     phase("4t: Table 1 on a model trained here")
+    start_decoder_tp(tp_ranks)          # 5f's dynamic runs beside Table 1
     table1_counts = run_table1()
+    end_decoder_tp_dynamic(tp_ranks)
 
     # 7. the decoder-only MoE family: its training step (phase 4t) on the
     # float32 weights, then INT8 generation from the same weights
@@ -3597,8 +3936,9 @@ def main() -> int:
     phase("4t: MoE training step")
     train_moe_step(moe_model, moe_params)
     phase("MoE generate")
-    moe_counts, (msparams, msctx), (mdparams, mdctx), moe_batch = run_moe(
-        moe_model, moe_params)
+    moe_counts, (msparams, msctx), (mdparams, mdctx), moe_batch, \
+        tp_want = run_moe(moe_model, moe_params)
+    tp_recs = {"moe": tp_want.pop("recs")}
     phase("MoE against the plain versions")
     for mparams, mctx in ((mdparams, mdctx), (msparams, msctx)):
         check_against_plain(moe_model, mparams, mctx, moe_batch,
@@ -3608,17 +3948,27 @@ def main() -> int:
     del moe_model, moe_params, msparams, mdparams
     torch.cuda.empty_cache()
 
-    # 7b. the dense SwiGLU family at full width and depth, then 7c. the
+    # 7b. the dense SwiGLU family at full width, then 7c. the
     # audio stub's src_embeds (after phase 7's trees are freed)
     phase(f"7b: mistral-nemo-12b at full width, {DENSE_LAYERS} layers")
-    dense_counts = run_dense()
+    dense_counts, dense_want = run_dense()
+    tp_recs["dense"] = dense_want.pop("recs")
+    tp_want.update(dense_want)
     phase("7c: whisper-base from src_embeds")
     audio_counts = run_audio()
 
-    # 7d. the recurrent families at full width and depth, one at a time
+    # 5f. the decoder-only families on phase 5e's ranks (their dynamic
+    # runs went beside Table 1; the static ones run now, on phases 7's and
+    # 7b's thresholds), held to phases 7's and 7b's runs; joined here, so
+    # their trees are gone before phase 7d
+    phase("5f: the decoder-only families on two ranks of the card")
+    hand_recs(tp_ranks, tp_recs)
+    decoder_tp_counts = check_decoder_tp(tp_ranks, tp_want, moe_cfg)
+
+    # 7d. the recurrent families at full width, one at a time
     recurrent_counts = {}
     for arch in RECURRENT_ARCHS:
-        phase(f"7d: {arch} at full width and depth")
+        phase(f"7d: {arch} at full width")
         recurrent_counts.update(run_recurrent(arch))
 
     # 8. the serving driver
@@ -3673,6 +4023,7 @@ def main() -> int:
                    **{f"serve {k}": v for k, v in prefix_counts.items()},
                    **{f"5d {k}": v for k, v in staged_counts.items()},
                    **{f"5e {k}": v for k, v in tp_counts.items()},
+                   **{f"5f {k}": v for k, v in decoder_tp_counts.items()},
                    **{f"4t {k}": v for k, v in table1_counts.items()},
                    "MoE": moe_counts,
                    **{f"7b {k}": v for k, v in dense_counts.items()},

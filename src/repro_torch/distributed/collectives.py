@@ -19,6 +19,10 @@ fails raises, and nothing falls back to a whole-weight compute.
   gathered first;
 * ``Parallel("vocab")`` — a vocab-split embedding table: a masked lookup
   plus a SUM, and logits gathered over the vocabulary;
+* ``Parallel("expert")`` on an MoE layer's ``experts`` node — the experts
+  split whole (expert parallelism): this rank holds experts ``[rank·E/tp,
+  (rank+1)·E/tp)``, runs them on their rows of the dispatch and gathers
+  the experts' outputs (``models.moe.moe_ffn``);
 * ``HeadSlice`` on an attention node — the GQA fallback, where the kv heads
   do not divide the group: the K/V projections and pools stay whole and
   this rank's query heads read kv heads ``[lo, lo + n)`` of them.
@@ -67,7 +71,7 @@ class TPGroup:
 @dataclasses.dataclass(frozen=True)
 class Parallel:
     """The collective a sharded linear or embedding node runs."""
-    kind: str                        # "row" | "gather" | "vocab"
+    kind: str                        # "row" | "gather" | "vocab" | "expert"
     group: TPGroup
 
 
@@ -126,6 +130,10 @@ def mark_parallel(params: Any, specs: Any, group: TPGroup, *,
                     else "gather" if producer else None)
             if kind:
                 out[k] = dict(out[k], tp=Parallel(kind, group))
+    # the stacked expert axis (before the core two) takes the tensor axis
+    if isinstance(params.get("experts"), dict) and _splits(
+            specs["experts"].get("gate"), -3, tensor):
+        out["experts"] = dict(out["experts"], tp=Parallel("expert", group))
     if "table" in params and axis_dim(specs["table"], tensor) == 0:
         out["tp"] = Parallel("vocab", group)
     if ("q_proj" in params and _splits(specs["q_proj"], -1, tensor)

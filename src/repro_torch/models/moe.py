@@ -8,6 +8,8 @@ here they are index scatters and gathers over the same positions, which give
 every expert row bit for bit (empty slots zero) and the same combine
 weights.  The expert FFNs are grouped matmuls: per-expert batched
 s8·s8→s32 through ``kernels.ops.int8_matmul_batched`` (K7) when quantized.
+Tensor parallel (``experts["tp"]``, ``distributed.collectives``): every
+rank routes over all the experts and runs K7 over its own.
 
 The router linear is deny-listed from quantization by default
 (``core.policy.DEFAULT_DENY``): its logits feed a softmax/top-k, the class of
@@ -168,13 +170,24 @@ def moe_ffn(
     xe = x.new_zeros((n_rows + 1, D))
     xe[slot] = xg[:, :, None, :].expand(G, g_sz, K, D).reshape(-1, D)
     xe = xe[:n_rows].view(E, G * capacity, D)
-    g = _expert_dense(params["experts"]["gate"], xe,
-                      site=f"{site}/experts/gate", quant=quant, taps=taps)
-    u = _expert_dense(params["experts"]["up"], xe,
-                      site=f"{site}/experts/up", quant=quant, taps=taps)
+    experts = params["experts"]
+    par = experts.get("tp")
+    if par is not None:
+        # expert parallel: this rank runs its E/tp experts on their rows
+        # (their codes and K7's s32 sums are the unsharded ones) and
+        # gathers every expert's output, E·G·C·D elements a layer; the
+        # combine below then sums in the unsharded order
+        n = E // par.group.size
+        xe = xe[par.group.rank * n:(par.group.rank + 1) * n]
+    g = _expert_dense(experts["gate"], xe, site=f"{site}/experts/gate",
+                      quant=quant, taps=taps)
+    u = _expert_dense(experts["up"], xe, site=f"{site}/experts/up",
+                      quant=quant, taps=taps)
     h = F.silu(g.to(torch.float32)).to(dt) * u
-    y_e = _expert_dense(params["experts"]["down"], h,
-                        site=f"{site}/experts/down", quant=quant, taps=taps)
+    y_e = _expert_dense(experts["down"], h, site=f"{site}/experts/down",
+                        quant=quant, taps=taps)
+    if par is not None:
+        y_e = par.group.all_gather(y_e, 0)
     # combine: each token sums its kept choices' expert rows weighted by
     # their gate values (in the activation dtype, as the reference's combine
     # tensor holds them); a dropped pair reads the zero row past the end

@@ -59,12 +59,14 @@ each macro-step drafts ``k`` tokens with ``draft_quant`` (the engine's
 correction, so the tokens are those of plain greedy decode.
 
 ``ServingEngine(mesh=...)`` serves tensor-parallel (the encoder-decoder
-model; the other families raise ``NotImplementedError`` naming the ROADMAP
-item by title): every rank runs this engine on the same requests with its
-shard of the weights and of the decode state's heads
-(``serving.sharding``), the layers run the collectives, and the host side
-(scheduler, pages, prefix cache, spills) is the same on every rank, so the
-tokens and ``host_syncs`` are the unsharded engine's.
+model and the decoder-only dense and MoE ones; the recurrent families,
+and experts that do not divide the tensor axis, raise
+``NotImplementedError`` naming the ROADMAP item by title): every rank
+runs this engine on the same requests with its shard of the weights and
+of the decode state's heads (``serving.sharding``), the layers run the
+collectives, and the host side (scheduler, pages, prefix cache, spills)
+is the same on every rank, so the tokens and ``host_syncs`` are the
+unsharded engine's.
 """
 
 from __future__ import annotations
@@ -83,8 +85,8 @@ from repro_torch.data.synthetic import EOS, pad_batch
 from repro_torch.distributed.fault import StepWatchdog
 from repro_torch.launch.roofline import decode_collective_bytes
 from repro_torch.models import kv_cache as kvc
-from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.layers import top_k
+from repro_torch.models.registry import build_model
 from repro_torch.serving.burst_control import AdaptiveBurst
 from repro_torch.serving.chaos import ChaosSchedule
 from repro_torch.serving.preemption import (
@@ -99,14 +101,12 @@ from repro_torch.serving.scheduler import (
     pad_rows_pow2,
 )
 from repro_torch.serving.sharding import (
+    MESH_ITEM,
     mesh_axis_sizes,
     shard_decode_state,
     shard_for_serving,
     tp_degree,
 )
-
-# the ROADMAP item, by title, of the families not yet served on a mesh
-_MESH = "ROADMAP Queue 1: multi-GPU and the cost accounting"
 
 # how the reference fails where the port refuses a recurrent model (the
 # hybrid and ssm families, whose decode state keeps rows off axis 0)
@@ -379,13 +379,14 @@ class ServingEngine:
         self.tp = tp_degree(mesh)
         self._full_model = model
         if mesh is not None:
-            if not isinstance(model, EncDecLM):
+            if getattr(model, "recurrent", False):
                 raise NotImplementedError(
                     f"tensor-parallel serving of {type(model).__name__} is "
-                    f"not ported yet ({_MESH}); the encoder-decoder "
-                    f"EncDecLM serves on a mesh")
+                    f"not ported yet ({MESH_ITEM}); the encoder-decoder "
+                    f"and the decoder-only attention families serve on a "
+                    f"mesh")
             params, local_cfg = shard_for_serving(params, mesh, model.cfg)
-            model = EncDecLM(local_cfg, device=str(model.device))
+            model = build_model(local_cfg, device=str(model.device))
         self.model = model
         self.params = params
         self.quant = quant

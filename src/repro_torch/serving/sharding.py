@@ -11,6 +11,10 @@ What splits over the ``tensor`` axis ("model"):
   pool — on the heads axis, and their per-token scales ``(..., HKV)``;
 * everything else (block tables, cursors, lengths): replicated.
 
+The weights split as ``distributed.sharding.param_specs`` says; an MoE
+layer's experts split whole over the axis (expert parallelism), where
+their count divides it.
+
 GQA guard: where ``HKV`` does not divide the axis the pools stay whole,
 as the K/V projections do (``distributed.sharding``), and the query heads
 still split (``distributed.collectives.HeadSlice``).
@@ -26,9 +30,12 @@ import torch
 from repro_torch.distributed.collectives import TPGroup, mark_parallel
 from repro_torch.distributed.sharding import cut, param_specs, shard_params
 
-__all__ = ["tp_degree", "kv_pools_shardable", "decode_state_specs",
-           "shard_decode_state", "mesh_axis_sizes", "local_config",
-           "shard_for_serving"]
+__all__ = ["MESH_ITEM", "tp_degree", "kv_pools_shardable",
+           "decode_state_specs", "shard_decode_state", "mesh_axis_sizes",
+           "local_config", "shard_for_serving"]
+
+# the ROADMAP item, by title, of what is not yet served on a mesh
+MESH_ITEM = "ROADMAP Queue 1: multi-GPU and the cost accounting"
 
 
 def tp_degree(mesh, tensor: str = "model") -> int:
@@ -104,24 +111,40 @@ def shard_decode_state(state: Any, mesh, *, kv_heads: int, head_dim: int,
 def local_config(cfg, mesh, tensor: str = "model"):
     """The config a rank runs its layers with: ``H/tp`` query heads,
     ``HKV/tp`` kv heads (all ``HKV`` in the GQA fallback), ``d_ff/tp``
-    where it divides, and an explicit head dim."""
+    where it divides, and an explicit head dim.
+
+    MoE: the experts split over the axis (``n_experts % tp == 0``, as the
+    reference's rule at ``distributed/sharding.py:96-105``), each whole,
+    so ``d_ff`` (the expert width) stays; ``n_experts`` stays the full
+    count, since every rank routes over all the experts.  Where they do
+    not divide, the reference splits the expert features instead, which
+    needs K7 split on K like K3: not ported yet."""
     tp = tp_degree(mesh, tensor)
     if cfg.n_heads % tp:
         raise ValueError(f"{cfg.name}: {cfg.n_heads} heads do not split "
                          f"over {tp} ranks")
+    moe = cfg.moe is not None
+    if moe and cfg.moe.n_experts % tp:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.moe.n_experts} experts do not split over "
+            f"{tp} ranks, and splitting their features needs a split K7 "
+            f"({MESH_ITEM})")
     hkv = (cfg.n_kv_heads // tp if kv_pools_shardable(mesh, cfg.n_kv_heads,
                                                        tensor)
            else cfg.n_kv_heads)
+    d_ff = cfg.d_ff if moe or cfg.d_ff % tp else cfg.d_ff // tp
     return dataclasses.replace(
         cfg, n_heads=cfg.n_heads // tp, n_kv_heads=hkv, head_dim=cfg.hd,
-        d_ff=cfg.d_ff // tp if cfg.d_ff % tp == 0 else cfg.d_ff)
+        d_ff=d_ff)
 
 
 def shard_for_serving(params: Any, mesh, cfg, tensor: str = "model"
                       ) -> Tuple[Any, Any]:
     """``(local params, local config)`` of this rank: the full tree cut by
     ``param_specs(..., fsdp=None)`` (weights resident, as the reference's
-    engine places them) and marked with the collectives its layers run."""
+    engine places them) and marked with the collectives its layers run.
+    The local config comes first: it refuses what does not split."""
+    local_cfg = local_config(cfg, mesh, tensor)
     specs = param_specs(params, mesh, tensor=tensor, fsdp=None,
                         kv_heads=cfg.n_kv_heads)
     local = shard_params(params, specs, mesh, mesh.coords)
@@ -131,4 +154,4 @@ def shard_for_serving(params: Any, mesh, cfg, tensor: str = "model"
                     else None)
     local = mark_parallel(local, specs, group, n_heads=cfg.n_heads,
                           n_kv_heads=cfg.n_kv_heads, tensor=tensor)
-    return local, local_config(cfg, mesh, tensor)
+    return local, local_cfg

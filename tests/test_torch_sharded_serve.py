@@ -216,10 +216,31 @@ def test_serve_result_mesh_fields_on_mesh_tp1():
     assert res.host_syncs == want.host_syncs
 
 
-def test_mesh_refuses_other_families():
-    from repro_torch.models import DecoderLM
-    cfg = get_config("granite-8b").reduced()
-    model = DecoderLM(cfg, device="cpu")
+class _Mesh:
+    """A stand-in for a ``(1, tp)`` mesh: axis names and sizes only (the
+    refusal comes before the engine touches a rank or a group)."""
+    axis_names = ("data", "model")
+
+    def __init__(self, tp):
+        self.shape = {"data": 1, "model": tp}
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b",
+                                  "moe-6-experts-tp4"])
+def test_mesh_refuses_other_families(arch):
+    """The recurrent families, and MoE experts that do not divide the
+    tensor axis (6 experts on 4 ranks: the reference would split their
+    features, which needs a split K7), raise naming the ROADMAP item."""
+    from repro_torch.configs import MoEConfig
+    from repro_torch.models import build_model
+    if arch.startswith("moe"):
+        cfg = get_config("qwen3-moe-30b-a3b").reduced(
+            moe=MoEConfig(n_experts=6, top_k=2, group_size=32))
+        mesh = _Mesh(4)
+    else:
+        cfg = get_config(arch).reduced()
+        mesh = make_host_mesh(1, 1)
+    model = build_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError,
                        match="multi-GPU and the cost accounting"):
-        ServingEngine(model, {}, device="cpu", mesh=make_host_mesh(1, 1))
+        ServingEngine(model, {}, device="cpu", mesh=mesh)

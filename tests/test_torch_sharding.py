@@ -6,13 +6,15 @@ analytic roofline terms against the reference's.
   ``PartitionSpec`` of that leaf (exactly), counted from the last
   dimension, since the port's per-layer leaves lose the reference's
   leading layer axes.  Transformer-base reduced in FP, INT8 and INT4, the
-  MoE tree, both recurrent trees and GQA with 2 kv heads, at tp 2 and 4,
+  MoE tree, the dense SwiGLU tree (mistral-nemo-12b), both recurrent
+  trees and GQA with 2 kv heads, at tp 2 and 4,
   with the fsdp axis off (serving) and on.  ``shard_params`` cuts each
   leaf to its rank's block.
 * ``serving.sharding``: ``decode_state_specs`` equals the reference's on
   paged and contiguous states; ``shard_decode_state`` gives the local
   model's fresh state; ``kv_pools_shardable``, ``tp_degree`` and
-  ``mesh_axis_sizes`` equal the reference's.
+  ``mesh_axis_sizes`` equal the reference's; ``local_config`` of the
+  decoder-only families, and ``mark_parallel``'s expert mark.
 * ``launch.roofline``: ``decode_collective_bytes``,
   ``weight_stream_bytes`` and ``model_flops`` equal the reference's
   exactly; ``sharded_decode_cell``'s terms equal the reference's once
@@ -27,6 +29,7 @@ analytic roofline terms against the reference's.
   bit (the kernels are held on the card by ``tests/test_torch_cuda.py``).
 """
 
+import dataclasses
 import importlib
 import threading
 
@@ -51,7 +54,11 @@ from repro_torch.core.calibration import SiteCalibration
 from repro_torch.core.histogram import HistogramClass
 from repro_torch.core.qtensor import BlockQTensor, QTensor
 from repro_torch.core.quantize import Thresholds
-from repro_torch.distributed.collectives import Parallel, TPGroup
+from repro_torch.distributed.collectives import (
+    Parallel,
+    TPGroup,
+    mark_parallel,
+)
 from repro_torch.distributed.sharding import (
     axis_dim,
     batch_specs,
@@ -85,6 +92,7 @@ TREES = [
     ("tb-int4", "transformer-base", REDUCED, "int4"),
     ("tb-gqa", "transformer-base", dict(REDUCED, n_kv_heads=2), "fp"),
     ("moe", "granite-moe-1b-a400m", {}, "int8"),
+    ("dense", "mistral-nemo-12b", {}, "int8"),
     ("zamba2", "zamba2-2.7b", {}, "fp"),
     ("xlstm", "xlstm-1.3b", {}, "fp"),
 ]
@@ -173,7 +181,8 @@ def test_param_specs_equal_reference(name, tp, data, fsdp):
     assert n_split > 0
 
 
-@pytest.mark.parametrize("name", ["tb-fp", "tb-int8", "tb-int4", "moe"])
+@pytest.mark.parametrize("name", ["tb-fp", "tb-int8", "tb-int4", "moe",
+                                  "dense"])
 def test_shard_params_cuts_each_leaf(name):
     """Rank r's block of every split dimension, the rest whole."""
     _, port, hkv = _trees(name)
@@ -289,6 +298,44 @@ def test_local_config():
     assert (local.n_heads, local.n_kv_heads, local.hd) == (1, 2, 16)
     with pytest.raises(ValueError, match="do not split"):
         sharding.local_config(cfg, _FakeMesh(3))
+
+
+def test_local_config_decoders():
+    """The dense SwiGLU decoder cuts heads and d_ff; the MoE keeps its
+    expert width and expert count (the experts split whole, and every
+    rank routes over all of them), and refuses experts that do not divide
+    the axis."""
+    local = sharding.local_config(get_config("mistral-nemo-12b"),
+                                  _FakeMesh(2))
+    assert (local.n_heads, local.n_kv_heads, local.d_ff, local.hd) == \
+        (16, 4, 7168, 128)
+    moe = get_config("granite-moe-1b-a400m")
+    local = sharding.local_config(moe, _FakeMesh(2))
+    assert (local.n_heads, local.n_kv_heads, local.d_ff,
+            local.moe.n_experts) == (8, 4, 512, 32)
+    odd = dataclasses.replace(moe, moe=dataclasses.replace(moe.moe,
+                                                           n_experts=24))
+    with pytest.raises(NotImplementedError, match="split K7"):
+        sharding.local_config(odd, _FakeMesh(16))
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_mark_parallel_splits_experts(tp):
+    """The MoE tree's ``experts`` node gets ``Parallel("expert")``; its
+    ``down`` (split on the expert axis, not its input features) gets no
+    row mark, ``gate``/``up`` no gather; the vocab-split table its mark."""
+    _, port, hkv = _trees("moe")
+    mesh = _FakeMesh(tp)
+    specs = param_specs(port, mesh, fsdp=None, kv_heads=hkv)
+    local = shard_params(port, specs, mesh, {"data": 0, "model": tp - 1})
+    group = TPGroup(rank=tp - 1, size=tp)
+    marked = mark_parallel(local, specs, group, n_heads=4, n_kv_heads=hkv)
+    experts = marked["blocks.0"]["moe"]["experts"]
+    assert experts["tp"] == Parallel("expert", group)
+    assert all("tp" not in experts[k] for k in ("gate", "up", "down"))
+    assert experts["gate"]["w"].data.shape[0] == 4 // tp
+    assert "tp" not in marked["blocks.0"]["moe"]["router"]
+    assert marked["embed"]["tp"] == Parallel("vocab", group)
 
 
 @pytest.mark.parametrize("tp", [1, 2, 4, 8])
