@@ -49,7 +49,8 @@ final line):
    and at phase 5f's (mistral-nemo-12b's o 2048 -> 5120 and down 7168 ->
    5120 at 16 rows, beside fused K3 at its column-parallel q, k/v and
    gate/up at half their N); K7 also at phase 5f's 16 experts a rank
-   (5 and 20 rows an expert);
+   (5 and 20 rows an expert); K1 also at phase 5g's float32 gradient
+   leaves (512 × 2048 and 37000 × 512), warm and cold;
 4. end to end — transformer-base at full width (bf16 activations, float32
    weights from ``torch.Generator`` seed 0): after a two-token warm-up,
    KL-calibrate, quantize to INT8, greedy ``generate`` and beam-4
@@ -120,14 +121,14 @@ final line):
    from ``src_embeds`` of 4 × 1500 frames: greedy ``generate`` (K2, K3,
    K4, no plain version), then the prefill and 8 decode steps against the
    plain versions as in 7b;
-7d. the recurrent families at their published widths, zamba2-2.7b at its
-   depth and xlstm-1.3b, since phase 5f took the time, at 24 of its 48
-   layers (after 5f), one model at a time: zamba2-2.7b (``HybridLM``: 54
-   Mamba2 layers,
-   d_model 2560, 80 SSD heads of 64, state 64, chunk 256; a shared
-   attention + GELU block every 6th layer, 32 heads of 80) and xlstm-1.3b
-   (``XLSTMLM``: an sLSTM layer after every 7 mLSTM layers, 21 and 3 of
-   them at 24 layers, d_model 2048, 4 heads of 1024); float32 weights
+7d. the recurrent families at their published widths, zamba2-2.7b at 27
+   of its 54 layers and xlstm-1.3b at 16 of its 48 (phases 5f and 5g
+   took the time), after 5f, one model at a time: zamba2-2.7b
+   (``HybridLM``: Mamba2 layers, d_model 2560, 80 SSD heads of 64, state
+   64, chunk 256; a shared attention + GELU block every 6th layer, 32
+   heads of 80: 4 applications at 27 layers) and xlstm-1.3b
+   (``XLSTMLM``: an sLSTM layer after every 7 mLSTM layers, 14 and 2 of
+   them at 16 layers, d_model 2048, 4 heads of 1024); float32 weights
    from ``torch.Generator`` seed 0 on the card,
    bf16 activations, phase 7's 16 prompts padded to 46, 24 new tokens,
    cache 80: KL calibration on 8 held-out prompts, then INT8 greedy
@@ -213,6 +214,34 @@ final line):
    plain version may run.  Each rank's seconds, launches, tokens/s beside
    the unsharded runs' and peak memory are logged, and the expert
    gather's bytes a layer;
+5g. training on a mesh on 5e's two ranks (after 5f: mistral-nemo-12b
+   beside phase 7d, the drivers waiting for it to end; transformer-base
+   beside the drivers, checked after them) —
+   ``make_train_step(grad_shardings=...)`` with
+   ``launch.specs.train_arg_specs``' layout, each rank remaking the whole
+   tree from seed 0 and cutting its shard.  transformer-base at its
+   published widths (phase 4t's weights, optimizer and 32-row batch,
+   float32 activations, TF32 off) trains 3 steps on a ``(2, 1)`` mesh
+   (FSDP: each leaf gathered, its gradient reduce-scattered) and on a
+   ``(1, 2)`` one (tensor parallel: heads, d_ff and vocab split); every
+   step's metrics must equal the other rank's bit for bit and the
+   unsharded step's (run on rank 0) within 1e-5 relative, the gathered
+   first moment after step 1 every gradient leaf within ``1e-4·max|g| +
+   1e-8·‖g‖``, and the gathered parameters after each step within
+   ``tests/test_torch_train.py``'s bounds over the summed learning
+   rates.  Then the same at phase 4t's bf16 activations, timed (ms a
+   step against the unsharded step on rank 0, the FSDP bytes a step,
+   peak memory a rank); ``tree_ef_compressed_mean`` of the ranks' float32
+   gradients of their halves of the batch, counted (K1 once a leaf, no
+   plain version), its means and residuals equal to the plain version's
+   and every code equal (the codes that the reference's division would
+   give otherwise counted), with the two wire formulas; and
+   mistral-nemo-12b at its published widths and 1 of its 40 layers on a
+   ``(1, 2)`` mesh, 2 steps of ``LMBatches`` 8 × 64 with the
+   vocab-parallel cross-entropy at 65536 columns a rank, held to the
+   unsharded step as transformer-base is but on rank 0's half of the
+   tree, cut from the unsharded run's (gathering the 3.77 GB tree
+   through gloo's host path took 30 s);
 4t. train → calibrate → quantize → translate (after 5e; its MoE step
    just before phase 7) — a full-width transformer-base training step
    (phase 4's weights, bf16 activations, ``AdamW(lr=warmup_cosine(2e-3,
@@ -289,6 +318,9 @@ TIGHT_PAGES = 32               # half of the contiguous-equivalent 64
 INT4_GROUP = 128               # rows per INT4 scale/min block
 
 LONG_S = 4096                  # phase 3: a long decode cache (K4, K5)
+# phase 3: K1 at phase 5g's float32 gradient leaves (transformer-base's FFN
+# weight and tied table), the compressor's shapes
+GRAD_SHAPES = ((512, 2048), (37000, 512))
 
 MOE_ARCH = "granite-moe-1b-a400m"
 # phase 7 runs the published widths at 2 of the 24 layers: the time the
@@ -548,6 +580,30 @@ def check_kernels(s_enc: int, s_moe: int, moe_cfg):
             r["cold_ms"] = cold_ms(quantize_rowwise_cuda, x, M * K + M * 4)
             log(f"  cold_ms={r['cold_ms']:.4f} plan={r['plan']}")
         results.setdefault("quantize_rowwise", []).append(r)
+
+    # K1 at phase 5g's gradient leaves: float32 at transformer-base's FFN
+    # weight (512 × 2048) and its tied table (37000 × 512), the threshold
+    # the leaf's own max, as the compressor takes it; cold rotates the
+    # input past the L2
+    for M, K in GRAD_SHAPES:
+        x = torch.randn((M, K), generator=gen, device=dev)
+        amax = float(x.abs().max())
+        tile = quant_plan(M, K, x.dtype, is_aligned(x))
+        q = quantize_static_cuda(x, amax)
+        err = (q.int() - ref.ref_quantize_static(x, amax).int()).abs().max()
+        if err:
+            raise AssertionError(f"quantize_static codes differ at float32 "
+                                 f"{(M, K)}: {int(err)}")
+        b, o = bound(M * K * 5, M * K * 4, F32_FLOPS_PER_S)
+        r = row("quantize_static", [M, K], float(err),
+                time_ms(lambda: quantize_static_cuda(x, amax)),
+                time_ms(lambda: ref.ref_quantize_static(x, amax)), b, o, None)
+        r.update(dtype="float32", plan=dataclasses.asdict(tile.static),
+                 empty_ms=empty_ms,
+                 cold_ms=cold_ms(lambda xi: quantize_static_cuda(xi, amax),
+                                 x, M * K))
+        log(f"  float32 cold_ms={r['cold_ms']:.4f} plan={r['plan']}")
+        results["quantize_static"].append(r)
 
     # K3: exact s32 accumulator; f32 and bf16 outputs equal to the plain
     # version bit for bit (the same accumulator, the epilogue in the
@@ -2114,7 +2170,8 @@ def tp_rank(rank: int, world: int, rdzv: str, paths: dict) -> None:
     world)`` mesh, phase 4's weights cut to this rank's shard,
     :func:`tp_runs`, its results to ``paths["outs"][rank]``; then phase
     5f's :func:`decoder_tp_runs` on the same mesh, to
-    ``paths["outs_5f"][rank]``.  A traceback goes to
+    ``paths["outs_5f"][rank]``; then phase 5g's :func:`train_tp_runs`, to
+    ``paths["outs_5g"][rank]``.  A traceback goes to
     ``paths["errs"][rank]``."""
     import traceback
     import torch
@@ -2143,6 +2200,9 @@ def tp_rank(rank: int, world: int, rdzv: str, paths: dict) -> None:
             torch.cuda.empty_cache()
             save_atomic(decoder_tp_runs(mesh, rank, paths, t0),
                         paths["outs_5f"][rank])
+            torch.cuda.empty_cache()
+            save_atomic(train_tp_runs(rank, paths["dense_done_5g"][rank]),
+                        paths["outs_5g"][rank])
         finally:
             dist.destroy_process_group()
     except BaseException:
@@ -2168,6 +2228,10 @@ def start_tp_ranks() -> dict:
                  outs=[os.path.join(tmp, f"rank{r}.pt") for r in range(TP)],
                  outs_5f=[os.path.join(tmp, f"rank{r}-5f.pt")
                           for r in range(TP)],
+                 outs_5g=[os.path.join(tmp, f"rank{r}-5g.pt")
+                          for r in range(TP)],
+                 dense_done_5g=[os.path.join(tmp, f"rank{r}-5g-dense")
+                                for r in range(TP)],
                  errs=[os.path.join(tmp, f"rank{r}.err")
                        for r in range(TP)],
                  recs={m: os.path.join(tmp, f"recs-{m}.pt")
@@ -2479,22 +2543,13 @@ def check_decoder_tp(tp_ranks: dict, want: dict, moe_cfg) -> dict:
     :func:`compare_logits` says, its launches of ``TP_EQUAL_LAUNCHES``
     equal the unsharded run's, K3 fused plus its accumulate half equal to
     the unsharded K3, both halves launched, and K7 run over ``E / TP``
-    experts.  Then the ranks are joined (their trees freed before phase
-    7d).  Returns the launch counts of every run."""
-    import shutil
+    experts.  The ranks have freed their trees by then (before phase 7d)
+    and go on to phase 5g.  Returns the launch counts of every run."""
     import torch
 
     t0 = time.perf_counter()
-    try:
-        ranks = wait_for_ranks(tp_ranks, tp_ranks["outs_5f"],
-                               TP_DECODER_TIMEOUT_S, "5f")
-        for p in tp_ranks["procs"]:
-            p.join(timeout=60)
-        codes = [p.exitcode for p in tp_ranks["procs"]]
-        if any(c != 0 for c in codes):
-            raise AssertionError(f"5f ranks' exit codes {codes}")
-    finally:
-        shutil.rmtree(tp_ranks["tmp"], ignore_errors=True)
+    ranks = wait_for_ranks(tp_ranks, tp_ranks["outs_5f"],
+                           TP_DECODER_TIMEOUT_S, "5f")
     log(f"5f: waited {time.perf_counter() - t0:.1f} s for the ranks")
     E, D = moe_cfg.moe.n_experts, moe_cfg.d_model
     act_bytes = moe_cfg.activation_dtype.itemsize
@@ -2553,6 +2608,481 @@ def check_decoder_tp(tp_ranks: dict, want: dict, moe_cfg) -> dict:
             for a, b in zip(ranks[0][name], ranks[1][name]):
                 if not torch.equal(a, b):
                     raise AssertionError(f"5f: the ranks' {name} differ")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5g: training on a mesh, on phase 5e's two ranks
+# ---------------------------------------------------------------------------
+
+# model -> (arch, config overrides): phase 4t's transformer-base with
+# float32 activations (the parity runs) and as phase 4t runs it (bf16
+# activations, the timed runs), and mistral-nemo-12b at its published
+# widths and 1 of its 40 layers (float32 activations)
+TRAIN_TP_MODELS = {"encdec": ("transformer-base", dict(dtype="float32")),
+                   "encdec bf16": ("transformer-base", {}),
+                   "dense": (DENSE_ARCH, dict(n_layers=1, dtype="float32"))}
+TRAIN_TP_MESHES = ((2, 1), (1, 2))     # transformer-base's meshes
+TRAIN_TP_STEPS = 3                     # its parity steps on each mesh
+TRAIN_TP_TIMED = 3                     # bf16 steps timed, after a warm-up
+DENSE_TRAIN_MESH = (1, 2)
+DENSE_TRAIN_STEPS = 2
+DENSE_TRAIN_BATCH = (8, 64)            # LMBatches rows, sequence length
+# tests/test_torch_train.py's tolerances: metrics 1e-5 relative; every
+# gradient leaf |Δ| ≤ 1e-4·max|g| + 1e-8·‖g‖; the parameters within
+# 1e-2·Σlr where the first moment has been 100 times its tolerance at
+# every step so far, 2.5·Σlr elsewhere, 1e-6·max|p| on top
+TRAIN_TP_RTOL = 1e-5
+TRAIN_TP_GRAD_REL = 1e-4
+TRAIN_TP_TIMEOUT_S = 1500              # a rank's whole run, from its start
+COMPARE_CHUNK = 1 << 26                # elements compared at a time
+
+
+def tp_train_model(name: str, device: str = "cuda"):
+    """One of ``TRAIN_TP_MODELS``: (model, a function that makes its
+    float32 weights from ``torch.Generator`` seed 0, the optimizer, the
+    global batches)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMBatches, TranslationBatches, make_corpus
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    arch, over = TRAIN_TP_MODELS[name]
+    cfg = dataclasses.replace(get_config(arch), **over)
+    model = build_model(cfg, device=device)
+
+    def make():
+        return model.init(torch.Generator(device=device).manual_seed(0))
+
+    if cfg.enc_dec:
+        # phase 4t's batch, every step
+        batch = TranslationBatches(make_corpus(800, cfg.vocab, seed=0),
+                                   TRAIN_BATCH,
+                                   sort_mode="tokens").next_batch()
+        n = TRAIN_TP_TIMED + 1 if name.endswith("bf16") else TRAIN_TP_STEPS
+        batches = [batch] * n
+    else:
+        src = LMBatches(cfg.vocab, *DENSE_TRAIN_BATCH)
+        batches = [src.next_batch() for _ in range(DENSE_TRAIN_STEPS)]
+    return model, make, AdamW(lr=warmup_cosine(2e-3, 2, 20)), batches
+
+
+def unsharded_train(model, params, opt, batches, ms=None, keep=None
+                    ) -> list:
+    """The unsharded step over ``batches``: each step's metrics (floats),
+    parameters, first moment (copied to ``keep``, a device, where given)
+    and the first moment's norm; ``ms``, a list, gets each step's host ms
+    (a synchronise before and after)."""
+    import torch
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    step = make_train_step(model, opt)
+    p, s, out = params, opt.init(params), []
+    del params                   # a caller's temporary goes after step 1
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        (p, s), m = step(p, s, b)
+        metrics = {k: float(v) for k, v in m.items()}
+        if ms is not None:
+            ms.append((time.perf_counter() - t) * 1e3)
+        m_norm = float(torch.linalg.vector_norm(torch.stack(
+            [x.norm() for x in tree_leaves(s.m)]).double()))
+        moved = (p, s.m) if keep is None else tree_map(
+            lambda x: x.to(keep), (p, s.m))
+        out.append((metrics, *moved, m_norm))
+    return out
+
+
+def worst_ratio(tree, leaf_specs, mesh, rank: int, check,
+                gather: bool = True) -> float:
+    """The largest ratio ``check(path, x, view)`` returns on rank 0 over
+    the leaves of this rank's shard ``tree`` (0 on the other ranks):
+    ``x`` the leaf made whole (``uncut``, one leaf at a time, every rank
+    taking part) and ``view`` the identity, or with ``gather`` False
+    rank 0's own block and ``view`` the cut of a whole leaf to it."""
+    from repro_torch.distributed.sharding import cut, uncut
+    from repro_torch.tree import leaves_with_paths
+    worst = 0.0
+    for (path, x), spec in zip(leaves_with_paths(tree), leaf_specs):
+        if gather:
+            x = uncut(x, spec, mesh, mesh.coords)
+            view = (lambda t: t)
+        else:
+            view = (lambda t, spec=spec: cut(t, spec, mesh, mesh.coords))
+        if rank == 0:
+            worst = max(worst, check(path, x, view))
+        del x
+    return worst
+
+
+def cut_tree(model, params, batch, mesh):
+    """(``train_arg_specs``' parameter specs on ``mesh``, this rank's
+    shard of the whole tree ``params``)."""
+    from repro_torch.distributed.sharding import shard_params
+    from repro_torch.launch.specs import train_arg_specs
+    specs = train_arg_specs(model.cfg, params, batch, mesh)[0]
+    return specs, shard_params(params, specs, mesh, mesh.coords)
+
+
+def sharded_train(model, opt, batches, mesh, specs, p, rank: int,
+                  want=None, gather: bool = True) -> dict:
+    """``make_train_step(grad_shardings=...)`` on ``mesh`` over
+    ``batches`` from this rank's shard ``p`` (:func:`cut_tree`): each
+    step's metrics and host ms (a synchronise before and after).  With
+    ``want`` (:func:`unsharded_train`, rank 0's; None on the others; False
+    for a timed run), the gathered parameters after each step and the
+    gathered first moment after the first (``0.1 ×`` the clipped
+    gradient) against it leaf by leaf: the worst ratios of each
+    difference to its bound (``"params"``: everywhere, where sure;
+    ``"grads"``).  ``gather`` False holds rank 0's own shard to its cut
+    of ``want`` instead of the gathered trees (:func:`worst_ratio`)."""
+    import torch
+    from repro_torch.distributed.sharding import TreeSharding, spec_leaves
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves_with_paths
+    step = make_train_step(model, opt,
+                           grad_shardings=TreeSharding(mesh, specs))
+    s = opt.init(p)
+    leaf_specs = spec_leaves(p, specs)
+    out = {"metrics": [], "ms": [], "params": [0.0, 0.0], "grads": 0.0}
+    lr = 0.0
+    # an element is sure while its first moment has been 100 times its
+    # tolerance at every step so far: one that was not may have stepped
+    # either way then
+    sure_so_far = {}
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        (p, s), m = step(p, s, b)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        if want is False:                    # a timed run: no comparison
+            continue
+        lr += out["metrics"][-1]["lr"]
+        ref = m_ref = {}
+        m_norm = 0.0
+        if rank == 0:
+            ref = dict(leaves_with_paths(want[i][1]))
+            m_ref = dict(leaves_with_paths(want[i][2]))
+            m_norm = want[i][3]
+
+        def param_ratio(path, whole, view):
+            g = whole.reshape(-1)
+            w = view(ref[path]).reshape(-1)
+            mw = view(m_ref[path]).reshape(-1)
+            pad = 1e-6 * float(w.abs().max())
+            floor = 100 * (TRAIN_TP_GRAD_REL * float(mw.abs().max())
+                           + 1e-8 * m_norm)
+            before = sure_so_far.get(path)
+            sure_now = torch.empty(g.numel(), dtype=torch.bool,
+                                   device=g.device)
+            worst = worst_sure = 0.0
+            for lo in range(0, g.numel(), COMPARE_CHUNK):
+                hi = lo + COMPARE_CHUNK
+                err = (g[lo:hi] - w[lo:hi].to(g.device)).abs()
+                sure = mw[lo:hi].to(g.device).abs() > floor
+                if before is not None:
+                    sure &= before[lo:hi]
+                sure_now[lo:hi] = sure
+                worst = max(worst, float(err.max()))
+                if bool(sure.any()):
+                    worst_sure = max(worst_sure, float(err[sure].max()))
+            sure_so_far[path] = sure_now
+            out["params"][1] = max(out["params"][1],
+                                   worst_sure / (1e-2 * lr + pad))
+            return worst / (2.5 * lr + pad)
+
+        def grad_ratio(path, whole, view):
+            g, w = whole.reshape(-1), view(m_ref[path]).reshape(-1)
+            tol = TRAIN_TP_GRAD_REL * float(w.abs().max()) + 1e-8 * m_norm
+            worst = max(float((g[lo:lo + COMPARE_CHUNK] - w[
+                lo:lo + COMPARE_CHUNK].to(g.device)).abs().max())
+                for lo in range(0, g.numel(), COMPARE_CHUNK))
+            return worst / max(tol, 1e-30)
+
+        out["params"][0] = max(out["params"][0], worst_ratio(
+            p, leaf_specs, mesh, rank, param_ratio, gather))
+        if i == 0:
+            out["grads"] = worst_ratio(s.m, leaf_specs, mesh, rank,
+                                       grad_ratio, gather)
+    return out
+
+
+def fsdp_bytes(params, specs, mesh) -> dict:
+    """A step's FSDP traffic on ``mesh``, counted as whole float32
+    leaves: gathered (the leaves split over the data axis), reduce-
+    scattered (their gradients) and all-reduced (the gradients of the
+    leaves the data group holds whole)."""
+    from repro_torch.distributed.sharding import axis_dim, spec_leaves
+    from repro_torch.tree import tree_leaves
+    out = dict(gathered=0, reduce_scattered=0, all_reduced=0)
+    if int(mesh.shape["data"]) == 1:
+        return out
+    for x, spec in zip(tree_leaves(params), spec_leaves(params, specs)):
+        b = x.numel() * 4
+        if axis_dim(spec, "data") is None:
+            out["all_reduced"] += b
+        else:
+            out["gathered"] += b
+            out["reduce_scattered"] += b
+    return out
+
+
+def compress_on_ranks(model, params, batch, rank: int, counts: dict
+                      ) -> dict:
+    """``tree_ef_compressed_mean`` of the ranks' float32 gradients (each
+    rank's half of ``batch`` through the unsharded loss), counted, against
+    the plain version's means and residuals bit for bit; then every
+    leaf's codes from K1 and from the plain version at the shared
+    threshold (counted differences, and those against the reference's
+    division ``round(c / scale)``), and the two wire formulas."""
+    import torch
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed.collectives import TPGroup
+    from repro_torch.train import make_loss_fn
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    half = TRAIN_BATCH // 2
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+    rows = {k: torch.as_tensor(v[rank * half:(rank + 1) * half],
+                               device=leaves[0].device)
+            for k, v in batch.items()}
+    with torch.enable_grad():
+        loss, _ = make_loss_fn(model)(tree_unflatten(params, leaves), rows)
+        grads = tree_unflatten(params, [
+            g.float() for g in torch.autograd.grad(loss, leaves)])
+    del leaves
+    group, n = TPGroup(rank, TP), TP
+    err = comp.init_error_state(grads)
+    mean, new_err = run_counted("5g compress", counts, lambda: (
+        comp.tree_ef_compressed_mean(grads, err, group, n)))
+    pmean, perr = comp.tree_ef_compressed_mean(grads, err, group, n,
+                                               impl="torch")
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((mean, new_err)), tree_leaves((pmean, perr))))
+    cs = tree_leaves(grads)
+    amaxes = comp.shared_amaxes(cs, group)
+    differ = divided = divided_max = total = 0
+    for c, a in zip(cs, amaxes):
+        q = comp.compress(c, a)
+        differ += int((q != comp.compress(c, a, impl="torch")).sum())
+        scale = torch.full((), comp.scale_of(a), device=c.device)
+        dq = torch.clamp(torch.round(c / scale), -127, 127).to(torch.int8)
+        divided += int((q != dq).sum())
+        divided_max = max(divided_max,
+                          int((q.int() - dq.int()).abs().max()))
+        total += c.numel()
+    n_params = sum(c.numel() for c in cs)
+    return {"same": same, "differ": differ, "divided": divided,
+            "divided_max": divided_max,
+            "codes": total, "leaves": len(cs),
+            "fp32_allreduce": comp.wire_bytes_fp32_allreduce(n_params, n),
+            "int8_gather": comp.wire_bytes_int8_gather(n_params, n),
+            "launches": counts["5g compress"]}
+
+
+def train_tp_runs(rank: int, dense_done: str) -> dict:
+    """Phase 5g on one rank, after 5f: mistral-nemo-12b at 1 layer on
+    ``DENSE_TRAIN_MESH`` with the vocab-parallel loss (the calls of
+    ``vocab_parallel_cross_entropy`` counted; rank 0's unsharded run kept
+    on the host), its end marked at ``dense_done``; then
+    transformer-base's parity runs (float32
+    activations, ``TRAIN_TP_STEPS`` steps on each of ``TRAIN_TP_MESHES``,
+    rank 0 holding the unsharded run), the compressor on the ranks'
+    gradients, and transformer-base's timed runs (bf16 activations: the
+    unsharded step on rank 0 alone, then each mesh).  Returns the
+    metrics, ratios, ms, bytes, launches, seconds and peak memory."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import step as step_mod
+    out, counts = {"seconds": {}}, {}
+    meshes = {s: make_host_mesh(*s) for s in
+              sorted(set(TRAIN_TP_MESHES) | {DENSE_TRAIN_MESH})}
+    t0 = t = time.perf_counter()
+
+    calls = []
+    real = step_mod.vocab_parallel_cross_entropy
+
+    def counted(shard, *args):
+        calls.append(tuple(shard.logits.shape))
+        return real(shard, *args)
+
+    model, make, opt, batches = tp_train_model("dense")
+    mesh = meshes[DENSE_TRAIN_MESH]
+    specs, p = cut_tree(model, make(), batches[0], mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the unsharded run's trees go to the host, out of the way of phase
+    # 7d beside it
+    want = unsharded_train(model, make(), opt, batches, keep="cpu") \
+        if rank == 0 else None
+    torch.cuda.empty_cache()
+    out["seconds"]["dense unsharded"] = time.perf_counter() - t
+    if rank == 0:
+        out["dense unsharded"] = [w[0] for w in want]
+    out["dense unsharded peak"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_mod.vocab_parallel_cross_entropy = counted
+    try:
+        # rank 0's half is held to the unsharded run: gathering 3.77 GB
+        # through gloo's host path three times took 30 s
+        out[f"dense {DENSE_TRAIN_MESH}"] = sharded_train(
+            model, opt, batches, mesh, specs, p, rank, want, gather=False)
+    finally:
+        step_mod.vocab_parallel_cross_entropy = real
+    out["dense ce calls"] = calls
+    out["dense peak"] = torch.cuda.max_memory_allocated()
+    del model, p, want
+    torch.cuda.empty_cache()
+    out["seconds"]["dense"] = time.perf_counter() - t
+    open(dense_done, "w").close()
+
+    t = time.perf_counter()
+    model, make, opt, batches = tp_train_model("encdec")
+    params = make()
+    want = unsharded_train(model, params, opt, batches) if rank == 0 \
+        else None
+    if rank == 0:
+        out["encdec unsharded"] = [w[0] for w in want]
+    for shape in TRAIN_TP_MESHES:
+        out[f"encdec {shape}"] = sharded_train(
+            model, opt, batches, meshes[shape],
+            *cut_tree(model, params, batches[0], meshes[shape]), rank, want)
+    del want
+    out["compress"] = compress_on_ranks(model, params, batches[0], rank,
+                                        counts)
+    del model, params
+    out["seconds"]["encdec parity"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    model, make, opt, batches = tp_train_model("encdec bf16")
+    params = make()
+    if rank == 0:
+        ms = []
+        unsharded_train(model, params, opt, batches, ms)
+        out["encdec bf16 unsharded ms"] = ms[1:]
+    dist.barrier()
+    for shape in TRAIN_TP_MESHES:
+        mesh = meshes[shape]
+        specs, p = cut_tree(model, params, batches[0], mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = sharded_train(model, opt, batches, mesh, specs, p, rank,
+                            want=False)
+        res["ms"] = res["ms"][1:]
+        res["peak"] = torch.cuda.max_memory_allocated()
+        res["bytes"] = fsdp_bytes(params, specs, mesh)
+        out[f"encdec bf16 {shape}"] = res
+        del p
+    del model, params
+    torch.cuda.empty_cache()
+    out["seconds"]["encdec timed"] = time.perf_counter() - t
+    out["seconds"]["all"] = time.perf_counter() - t0
+    return out
+
+
+def end_dense_train_tp(tp_ranks: dict) -> None:
+    """Wait for phase 5g's mistral-nemo-12b runs on the ranks to end."""
+    t0 = time.perf_counter()
+    wait_for_ranks(tp_ranks, tp_ranks["dense_done_5g"], TRAIN_TP_TIMEOUT_S,
+                   "5g", load=False)
+    log(f"5g: waited {time.perf_counter() - t0:.1f} s for the ranks' "
+        "mistral-nemo-12b runs")
+
+
+def check_train_tp(tp_ranks: dict) -> dict:
+    """Phase 5g's results: every rank's metrics equal the other's bit for
+    bit and, on rank 0, the unsharded runs' within ``TRAIN_TP_RTOL``; the
+    gathered gradients and parameters within their bounds (every ratio ≤
+    1); the compressor's means equal the plain version's and K1 launched;
+    mistral's loss vocab-parallel on every step.  Then the ranks are
+    joined.  Logs ms a step against the unsharded step, the FSDP bytes,
+    peak memory and seconds.  Returns the compressor's launch counts."""
+    import shutil
+    import statistics
+    t0 = time.perf_counter()
+    try:
+        ranks = wait_for_ranks(tp_ranks, tp_ranks["outs_5g"],
+                               TRAIN_TP_TIMEOUT_S, "5g")
+        for p in tp_ranks["procs"]:
+            p.join(timeout=60)
+        codes = [p.exitcode for p in tp_ranks["procs"]]
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"5g ranks' exit codes {codes}")
+    finally:
+        shutil.rmtree(tp_ranks["tmp"], ignore_errors=True)
+    log(f"5g: waited {time.perf_counter() - t0:.1f} s for the ranks")
+    r0 = ranks[0]
+    for name, shapes, want in (
+            ("encdec", TRAIN_TP_MESHES, r0["encdec unsharded"]),
+            ("dense", (DENSE_TRAIN_MESH,), r0["dense unsharded"])):
+        for shape in shapes:
+            key = f"{name} {shape}"
+            got = r0[key]
+            for r, other in enumerate(ranks[1:], 1):
+                if other[key]["metrics"] != got["metrics"]:
+                    raise AssertionError(f"5g {key}: rank {r}'s metrics "
+                                         "differ from rank 0's")
+            rels = [max(rel(g[k], w[k]) for k in ("loss", "ce_loss",
+                                                  "grad_norm", "lr"))
+                    for g, w in zip(got["metrics"], want)]
+            log(f"5g {key}: loss "
+                + ", ".join(f"{g['loss']:.6f}" for g in got["metrics"])
+                + " (unsharded " + ", ".join(f"{w['loss']:.6f}"
+                                             for w in want)
+                + f"), grad_norm {got['metrics'][0]['grad_norm']:.6f}; "
+                f"largest relative metric difference {max(rels):.2e} "
+                f"(bound {TRAIN_TP_RTOL}); "
+                + ("gathered" if name == "encdec" else "rank 0's half of the")
+                + f" gradients at {got['grads']:.3f} of their bound, "
+                f"parameters at "
+                f"{got['params'][0]:.3f} (everywhere) and "
+                f"{got['params'][1]:.3f} (where sure) of theirs; ms a step "
+                + ", ".join(f"{x:.1f}" for x in got["ms"]))
+            if max(rels) > TRAIN_TP_RTOL or got["grads"] > 1 or \
+                    max(got["params"]) > 1 or len(got["metrics"]) != \
+                    len(want):
+                raise AssertionError(f"5g {key} differs from the "
+                                     "unsharded step")
+    calls = r0["dense ce calls"]
+    log(f"5g dense: vocab-parallel cross-entropy calls {len(calls)}, "
+        f"logits {calls[0] if calls else None} a rank; max_memory_allocated "
+        f"of the sharded steps " + ", ".join(f"{r['dense peak']} B"
+                                             for r in ranks)
+        + f" (rank 0's unsharded run before them "
+        f"{r0['dense unsharded peak']} B)")
+    if len(calls) != DENSE_TRAIN_STEPS:
+        raise AssertionError(f"5g dense: {len(calls)} vocab-parallel "
+                             f"losses in {DENSE_TRAIN_STEPS} steps")
+    base = statistics.median(r0["encdec bf16 unsharded ms"])
+    for shape in TRAIN_TP_MESHES:
+        for r, got in enumerate(ranks):
+            res = got[f"encdec bf16 {shape}"]
+            med = statistics.median(res["ms"])
+            log(f"5g encdec bf16 {shape} rank {r}: ms a step median "
+                f"{med:.1f} ({', '.join(f'{x:.1f}' for x in res['ms'])}; "
+                f"unsharded {base:.1f}, {med / base:.2f}×); FSDP bytes a "
+                f"step {json.dumps(res['bytes'])}; "
+                f"max_memory_allocated {res['peak']} B")
+    counts = {}
+    for r, got in enumerate(ranks):
+        c = got["compress"]
+        counts[f"rank{r} compress"] = c["launches"]
+        log(f"5g compress rank {r}: {c['leaves']} leaves, K1 launches "
+            f"{c['launches']['quantize_static']}; means and residuals "
+            f"equal the plain version's: {c['same']}; codes differing from "
+            f"the plain version's {c['differ']} of {c['codes']}, from the "
+            f"reference's division {c['divided']} (by at most "
+            f"{c['divided_max']}); wire bytes a step: "
+            f"float32 all-reduce {c['fp32_allreduce']}, int8 gather "
+            f"{c['int8_gather']}")
+        if not c["same"] or c["differ"] or \
+                c["launches"]["quantize_static"] != c["leaves"]:
+            raise AssertionError(f"5g compress rank {r}: {c}")
+        log(f"5g rank {r}: seconds "
+            + json.dumps({k: round(v, 2) for k, v in
+                          got["seconds"].items()}))
     return counts
 
 
@@ -3604,10 +4134,12 @@ def run_audio():
 # ---------------------------------------------------------------------------
 
 RECURRENT_ARCHS = ("zamba2-2.7b", "xlstm-1.3b")
-# phase 7d runs xlstm-1.3b at its published widths and 24 of its 48
-# layers (21 mLSTM, 3 sLSTM: its pattern kept), to pay for phase 5f; the
-# widths give every kernel shape
-RECURRENT_LAYERS = {"xlstm-1.3b": 24}
+# phase 7d runs both models at their published widths, which give every
+# kernel shape: zamba2-2.7b at 27 of its 54 layers (4 applications of the
+# shared attention block) and xlstm-1.3b at 16 of its 48 (its pattern
+# kept: the depth must divide by its sLSTM period of 8), to pay for phases
+# 5f (xlstm 48 -> 24) and 5g (zamba2 54 -> 27, xlstm 24 -> 16)
+RECURRENT_LAYERS = {"zamba2-2.7b": 27, "xlstm-1.3b": 16}
 RECURRENT_CALIB = 8            # held-out prompts for the KL calibration
 RECURRENT_PROFILE_NEW = 8      # new tokens of the profiled greedy call
 
@@ -3965,15 +4497,26 @@ def main() -> int:
     hand_recs(tp_ranks, tp_recs)
     decoder_tp_counts = check_decoder_tp(tp_ranks, tp_want, moe_cfg)
 
-    # 7d. the recurrent families at full width, one at a time
+    # 7d. the recurrent families at full width, one at a time (phase 5g's
+    # mistral-nemo-12b runs on the ranks beside it, after 5f: rank 0's
+    # unsharded step takes some 37 GB of the card)
+    torch.cuda.empty_cache()
     recurrent_counts = {}
     for arch in RECURRENT_ARCHS:
         phase(f"7d: {arch} at full width")
         recurrent_counts.update(run_recurrent(arch))
 
-    # 8. the serving driver
+    # 8. the serving driver (phase 5g's transformer-base runs beside it),
+    # once the ranks' mistral-nemo-12b runs are over: the card cannot hold
+    # both
+    end_dense_train_tp(tp_ranks)
+    torch.cuda.empty_cache()
     phase("serving driver")
     run_driver()
+
+    # 5g. training on a mesh on phase 5e's ranks, checked here
+    phase("5g: training on a mesh on two ranks of the card")
+    train_tp_counts = check_train_tp(tp_ranks)
 
     # 9. launch counts and the kernel table
     phase("kernel table")
@@ -4024,6 +4567,7 @@ def main() -> int:
                    **{f"5d {k}": v for k, v in staged_counts.items()},
                    **{f"5e {k}": v for k, v in tp_counts.items()},
                    **{f"5f {k}": v for k, v in decoder_tp_counts.items()},
+                   **{f"5g {k}": v for k, v in train_tp_counts.items()},
                    **{f"4t {k}": v for k, v in table1_counts.items()},
                    "MoE": moe_counts,
                    **{f"7b {k}": v for k, v in dense_counts.items()},
@@ -4047,7 +4591,12 @@ def main() -> int:
             "library_ms": r["library_ms"], "shape": r["shape"],
             "path": paths[name][0],
             **{k: r[k] for k in ("k3_ms", "cold_ms", "tile", "plan",
-                                 "empty_ms") if k in r}})
+                                 "empty_ms") if k in r},
+            **({"gradient_rows": [
+                {k: x[k] for k in ("shape", "dtype", "ms", "cold_ms",
+                                   "plain_ms", "bound_ms", "bound_by")}
+                for x in results[name] if x.get("dtype") == "float32"]}
+               if name == "quantize_static" else {})})
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "

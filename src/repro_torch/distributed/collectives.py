@@ -9,6 +9,21 @@ one card (gloo has no CUDA ``all_gather``) and NCCL across cards.  The
 backend is the caller's choice (``init_process_group``); a collective that
 fails raises, and nothing falls back to a whole-weight compute.
 
+Training needs collectives that autograd sees.  Each is a
+``torch.autograd.Function`` built on the same two reductions:
+
+* :func:`fsdp_gather` — forward: the whole leaf over the data group;
+  backward: SUM over the group, then this rank's slice (a reduce-scatter);
+* :func:`tp_enter` — forward: identity; backward: SUM over the group;
+* :func:`tp_row_sum` — forward: SUM over the group; backward: identity;
+* :func:`vocab_gather` — forward: the ranks' vocab columns concatenated;
+  backward: this rank's columns.
+
+``tp_enter`` goes where a replicated activation meets a column-split
+projection (each rank's input gradient is a partial sum); it also carries a
+leaf that the data group holds whole, whose gradient the ranks' rows each
+give a part of.  ``tp_row_sum`` is a row-parallel projection's exit.
+
 :func:`mark_parallel` adds a ``"tp"`` entry to the nodes of a rank's shard
 (``distributed.sharding.shard_params``) that need a collective:
 
@@ -44,7 +59,9 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 @dataclasses.dataclass(frozen=True)
 class TPGroup:
-    """This rank's place in a tensor-parallel group."""
+    """This rank's place in a group of ranks along one mesh axis (the
+    tensor-parallel "model" group, or the data group of a training
+    mesh)."""
     rank: int
     size: int
     group: Optional[Any] = None      # a ProcessGroup (None: the default)
@@ -66,6 +83,107 @@ class TPGroup:
         out = torch.zeros(shape, dtype=x.dtype, device=x.device)
         out.narrow(dim, self.rank * n, n).copy_(x)
         return self.all_reduce(out)
+
+
+
+class _Gather(torch.autograd.Function):
+    """The ranks' ``x`` concatenated along ``dim``; the gradient SUMmed
+    over the group and cut back to this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.n = dim, group, x.shape[dim]
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = ctx.group.all_reduce(g.contiguous().clone())
+        return (g.narrow(ctx.dim, ctx.group.rank * ctx.n, ctx.n)
+                .contiguous(), None, None)
+
+
+class _Enter(torch.autograd.Function):
+    """Identity; the gradient SUMmed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.contiguous().clone()), None
+
+
+class _RowSum(torch.autograd.Function):
+    """The ranks' ``x`` SUMmed; the gradient passed through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _VocabGather(torch.autograd.Function):
+    """The ranks' last-dimension columns concatenated; the gradient cut to
+    this rank's columns."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.n = group, x.shape[-1]
+        return group.all_gather(x, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.group.rank
+        return g[..., r * ctx.n:(r + 1) * ctx.n].contiguous(), None
+
+
+def _recording(x: torch.Tensor) -> bool:
+    """True where autograd records ``x``'s history (training).  Elsewhere
+    the functions below run their forward reduction alone, as serving
+    always has."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def fsdp_gather(x: torch.Tensor, dim: int, group: TPGroup) -> torch.Tensor:
+    """An FSDP-split leaf whole over the data group; its gradient
+    reduce-scattered back to this rank's slice (the reference's
+    ``grad_shardings`` and ``tag_block_grads``)."""
+    if group.size == 1:
+        return x
+    if not _recording(x):
+        return group.all_gather(x, dim)
+    return _Gather.apply(x, dim % x.dim(), group)
+
+
+def tp_enter(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
+    """``x`` unchanged; its gradient SUMmed over ``group``."""
+    if group.size == 1 or not _recording(x):
+        return x
+    return _Enter.apply(x, group)
+
+
+def tp_row_sum(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
+    """The SUM over ``group`` of the ranks' partial ``x`` (in place unless
+    autograd records it); the gradient reaches every rank's part whole."""
+    if group.size == 1:
+        return x
+    if not _recording(x):
+        return group.all_reduce(x)
+    return _RowSum.apply(x, group)
+
+
+def vocab_gather(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
+    """Vocab-split logits gathered along the last dimension."""
+    if group.size == 1:
+        return x
+    if not _recording(x):
+        return group.all_gather(x, -1)
+    return _VocabGather.apply(x, group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,4 +257,24 @@ def mark_parallel(params: Any, specs: Any, group: TPGroup, *,
     if ("q_proj" in params and _splits(specs["q_proj"], -1, tensor)
             and not _splits(specs["k_proj"], -1, tensor)):
         out["tp"] = head_slice(group.rank, group.size, n_heads, n_kv_heads)
+    return out
+
+
+def gqa_partial_leaves(params: Any, specs: Any, tensor: str = "model"
+                       ) -> list:
+    """Per float leaf of ``params`` (``tree.tree_leaves`` order): True for
+    the K/V projections of a GQA-fallback attention (:class:`HeadSlice`),
+    which every rank of the tensor axis holds whole but reads only its kv
+    heads of, so each rank's gradient is a partial to SUM over the axis."""
+    if isinstance(params, torch.Tensor):
+        return [False]
+    if not isinstance(params, dict):
+        return []
+    gqa = ("q_proj" in params and _splits(specs["q_proj"], -1, tensor)
+           and not _splits(specs["k_proj"], -1, tensor))
+    out = []
+    for k in sorted(params):
+        sub = gqa_partial_leaves(params[k], specs[k], tensor)
+        out += [True] * len(sub) if gqa and k in ("k_proj", "v_proj") \
+            else sub
     return out

@@ -21,17 +21,25 @@ reference's:
   weight except on the contraction dimension.
 
 A mesh here is anything with ``axis_names`` and ``shape[name]`` (a
-``launch.mesh.Mesh`` or a test's stand-in).
+``launch.mesh.Mesh`` or a test's stand-in).  :func:`gather_params` puts a
+sharded tree back together, and :func:`shard_opt_state` cuts an
+optimizer state as its parameters; :func:`local_config` is the config a
+rank's layers run with.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.qtensor import BlockQTensor, QTensor
+
+# the ROADMAP item, by title, of what does not run on a mesh yet
+MESH_ITEM = "ROADMAP Queue 1: multi-GPU and the cost accounting"
 
 IN_PROJ = {"q_proj", "k_proj", "v_proj", "gate", "up", "in", "in_proj",
            "up_proj", "gate_ssm_if"}
@@ -177,10 +185,10 @@ def param_specs(params: Any, mesh, *, tensor="model",
 
 
 def batch_specs(batch: Dict[str, Any], mesh, batch_axes) -> Dict[str, Spec]:
-    """Split the leading (batch) dim of every batch leaf over
-    ``batch_axes`` where it divides."""
+    """Split the leading (batch) dim of every batch leaf (a tensor or a
+    numpy array) over ``batch_axes`` where it divides."""
     return {k: ((_fit(a.shape[0], batch_axes, mesh),)
-                + _none(a.dim() - 1)) if a.dim() >= 1 else ()
+                + _none(len(a.shape) - 1)) if len(a.shape) >= 1 else ()
             for k, a in batch.items()}
 
 
@@ -237,3 +245,135 @@ def shard_params(params: Any, specs: Any, mesh,
         return {k: shard_params(v, specs[k], mesh, coords)
                 for k, v in params.items()}
     return cut(params, specs, mesh, coords)
+
+
+
+def owns(spec: Spec, mesh, coords: Dict[str, int]) -> bool:
+    """True on one rank of each set that holds the same block under
+    ``spec``: coordinate 0 along every mesh axis the spec does not split
+    over."""
+    split = {a for e in spec if e is not None
+             for a in ((e,) if isinstance(e, str) else e)}
+    return all(int(coords[a]) == 0 for a in mesh.axis_names
+               if a not in split)
+
+
+def uncut(t, spec: Spec, mesh, coords: Dict[str, int], group=None):
+    """The inverse of :func:`cut`: the whole tensor from every rank's
+    block.  Each block is written at its place in a zero-filled tensor by
+    the rank that :func:`owns` it and the tensors are summed over
+    ``group`` (the mesh's ranks; None: the default group), so every
+    element is one block's value plus zeros: exact.  Collective: every
+    rank of ``group`` calls it."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    places = [(d, *_coordinate(e, mesh, coords))
+              for d, e in enumerate(spec) if e is not None]
+    shape = list(t.shape)
+    for d, _, count in places:
+        shape[d] *= count
+    out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    if owns(spec, mesh, coords):
+        view = out
+        for d, index, _ in places:
+            view = view.narrow(d, index * t.shape[d], t.shape[d])
+        view.copy_(t)
+    if dist.is_initialized() and dist.get_world_size(group) > 1:
+        dist.all_reduce(out, group=group)
+    return out
+
+
+def gather_params(shard: Any, specs: Any, mesh, group=None) -> Any:
+    """The whole tree from every rank's :func:`shard_params` cut of it,
+    bit for bit (:func:`uncut` leaf by leaf): checkpoints, tests and
+    checks of a sharded run.  Collective over ``group``."""
+    coords = mesh.coords
+    if isinstance(shard, QTensor):
+        return QTensor(data=uncut(shard.data, specs.data, mesh, coords,
+                                  group),
+                       scale=uncut(shard.scale, specs.scale, mesh, coords,
+                                   group),
+                       zero_point=shard.zero_point, axis=shard.axis)
+    if isinstance(shard, BlockQTensor):
+        return BlockQTensor(
+            data=uncut(shard.data, specs.data, mesh, coords, group),
+            scale=uncut(shard.scale, specs.scale, mesh, coords, group),
+            vmin=uncut(shard.vmin, specs.vmin, mesh, coords, group),
+            group_size=shard.group_size, k_dim=shard.k_dim)
+    if isinstance(shard, dict):
+        return {k: gather_params(shard[k], specs[k], mesh, group)
+                for k in sorted(shard)}
+    return uncut(shard, specs, mesh, coords, group)
+
+
+def shard_opt_state(state, specs: Any, mesh, coords: Dict[str, int]):
+    """The rank's cut of an ``AdamWState``: ``m`` and ``v`` as the
+    parameters (``specs``), the step counter replicated."""
+    return state._replace(m=shard_params(state.m, specs, mesh, coords),
+                          v=shard_params(state.v, specs, mesh, coords))
+
+
+def spec_leaves(params: Any, specs: Any) -> List[Spec]:
+    """The spec of each tensor leaf of a float tree, in
+    ``tree.tree_leaves`` order (dict keys sorted)."""
+    if isinstance(params, dict):
+        return [s for k in sorted(params)
+                for s in spec_leaves(params[k], specs[k])]
+    if isinstance(params, torch.Tensor):
+        return [specs]
+    if params is None:
+        return []
+    raise TypeError(f"a float parameter tree has no {type(params).__name__} "
+                    "leaves")
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeSharding:
+    """A spec tree (:func:`param_specs`) with its mesh: what the
+    reference's tree of ``NamedSharding`` carries, every leaf on one mesh.
+    ``train.step.make_train_step`` takes it as ``grad_shardings``."""
+    mesh: Any
+    specs: Any
+
+
+def tp_degree(mesh, tensor: str = "model") -> int:
+    """Size of the tensor axis (1 when the mesh does not have it)."""
+    if mesh is None or tensor not in mesh.axis_names:
+        return 1
+    return int(mesh.shape[tensor])
+
+
+def kv_pools_shardable(mesh, kv_heads: int, tensor: str = "model") -> bool:
+    """True iff the K/V pools can split their heads over ``tensor``."""
+    tp = tp_degree(mesh, tensor)
+    return tp > 1 and kv_heads > 0 and kv_heads % tp == 0
+
+
+def local_config(cfg, mesh, tensor: str = "model"):
+    """The config a rank runs its layers with: ``H/tp`` query heads,
+    ``HKV/tp`` kv heads (all ``HKV`` in the GQA fallback), ``d_ff/tp``
+    where it divides, and an explicit head dim.
+
+    MoE: the experts split over the axis (``n_experts % tp == 0``, as the
+    reference's rule at ``distributed/sharding.py:96-105``), each whole,
+    so ``d_ff`` (the expert width) stays; ``n_experts`` stays the full
+    count, since every rank routes over all the experts.  Where they do
+    not divide, the reference splits the expert features instead, which
+    needs K7 split on K like K3: not ported yet."""
+    tp = tp_degree(mesh, tensor)
+    if cfg.n_heads % tp:
+        raise ValueError(f"{cfg.name}: {cfg.n_heads} heads do not split "
+                         f"over {tp} ranks")
+    moe = cfg.moe is not None
+    if moe and cfg.moe.n_experts % tp:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.moe.n_experts} experts do not split over "
+            f"{tp} ranks, and splitting their features needs a split K7 "
+            f"({MESH_ITEM})")
+    hkv = (cfg.n_kv_heads // tp if kv_pools_shardable(mesh, cfg.n_kv_heads,
+                                                       tensor)
+           else cfg.n_kv_heads)
+    d_ff = cfg.d_ff if moe or cfg.d_ff % tp else cfg.d_ff // tp
+    return dataclasses.replace(
+        cfg, n_heads=cfg.n_heads // tp, n_kv_heads=hkv, head_dim=cfg.hd,
+        d_ff=d_ff)

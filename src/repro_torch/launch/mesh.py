@@ -34,7 +34,15 @@ class Mesh:
         self.coords: Dict[str, int] = {
             a: int(device_mesh.get_local_rank(a)) for a in self.axis_names}
 
-    def group(self, axis: str):
+    def group(self, axis):
+        """The process group along ``axis``: a name, or a tuple of names
+        whose ranks are taken together (the batch axes ``("pod",
+        "data")``).  Collective the first time a tuple of several axes is
+        asked for."""
+        if isinstance(axis, tuple):
+            if len(axis) > 1:
+                return self.device_mesh[axis]._flatten().get_group()
+            axis = axis[0]
         return self.device_mesh.get_group(axis)
 
 

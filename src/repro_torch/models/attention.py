@@ -19,7 +19,12 @@ from repro_torch.core.calibration import Taps
 from repro_torch.core.ptq import FP_CONTEXT, QuantContext
 from repro_torch.kernels import ops
 from repro_torch.models import kv_cache as kvc
-from repro_torch.models.layers import apply_rope, dense, dense_init
+from repro_torch.models.layers import (
+    apply_rope,
+    block_input,
+    dense,
+    dense_init,
+)
 
 NEG_INF = -1e30
 
@@ -126,6 +131,7 @@ def attention(
     # tensor parallel, GQA fallback: this rank's query heads read a slice
     # of the whole kv heads (distributed.collectives.HeadSlice)
     hs = params.get("tp")
+    x = block_input(x, params["o_proj"])
 
     q = dense(params["q_proj"], x, site=f"{site}/q_proj", quant=quant,
               taps=taps).reshape(B, S, H, dh)

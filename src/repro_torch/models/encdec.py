@@ -28,6 +28,7 @@ from repro_torch.models import kv_cache as kvc
 from repro_torch.models.attention import attention, attention_init
 from repro_torch.models.ffn import ffn, ffn_init
 from repro_torch.models.layers import (
+    block_input,
     dense,
     embed,
     embedding_init,
@@ -205,6 +206,7 @@ class EncDecLM:
         """Project encoder memory to this layer's cross K/V (done once)."""
         cfg = self.cfg
         B, S, _ = memory.shape
+        memory = block_input(memory, bparams["cross_attn"]["o_proj"])
         k = dense(bparams["cross_attn"]["k_proj"], memory,
                   site=f"{site}/cross_attn/k_proj", quant=quant,
                   taps=taps).reshape(B, S, cfg.n_kv_heads, cfg.hd)

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.calibration import Taps
 from repro_torch.core.ptq import FP_CONTEXT, QuantContext
-from repro_torch.models.layers import dense, dense_init
+from repro_torch.models.layers import block_input, dense, dense_init
 
 
 def ffn_init(gen: torch.Generator, cfg, *, dtype=torch.float32, device=None):
@@ -36,6 +36,7 @@ def ffn_init(gen: torch.Generator, cfg, *, dtype=torch.float32, device=None):
 def ffn(params, x: torch.Tensor, *, cfg, site: str,
         quant: QuantContext = FP_CONTEXT,
         taps: Optional[Taps] = None) -> torch.Tensor:
+    x = block_input(x, params["down" if cfg.ffn == "swiglu" else "out"])
     if cfg.ffn == "swiglu":
         g = dense(params["gate"], x, site=f"{site}/gate", quant=quant,
                   taps=taps)

@@ -24,6 +24,8 @@ from repro_torch.core.calibration import Taps, record
 from repro_torch.core.ptq import FP_CONTEXT, QuantContext
 from repro_torch.core.qtensor import BlockQTensor, QTensor
 from repro_torch.core.quantize import quantize_with_thresholds
+from repro_torch.distributed.collectives import tp_enter, tp_row_sum
+from repro_torch.distributed.context import constrain_logits
 from repro_torch.kernels import ops
 
 
@@ -163,7 +165,7 @@ def _dense_parallel(node, x: torch.Tensor, par, *, site: str,
             None if b is None else b.to(torch.float32), out_dtype=x.dtype,
             impl=quant.impl)
     part = torch.matmul(x.to(torch.float32), w.to(x.dtype).to(torch.float32))
-    y = g.all_reduce(part).to(x.dtype)
+    y = tp_row_sum(part, g).to(x.dtype)
     if b is not None:
         y = y + b.to(x.dtype)
     return y
@@ -191,16 +193,33 @@ def embed(node, ids: torch.Tensor, dtype) -> torch.Tensor:
     mine = (local >= 0) & (local < v)
     rows = table[torch.where(mine, local, torch.zeros_like(local))]
     rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
-    return par.group.all_reduce(rows).to(dtype)
+    return tp_row_sum(rows, par.group).to(dtype)
 
 
-def unembed(node, x: torch.Tensor) -> torch.Tensor:
+def unembed(node, x: torch.Tensor):
     """Logits head via the tied embedding transpose, in float32.
-    Vocab-parallel: this rank's logits, gathered over the vocabulary."""
+    Vocab-parallel: this rank's logits, gathered over the vocabulary, or,
+    under a training mesh's activation sharding, kept split as a
+    ``distributed.context.VocabShard`` for the loss
+    (``context.constrain_logits``)."""
+    x = block_input(x, node)
     logits = torch.matmul(x.to(torch.float32),
                           node["table"].to(torch.float32).t())
     par = node.get("tp")
-    return logits if par is None else par.group.all_gather(logits, -1)
+    return logits if par is None else constrain_logits(logits, par.group)
+
+
+def block_input(x: torch.Tensor, node) -> torch.Tensor:
+    """``x`` as it enters a tensor-parallel block's column-split
+    projections: where ``node`` (the block's out-projection, or the tied
+    table for the unembed) carries a ``"row"`` or ``"vocab"`` mark, each
+    rank's input gradient is a partial sum, so under autograd ``x``'s
+    gradient is SUMmed over the group (``collectives.tp_enter``).
+    Otherwise ``x`` as it is."""
+    par = node.get("tp") if isinstance(node, dict) else None
+    if par is None or par.kind not in ("row", "vocab"):
+        return x
+    return tp_enter(x, par.group)
 
 
 def layernorm(node, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

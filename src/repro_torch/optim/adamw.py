@@ -57,13 +57,17 @@ class AdamW:
         return torch.full((), self.lr, dtype=torch.float32,
                           device=step.device)
 
-    def update(self, grads, state: AdamWState, params
+    def update(self, grads, state: AdamWState, params,
+               norm: Optional[torch.Tensor] = None
                ) -> Tuple[Any, AdamWState]:
+        """``norm``: the gradients' global norm where the caller has it (a
+        sharded step's, each piece of a leaf counted once across the mesh);
+        by default :func:`global_norm` of ``grads``."""
         step = state.step + 1
         p = tree_leaves(params)
         g = tree_leaves(grads)
         if self.clip_norm is not None:
-            gnorm = global_norm(g)
+            gnorm = global_norm(g) if norm is None else norm
             scale = torch.clamp_max(
                 rdiv_exact(float(self.clip_norm), gnorm + 1e-9), 1.0)
             g = torch._foreach_mul(g, scale)

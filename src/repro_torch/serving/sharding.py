@@ -28,32 +28,24 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.distributed.collectives import TPGroup, mark_parallel
-from repro_torch.distributed.sharding import cut, param_specs, shard_params
+from repro_torch.distributed.sharding import (  # noqa: F401  (re-exported)
+    MESH_ITEM,
+    cut,
+    kv_pools_shardable,
+    local_config,
+    param_specs,
+    shard_params,
+    tp_degree,
+)
 
 __all__ = ["MESH_ITEM", "tp_degree", "kv_pools_shardable",
            "decode_state_specs", "shard_decode_state", "mesh_axis_sizes",
            "local_config", "shard_for_serving"]
 
-# the ROADMAP item, by title, of what is not yet served on a mesh
-MESH_ITEM = "ROADMAP Queue 1: multi-GPU and the cost accounting"
-
-
-def tp_degree(mesh, tensor: str = "model") -> int:
-    """Size of the tensor axis (1 when the mesh does not have it)."""
-    if mesh is None or tensor not in mesh.axis_names:
-        return 1
-    return int(mesh.shape[tensor])
-
 
 def mesh_axis_sizes(mesh) -> tuple:
     """Mesh shape as a plain tuple in axis order, for ServeResult."""
     return tuple(int(mesh.shape[a]) for a in mesh.axis_names)
-
-
-def kv_pools_shardable(mesh, kv_heads: int, tensor: str = "model") -> bool:
-    """True iff the K/V pools can split their heads over ``tensor``."""
-    tp = tp_degree(mesh, tensor)
-    return tp > 1 and kv_heads > 0 and kv_heads % tp == 0
 
 
 def _map(fn, node):
@@ -106,36 +98,6 @@ def shard_decode_state(state: Any, mesh, *, kv_heads: int, head_dim: int,
         return cut(x, spec, mesh, coords) if spec else x
 
     return _map(one, state)
-
-
-def local_config(cfg, mesh, tensor: str = "model"):
-    """The config a rank runs its layers with: ``H/tp`` query heads,
-    ``HKV/tp`` kv heads (all ``HKV`` in the GQA fallback), ``d_ff/tp``
-    where it divides, and an explicit head dim.
-
-    MoE: the experts split over the axis (``n_experts % tp == 0``, as the
-    reference's rule at ``distributed/sharding.py:96-105``), each whole,
-    so ``d_ff`` (the expert width) stays; ``n_experts`` stays the full
-    count, since every rank routes over all the experts.  Where they do
-    not divide, the reference splits the expert features instead, which
-    needs K7 split on K like K3: not ported yet."""
-    tp = tp_degree(mesh, tensor)
-    if cfg.n_heads % tp:
-        raise ValueError(f"{cfg.name}: {cfg.n_heads} heads do not split "
-                         f"over {tp} ranks")
-    moe = cfg.moe is not None
-    if moe and cfg.moe.n_experts % tp:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.moe.n_experts} experts do not split over "
-            f"{tp} ranks, and splitting their features needs a split K7 "
-            f"({MESH_ITEM})")
-    hkv = (cfg.n_kv_heads // tp if kv_pools_shardable(mesh, cfg.n_kv_heads,
-                                                       tensor)
-           else cfg.n_kv_heads)
-    d_ff = cfg.d_ff if moe or cfg.d_ff % tp else cfg.d_ff // tp
-    return dataclasses.replace(
-        cfg, n_heads=cfg.n_heads // tp, n_kv_heads=hkv, head_dim=cfg.hd,
-        d_ff=d_ff)
 
 
 def shard_for_serving(params: Any, mesh, cfg, tensor: str = "model"

@@ -8,6 +8,10 @@ node, and everything else (a tensor, a Python number, a numpy array) is a
 leaf.  Leaves come in JAX's order: dict keys sorted, sequences and
 NamedTuple fields in order, a quantized tensor's three arrays in order.
 
+The walks are module-level functions: a nested function that calls itself
+is a reference cycle, which would keep its list of leaves (a whole tree of
+card memory) alive until the garbage collector runs.
+
 ``leaves_with_paths`` names each leaf the way the reference's checkpointer
 keys it (``repro/checkpoint/checkpointer.py:_path_str`` over
 ``jax.tree_util.tree_flatten_with_path``): a dict key as itself, a sequence
@@ -66,54 +70,54 @@ def _rebuild(node, children: List[Any]):
                         k_dim=node.k_dim)
 
 
+def _walk_paths(node, path, out: List[Tuple[str, Any]]) -> None:
+    if node is None:
+        return
+    kids = _kids(node)
+    if kids is None:
+        out.append(("/".join(path), node))
+        return
+    for seg, child in zip(_segments(node), kids):
+        _walk_paths(child, path + (seg,), out)
+
+
 def leaves_with_paths(tree) -> List[Tuple[str, Any]]:
     """``[(path, leaf)]`` in leaf order, ``path`` joined with ``/``."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        kids = _kids(node)
-        if kids is None:
-            out.append(("/".join(path), node))
-            return
-        for seg, child in zip(_segments(node), kids):
-            walk(child, path + (seg,))
-
-    walk(tree, ())
+    _walk_paths(tree, (), out)
     return out
+
+
+def _walk(node, out: List[Any]) -> None:
+    if node is None:
+        return
+    kids = _kids(node)
+    if kids is None:
+        out.append(node)
+    else:
+        for child in kids:
+            _walk(child, out)
 
 
 def tree_leaves(tree) -> List[Any]:
     out: List[Any] = []
-
-    def walk(node):
-        if node is None:
-            return
-        kids = _kids(node)
-        if kids is None:
-            out.append(node)
-        else:
-            for child in kids:
-                walk(child)
-
-    walk(tree)
+    _walk(tree, out)
     return out
+
+
+def _build(node, it: Iterator):
+    if node is None:
+        return None
+    kids = _kids(node)
+    if kids is None:
+        return next(it)
+    return _rebuild(node, [_build(c, it) for c in kids])
 
 
 def tree_unflatten(like, leaves) -> Any:
     """A tree of ``like``'s structure holding ``leaves`` in leaf order."""
     it: Iterator = iter(leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        kids = _kids(node)
-        if kids is None:
-            return next(it)
-        return _rebuild(node, [build(c) for c in kids])
-
-    out = build(like)
+    out = _build(like, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree has")
     return out

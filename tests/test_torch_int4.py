@@ -400,7 +400,8 @@ def test_port_and_chip_smoke_import_no_jax():
     """Import every ``repro_torch`` module (the prefix cache, preemption,
     chaos and watchdog modules, the training path's optimizer, step,
     loop, data pipeline, checkpointer and driver, the recurrent
-    families' modules and the multi-GPU modules among them),
+    families' modules and the multi-GPU modules, the training mesh's
+    among them),
     ``chip_smoke`` and the chip tools in a fresh interpreter: neither
     ``jax`` nor ``repro`` may be in ``sys.modules``."""
     code = (
@@ -426,7 +427,9 @@ def test_port_and_chip_smoke_import_no_jax():
         "'repro_torch.distributed.sharding', "
         "'repro_torch.distributed.collectives', 'repro_torch.launch.mesh', "
         "'repro_torch.launch.roofline', 'repro_torch.serving.sharding', "
-        "'repro_torch.serving.router'}\n"
+        "'repro_torch.serving.router', "
+        "'repro_torch.distributed.compression', "
+        "'repro_torch.distributed.context', 'repro_torch.launch.specs'}\n"
         "missing = sorted(want - set(names))\n"
         "print(len(names), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(names) < 20 else 0)\n")

@@ -45,6 +45,7 @@ from repro.train import make_train_step as jmake_train_step
 from repro_torch.checkpoint.bridge import params_from_flat
 from repro_torch.configs import get_config
 from repro_torch.data import LMBatches, TranslationBatches, make_corpus
+from repro_torch.distributed.sharding import TreeSharding
 from repro_torch.models import build_model
 from repro_torch.optim import AdamW, warmup_cosine
 from repro_torch.train import make_loss_fn, make_train_step
@@ -246,10 +247,13 @@ def test_accumulation_equals_mean_of_microbatch_gradients(families):
 
 
 def test_grad_shardings_are_refused(families):
-    _, _, model, _, _ = families["encdec"]
+    """A mesh step runs the dense families; MoE's is refused
+    (``tests/test_torch_sharded_train.py`` runs the others on meshes)."""
+    _, _, model, _, _ = families["moe"]
     with pytest.raises(NotImplementedError,
                        match="multi-GPU and the cost accounting"):
-        make_train_step(model, AdamW(), grad_shardings={"w": None})
+        make_train_step(model, AdamW(),
+                        grad_shardings=TreeSharding(mesh=None, specs=None))
 
 
 def test_lm_batches_drive_the_reference_step_too(families):
