@@ -121,14 +121,14 @@ final line):
    from ``src_embeds`` of 4 × 1500 frames: greedy ``generate`` (K2, K3,
    K4, no plain version), then the prefill and 8 decode steps against the
    plain versions as in 7b;
-7d. the recurrent families at their published widths, zamba2-2.7b at 27
-   of its 54 layers and xlstm-1.3b at 16 of its 48 (phases 5f and 5g
+7d. the recurrent families at their published widths, zamba2-2.7b at 13
+   of its 54 layers and xlstm-1.3b at 8 of its 48 (phases 5f and 5g
    took the time), after 5f, one model at a time: zamba2-2.7b
    (``HybridLM``: Mamba2 layers, d_model 2560, 80 SSD heads of 64, state
    64, chunk 256; a shared attention + GELU block every 6th layer, 32
-   heads of 80: 4 applications at 27 layers) and xlstm-1.3b
-   (``XLSTMLM``: an sLSTM layer after every 7 mLSTM layers, 14 and 2 of
-   them at 16 layers, d_model 2048, 4 heads of 1024); float32 weights
+   heads of 80: 2 applications at 13 layers) and xlstm-1.3b
+   (``XLSTMLM``: an sLSTM layer after every 7 mLSTM layers, 7 and 1 of
+   them at 8 layers, d_model 2048, 4 heads of 1024); float32 weights
    from ``torch.Generator`` seed 0 on the card,
    bf16 activations, phase 7's 16 prompts padded to 46, 24 new tokens,
    cache 80: KL calibration on 8 held-out prompts, then INT8 greedy
@@ -214,34 +214,55 @@ final line):
    plain version may run.  Each rank's seconds, launches, tokens/s beside
    the unsharded runs' and peak memory are logged, and the expert
    gather's bytes a layer;
-5g. training on a mesh on 5e's two ranks (after 5f: mistral-nemo-12b
-   beside phase 7d, the drivers waiting for it to end; transformer-base
-   beside the drivers, checked after them) —
+5g. training on a mesh on 5e's two ranks, as the reference runs its
+   published configs (``remat=True``: each block recomputed in the
+   backward, its FSDP-split leaves gathered as it runs, the residual
+   stream each rank's ``S/tp`` rows between blocks) —
    ``make_train_step(grad_shardings=...)`` with
    ``launch.specs.train_arg_specs``' layout, each rank remaking the whole
-   tree from seed 0 and cutting its shard.  transformer-base at its
-   published widths (phase 4t's weights, optimizer and 32-row batch,
-   float32 activations, TF32 off) trains 3 steps on a ``(2, 1)`` mesh
-   (FSDP: each leaf gathered, its gradient reduce-scattered) and on a
-   ``(1, 2)`` one (tensor parallel: heads, d_ff and vocab split); every
-   step's metrics must equal the other rank's bit for bit and the
-   unsharded step's (run on rank 0) within 1e-5 relative, the gathered
-   first moment after step 1 every gradient leaf within ``1e-4·max|g| +
-   1e-8·‖g‖``, and the gathered parameters after each step within
+   tree from seed 0 and cutting its shard.  In 5f's wait for this
+   process's thresholds (beside phases 7 and 7b): transformer-base at its
+   published widths (phase 4t's
+   weights, optimizer and 32-row batch, float32 activations, TF32 off)
+   trains 2 steps on a ``(2, 1)`` mesh (FSDP) and on a ``(1, 2)`` one
+   (tensor parallel: heads, d_ff and vocab split); every step's metrics
+   must equal the other rank's bit for bit and the unsharded step's (run
+   on rank 0) within 1e-5 relative, the gathered first moment after step
+   1 every gradient leaf within ``1e-4·max|g| + 1e-8·‖g‖``, and the
+   gathered parameters after each step within
    ``tests/test_torch_train.py``'s bounds over the summed learning
-   rates.  Then the same at phase 4t's bf16 activations, timed (ms a
-   step against the unsharded step on rank 0, the FSDP bytes a step,
-   peak memory a rank); ``tree_ef_compressed_mean`` of the ranks' float32
-   gradients of their halves of the batch, counted (K1 once a leaf, no
-   plain version), its means and residuals equal to the plain version's
-   and every code equal (the codes that the reference's division would
-   give otherwise counted), with the two wire formulas; and
-   mistral-nemo-12b at its published widths and 1 of its 40 layers on a
-   ``(1, 2)`` mesh, 2 steps of ``LMBatches`` 8 × 64 with the
-   vocab-parallel cross-entropy at 65536 columns a rank, held to the
-   unsharded step as transformer-base is but on rank 0's half of the
-   tree, cut from the unsharded run's (gathering the 3.77 GB tree
-   through gloo's host path took 30 s);
+   rates; (c) and (b)'s unsharded step below.  After 5f, beside phase
+   7d and the drivers:
+   (a) ``train_loop`` with a ``Checkpointer`` on ``(2, 1)`` for 2
+   steps and its save (whole arrays: the unsharded tree's keys, shapes
+   and dtypes), restored onto ``(1, 2)`` and onto the unsharded model on
+   rank 0, one more step each within 1e-5 of the unsharded run's third,
+   the save and restore seconds logged.  ``tree_ef_compressed_mean`` of
+   the ranks' float32 gradients of their halves of the batch, counted
+   (K1 once a leaf, no plain version), its means and residuals equal to
+   the plain version's and every code equal (the codes that the
+   reference's division would give otherwise counted), with the two wire
+   formulas.  (c), run earlier: granite-moe-1b-a400m at its published
+   widths and 2 of
+   its 24 layers (32 experts top-8, float32, ``LMBatches`` 8 × 256, one
+   step) on ``(1, 2)`` (16 experts a rank) and ``(2, 1)``: loss,
+   ce_loss, load_balance_loss and grad_norm within 1e-5 of the unsharded
+   step, each layer's dropped fraction (forward and recomputation) equal
+   to it.  Then the same transformer-base at phase 4t's bf16
+   activations, timed (ms a step against the unsharded step on rank 0,
+   the FSDP bytes a step, peak memory a rank).  (b) mistral-nemo-12b at
+   its published widths and 2 of its 40 layers (float32, ``LMBatches`` 8
+   × 64, one step): rank 0's unsharded step in 5f's wait, the ``(1,
+   2)`` step (remat on) beside the drivers, the ``(2, 1)`` ones (the
+   tied table whole on each rank) last, once this process marks the
+   card free, with the card to the ranks; on ``(2, 1)``, where FSDP
+   gathers, the step with ``remat`` off (autograd keeps every gathered
+   leaf, standing in for the removed gather of the whole tree at the
+   step's start) and on; each held to the unsharded step on rank 0's own
+   shard (gathering the tree through gloo's host path takes tens of
+   seconds), the two to each other bit for bit on every rank, with each
+   one's ms, memory at the loss, peak to the update and peak; the loss
+   vocab-parallel at 65536 columns a rank on ``(1, 2)``;
 4t. train → calibrate → quantize → translate (after 5e; its MoE step
    just before phase 7) — a full-width transformer-base training step
    (phase 4's weights, bf16 activations, ``AdamW(lr=warmup_cosine(2e-3,
@@ -249,7 +270,9 @@ final line):
    the step on the card against the same step on the CPU on 8 rows (loss
    within 1e-4 and gradient norm within 5e-3 relative), 20 steps on one
    batch (the loss must fall; ms a step from CUDA events, median of steps
-   5-20, target tokens/s, peak memory), one step with ``accum_steps=2``
+   5-20, target tokens/s, peak memory), the same 20 steps with ``remat``
+   off beside them (ms, peak, the ratio, whether the losses are the same
+   bits), one step with ``accum_steps=2``
    (loss and gradient norm within 1e-5 of the mean of the two halves'
    losses and gradients, taken with ``torch.autograd`` outside the step)
    and one with ``mixed_precision`` (loss within 1e-4 and gradient norm
@@ -2170,9 +2193,10 @@ def tp_rank(rank: int, world: int, rdzv: str, paths: dict) -> None:
     world)`` mesh, phase 4's weights cut to this rank's shard,
     :func:`tp_runs`, its results to ``paths["outs"][rank]``; then phase
     5f's :func:`decoder_tp_runs` on the same mesh, to
-    ``paths["outs_5f"][rank]``; then phase 5g's :func:`train_tp_runs`, to
-    ``paths["outs_5g"][rank]``.  A traceback goes to
-    ``paths["errs"][rank]``."""
+    ``paths["outs_5f"][rank]`` (phase 5g's :func:`train_tp_first` in its
+    wait for this process's thresholds); then phase 5g's
+    :func:`train_tp_runs`, to ``paths["outs_5g"][rank]``.  A traceback
+    goes to ``paths["errs"][rank]``."""
     import traceback
     import torch
     import torch.distributed as dist
@@ -2198,10 +2222,13 @@ def tp_rank(rank: int, world: int, rdzv: str, paths: dict) -> None:
             save_atomic(out, paths["outs"][rank])
             del saved, model, out
             torch.cuda.empty_cache()
-            save_atomic(decoder_tp_runs(mesh, rank, paths, t0),
-                        paths["outs_5f"][rank])
+            first = {}
+            save_atomic(decoder_tp_runs(
+                mesh, rank, paths, t0,
+                idle=lambda: first.update(train_tp_first(rank))),
+                paths["outs_5f"][rank])
             torch.cuda.empty_cache()
-            save_atomic(train_tp_runs(rank, paths["dense_done_5g"][rank]),
+            save_atomic(train_tp_runs(rank, paths, first),
                         paths["outs_5g"][rank])
         finally:
             dist.destroy_process_group()
@@ -2230,8 +2257,8 @@ def start_tp_ranks() -> dict:
                           for r in range(TP)],
                  outs_5g=[os.path.join(tmp, f"rank{r}-5g.pt")
                           for r in range(TP)],
-                 dense_done_5g=[os.path.join(tmp, f"rank{r}-5g-dense")
-                                for r in range(TP)],
+                 ckpt_5g=os.path.join(tmp, "ckpt-5g"),
+                 card_5g=os.path.join(tmp, "card-5g"),
                  errs=[os.path.join(tmp, f"rank{r}.err")
                        for r in range(TP)],
                  recs={m: os.path.join(tmp, f"recs-{m}.pt")
@@ -2454,15 +2481,16 @@ def decoder_run(engine, batch, call: str, new: int = MAX_NEW):
             engine.generate_beam(batch, beam=BEAM, max_new_tokens=new))
 
 
-def decoder_tp_runs(mesh, rank: int, paths: dict, t_start: float) -> dict:
+def decoder_tp_runs(mesh, rank: int, paths: dict, t_start: float,
+                    idle=None) -> dict:
     """Phase 5f on one rank (after 5e, on its mesh): ``TP_DECODER_RUNS``
     at the published widths and phases 7's and 7b's depths.  Each tree is
     remade here from seed 0 and quantized whole (per-channel scales span
     the whole input dimension), then the engine cuts this rank's shard;
     the dynamic runs wait for ``paths["go"]`` and mark their end
     (``paths["dynamic_done"][rank]``), the static ones wait for this
-    process's thresholds (``paths["recs"]``).  Each run is counted with no
-    plain version
+    process's thresholds (``paths["recs"]``), after ``idle()`` (other
+    work for the wait).  Each run is counted with no plain version
     allowed; then the prefill's and the first decode steps' logits.
     Returns the outcomes, launches, logits, seconds and peak memory."""
     import torch
@@ -2484,6 +2512,11 @@ def decoder_tp_runs(mesh, rank: int, paths: dict, t_start: float) -> dict:
         if act == "static":
             if not os.path.exists(paths["dynamic_done"][rank]):
                 open(paths["dynamic_done"][rank], "w").close()
+            if idle is not None:
+                t = time.perf_counter()
+                idle()
+                idle = None
+                out["seconds"]["idle work"] = time.perf_counter() - t
             t = time.perf_counter()
             wait_for_file(paths["recs"][m] + ".ready", deadline,
                           f"phase 5f's {m} thresholds")
@@ -2617,17 +2650,30 @@ def check_decoder_tp(tp_ranks: dict, want: dict, moe_cfg) -> dict:
 
 # model -> (arch, config overrides): phase 4t's transformer-base with
 # float32 activations (the parity runs) and as phase 4t runs it (bf16
-# activations, the timed runs), and mistral-nemo-12b at its published
-# widths and 1 of its 40 layers (float32 activations)
+# activations, the timed runs), mistral-nemo-12b at its published widths
+# and 2 of its 40 layers, and phase 7's granite-moe-1b-a400m at its
+# published widths and 2 of its 24 layers (float32 activations); every
+# config has the reference's remat=True
 TRAIN_TP_MODELS = {"encdec": ("transformer-base", dict(dtype="float32")),
                    "encdec bf16": ("transformer-base", {}),
-                   "dense": (DENSE_ARCH, dict(n_layers=1, dtype="float32"))}
-TRAIN_TP_MESHES = ((2, 1), (1, 2))     # transformer-base's meshes
-TRAIN_TP_STEPS = 3                     # its parity steps on each mesh
-TRAIN_TP_TIMED = 3                     # bf16 steps timed, after a warm-up
-DENSE_TRAIN_MESH = (1, 2)
-DENSE_TRAIN_STEPS = 2
+                   "dense": (DENSE_ARCH, dict(n_layers=2, dtype="float32")),
+                   "moe": (MOE_ARCH, dict(n_layers=MOE_LAYERS,
+                                          dtype="float32"))}
+TRAIN_TP_MESHES = ((2, 1), (1, 2))     # every model's meshes
+# transformer-base's parity steps on each mesh (the unsharded run takes
+# one more: the checkpointed loop's restored step is held to it)
+TRAIN_TP_STEPS = 2
+TRAIN_TP_TIMED = 2                     # bf16 steps timed, after a warm-up
+CKPT_STEPS = 2                         # the checkpointed (2, 1) loop's
+# mistral-nemo-12b's mesh steps: the gather a layer (remat) on each mesh,
+# and on (2, 1), where FSDP gathers, remat off beside it (every gathered
+# leaf kept for the backward); (1, 2) beside the drivers, (2, 1) last,
+# with the card to itself
+DENSE_TRAIN_RUNS = {(1, 2): ("remat",), (2, 1): ("plain", "remat")}
+DENSE_TRAIN_STEPS = 1
 DENSE_TRAIN_BATCH = (8, 64)            # LMBatches rows, sequence length
+# 1024 tokens a data rank of (2, 1): whole routing groups of 1024
+MOE_TP_BATCH = (8, 256)
 # tests/test_torch_train.py's tolerances: metrics 1e-5 relative; every
 # gradient leaf |Δ| ≤ 1e-4·max|g| + 1e-8·‖g‖; the parameters within
 # 1e-2·Σlr where the first moment has been 100 times its tolerance at
@@ -2659,12 +2705,51 @@ def tp_train_model(name: str, device: str = "cuda"):
         batch = TranslationBatches(make_corpus(800, cfg.vocab, seed=0),
                                    TRAIN_BATCH,
                                    sort_mode="tokens").next_batch()
-        n = TRAIN_TP_TIMED + 1 if name.endswith("bf16") else TRAIN_TP_STEPS
+        n = TRAIN_TP_TIMED + 1 if name.endswith("bf16") else CKPT_STEPS + 1
         batches = [batch] * n
     else:
-        src = LMBatches(cfg.vocab, *DENSE_TRAIN_BATCH)
+        src = LMBatches(cfg.vocab, *(MOE_TP_BATCH if cfg.moe else
+                                     DENSE_TRAIN_BATCH))
         batches = [src.next_batch() for _ in range(DENSE_TRAIN_STEPS)]
     return model, make, AdamW(lr=warmup_cosine(2e-3, 2, 20)), batches
+
+
+def grad_peak_adamw(opt):
+    """``opt`` (an ``AdamW``) that appends the card's peak memory so far to
+    its ``peaks`` as each update starts: the peak of a step's forward and
+    backward, where the gathered leaves live (the whole step's peak is the
+    update's, its scratch trees)."""
+    import torch
+    from repro_torch.optim import AdamW
+
+    @dataclasses.dataclass(frozen=True)
+    class GradPeakAdamW(AdamW):
+        peaks: list = dataclasses.field(default_factory=list, compare=False)
+
+        def update(self, *args, **kw):
+            self.peaks.append(torch.cuda.max_memory_allocated())
+            return super().update(*args, **kw)
+
+    return GradPeakAdamW(**{f.name: getattr(opt, f.name)
+                            for f in dataclasses.fields(opt)})
+
+
+class RepeatBatches:
+    """One batch every step, with the iterator state ``train_loop``
+    checkpoints (phase 4t's batch for the checkpointed loop)."""
+
+    def __init__(self, batch):
+        self.batch, self.n = batch, 0
+
+    def next_batch(self):
+        self.n += 1
+        return self.batch
+
+    def state_dict(self):
+        return {"n": self.n}
+
+    def load_state_dict(self, state):
+        self.n = state["n"]
 
 
 def unsharded_train(model, params, opt, batches, ms=None, keep=None
@@ -2726,24 +2811,27 @@ def cut_tree(model, params, batch, mesh):
 
 
 def sharded_train(model, opt, batches, mesh, specs, p, rank: int,
-                  want=None, gather: bool = True) -> dict:
+                  want=None, gather: bool = True, s=None,
+                  keep_final: bool = False) -> dict:
     """``make_train_step(grad_shardings=...)`` on ``mesh`` over
-    ``batches`` from this rank's shard ``p`` (:func:`cut_tree`): each
-    step's metrics and host ms (a synchronise before and after).  With
-    ``want`` (:func:`unsharded_train`, rank 0's; None on the others; False
-    for a timed run), the gathered parameters after each step and the
-    gathered first moment after the first (``0.1 ×`` the clipped
-    gradient) against it leaf by leaf: the worst ratios of each
-    difference to its bound (``"params"``: everywhere, where sure;
-    ``"grads"``).  ``gather`` False holds rank 0's own shard to its cut
-    of ``want`` instead of the gathered trees (:func:`worst_ratio`)."""
+    ``batches`` from this rank's shard ``p`` (:func:`cut_tree`) and ``s``
+    (by default a fresh state): each step's metrics and host ms (a
+    synchronise before and after).  With ``want`` (:func:`unsharded_train`,
+    rank 0's; None on the others; False for a timed run), the gathered
+    parameters after each step and the gathered first moment after the
+    first (``0.1 ×`` the clipped gradient) against it leaf by leaf: the
+    worst ratios of each difference to its bound (``"params"``:
+    everywhere, where sure; ``"grads"``).  ``gather`` False holds rank
+    0's own shard to its cut of ``want`` instead of the gathered trees
+    (:func:`worst_ratio`).  ``keep_final``: this rank's final parameters
+    and first moment, on the host (``"final"``)."""
     import torch
     from repro_torch.distributed.sharding import TreeSharding, spec_leaves
     from repro_torch.train import make_train_step
-    from repro_torch.tree import leaves_with_paths
+    from repro_torch.tree import leaves_with_paths, tree_map
     step = make_train_step(model, opt,
                            grad_shardings=TreeSharding(mesh, specs))
-    s = opt.init(p)
+    s = opt.init(p) if s is None else s
     leaf_specs = spec_leaves(p, specs)
     out = {"metrics": [], "ms": [], "params": [0.0, 0.0], "grads": 0.0}
     lr = 0.0
@@ -2806,6 +2894,8 @@ def sharded_train(model, opt, batches, mesh, specs, p, rank: int,
         if i == 0:
             out["grads"] = worst_ratio(s.m, leaf_specs, mesh, rank,
                                        grad_ratio, gather)
+    if keep_final:
+        out["final"] = tree_map(lambda x: x.to("cpu"), (p, s.m))
     return out
 
 
@@ -2881,40 +2971,16 @@ def compress_on_ranks(model, params, batch, rank: int, counts: dict
             "launches": counts["5g compress"]}
 
 
-def train_tp_runs(rank: int, dense_done: str) -> dict:
-    """Phase 5g on one rank, after 5f: mistral-nemo-12b at 1 layer on
-    ``DENSE_TRAIN_MESH`` with the vocab-parallel loss (the calls of
-    ``vocab_parallel_cross_entropy`` counted; rank 0's unsharded run kept
-    on the host), its end marked at ``dense_done``; then
-    transformer-base's parity runs (float32
-    activations, ``TRAIN_TP_STEPS`` steps on each of ``TRAIN_TP_MESHES``,
-    rank 0 holding the unsharded run), the compressor on the ranks'
-    gradients, and transformer-base's timed runs (bf16 activations: the
-    unsharded step on rank 0 alone, then each mesh).  Returns the
-    metrics, ratios, ms, bytes, launches, seconds and peak memory."""
+def dense_unsharded(rank: int, out: dict) -> dict:
+    """mistral-nemo-12b at 2 layers: rank 0's unsharded step, its trees
+    kept on the host.  Returns the model, its weights' maker, the
+    optimizer, the batches and that run (None on the other ranks), for
+    :func:`dense_mesh_runs`."""
     import torch
-    import torch.distributed as dist
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.train import step as step_mod
-    out, counts = {"seconds": {}}, {}
-    meshes = {s: make_host_mesh(*s) for s in
-              sorted(set(TRAIN_TP_MESHES) | {DENSE_TRAIN_MESH})}
-    t0 = t = time.perf_counter()
-
-    calls = []
-    real = step_mod.vocab_parallel_cross_entropy
-
-    def counted(shard, *args):
-        calls.append(tuple(shard.logits.shape))
-        return real(shard, *args)
-
+    t = time.perf_counter()
     model, make, opt, batches = tp_train_model("dense")
-    mesh = meshes[DENSE_TRAIN_MESH]
-    specs, p = cut_tree(model, make(), batches[0], mesh)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    # the unsharded run's trees go to the host, out of the way of phase
-    # 7d beside it
     want = unsharded_train(model, make(), opt, batches, keep="cpu") \
         if rank == 0 else None
     torch.cuda.empty_cache()
@@ -2922,22 +2988,206 @@ def train_tp_runs(rank: int, dense_done: str) -> dict:
     if rank == 0:
         out["dense unsharded"] = [w[0] for w in want]
     out["dense unsharded peak"] = torch.cuda.max_memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
+    return dict(model=model, make=make, opt=opt, batches=batches, want=want)
+
+
+def dense_mesh_runs(rank: int, meshes: dict, out: dict, shape,
+                    dense: dict) -> None:
+    """mistral-nemo-12b at 2 layers on ``shape``: the mesh step of each
+    of ``DENSE_TRAIN_RUNS[shape]``, ``"remat"`` (a gather a layer) and
+    ``"plain"`` (remat off: autograd keeps every gathered leaf, as a
+    gather of the whole tree at the step's start did), each held to the
+    unsharded step of ``dense`` (:func:`dense_unsharded`; rank 0's own
+    shard), the two to each other bit for bit (every rank's shard), each
+    one's memory at the loss, peak and ms.  The vocab-parallel
+    cross-entropy's calls are counted into ``out``."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.train import step as step_mod
+    from repro_torch.tree import tree_leaves
+    calls, at_loss = out.setdefault("dense ce calls", []), []
+    real = step_mod.vocab_parallel_cross_entropy
+    real_ce = step_mod.softmax_cross_entropy
+
+    def counted(shard, *args):
+        calls.append(tuple(shard.logits.shape))
+        return real(shard, *args)
+
+    def noted(*args):
+        # the forward's end: what autograd holds for the backward (every
+        # gathered leaf without remat), and the peak so far
+        at_loss.append((torch.cuda.memory_allocated(),
+                        torch.cuda.max_memory_allocated()))
+        return real_ce(*args)
+
+    model, make, opt, batches, want = (dense[k] for k in (
+        "model", "make", "opt", "batches", "want"))
+    models = {"remat": model,
+              "plain": build_model(dataclasses.replace(model.cfg,
+                                                       remat=False),
+                                   device="cuda")}
+    names = DENSE_TRAIN_RUNS[shape]
     step_mod.vocab_parallel_cross_entropy = counted
+    step_mod.softmax_cross_entropy = noted
     try:
-        # rank 0's half is held to the unsharded run: gathering 3.77 GB
-        # through gloo's host path three times took 30 s
-        out[f"dense {DENSE_TRAIN_MESH}"] = sharded_train(
-            model, opt, batches, mesh, specs, p, rank, want, gather=False)
+        t = time.perf_counter()
+        specs, p = cut_tree(model, make(), batches[0], meshes[shape])
+        finals = []
+        for name in names:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            peaked = grad_peak_adamw(opt)
+            at_loss.clear()
+            # rank 0's half is held to the unsharded run: gathering the
+            # tree through gloo's host path takes tens of seconds
+            res = sharded_train(models[name], peaked, batches,
+                                meshes[shape], specs, p, rank, want,
+                                gather=False, keep_final=len(names) > 1)
+            res["peak"] = torch.cuda.max_memory_allocated()
+            res["grad peak"] = peaked.peaks[0]
+            res["at loss"] = at_loss[0]
+            if "final" in res:
+                finals.append(res.pop("final"))
+            out[f"dense {shape} {name}"] = res
+        if finals:
+            out[f"dense {shape} same bits"] = all(
+                torch.equal(x, y) for x, y in zip(tree_leaves(finals[0]),
+                                                  tree_leaves(finals[1])))
+        del p, finals
+        torch.cuda.empty_cache()
+        out["seconds"][f"dense {shape}"] = time.perf_counter() - t
     finally:
         step_mod.vocab_parallel_cross_entropy = real
-    out["dense ce calls"] = calls
-    out["dense peak"] = torch.cuda.max_memory_allocated()
-    del model, p, want
-    torch.cuda.empty_cache()
-    out["seconds"]["dense"] = time.perf_counter() - t
-    open(dense_done, "w").close()
+        step_mod.softmax_cross_entropy = real_ce
 
+
+def ckpt_runs(rank: int, model, params, opt, batches, want, meshes: dict,
+              directory: str, out: dict) -> None:
+    """Phase 5g (a): ``train_loop`` with a ``Checkpointer`` on (2, 1) for
+    ``CKPT_STEPS`` steps of phase 4t's batch, saved (whole arrays, one
+    writer); restored onto (1, 2) on the ranks and onto the unsharded
+    model on rank 0, one more step on each.  Records every step's
+    metrics, the save's and restores' seconds and (rank 0) the saved
+    keys, shapes and dtypes against the unsharded tree's."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.distributed.sharding import (TreeSharding,
+                                                  shard_opt_state,
+                                                  shard_params)
+    from repro_torch.train import make_train_step, train_loop
+    from repro_torch.tree import leaves_with_paths
+    mesh = meshes[(2, 1)]
+    specs, p = cut_tree(model, params, batches[0], mesh)
+    ck = Checkpointer(directory)
+    secs = {}
+    real = ck.save
+
+    def timed_save(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return real(*args, **kw)
+        finally:
+            secs["save"] = time.perf_counter() - t
+
+    ck.save = timed_save
+    step = make_train_step(model, opt,
+                           grad_shardings=TreeSharding(mesh, specs))
+    res = train_loop(train_step=step, params=p, opt_state=shard_opt_state(
+        opt.init(params), specs, mesh, mesh.coords),
+        batches=RepeatBatches(batches[0]), steps=CKPT_STEPS, checkpointer=ck,
+        log_every=1)
+    out["ckpt loop"] = [{k: v for k, v in h.items() if k != "step"}
+                        for h in res["history"]]
+    del res, p
+    if rank == 0:
+        with np.load(os.path.join(directory, f"step_{CKPT_STEPS:08d}",
+                                  "arrays.npz")) as data:
+            saved = {k: (tuple(data[k].shape), str(data[k].dtype))
+                     for k in data.files}
+        whole = {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+                 for k, v in leaves_with_paths((params, opt.init(params)))}
+        out["ckpt layout"] = (saved == whole, len(saved),
+                              sum(int(np.prod(x[0])) for x in
+                                  saved.values()))
+    mesh = meshes[(1, 2)]
+    specs = cut_tree(model, params, batches[0], mesh)[0]
+    state = shard_opt_state(opt.init(params), specs, mesh, mesh.coords)
+    t = time.perf_counter()
+    p, s = Checkpointer(directory).restore(
+        (shard_params(params, specs, mesh, mesh.coords), state),
+        shardings=TreeSharding(mesh, (specs, state._replace(
+            step=(), m=specs, v=specs))))
+    secs["restore (1, 2)"] = time.perf_counter() - t
+    out["ckpt (1, 2)"] = sharded_train(model, opt, batches[CKPT_STEPS:],
+                                       mesh, specs, p, rank, want=False,
+                                       s=s)["metrics"]
+    del p, s
+    if rank == 0:
+        t = time.perf_counter()
+        p, s = Checkpointer(directory).restore((params, opt.init(params)))
+        secs["restore unsharded"] = time.perf_counter() - t
+        step = make_train_step(model, opt)
+        (_, _), m = step(p, s, batches[CKPT_STEPS])
+        out["ckpt unsharded"] = [{k: float(v) for k, v in m.items()}]
+        del p, s, m
+    out["ckpt seconds"] = secs
+    torch.cuda.empty_cache()
+
+
+def moe_mesh_runs(rank: int, meshes: dict, out: dict) -> None:
+    """Phase 5g (c): granite-moe-1b-a400m at 2 layers (32 experts top-8):
+    rank 0's unsharded step, then the mesh step on each of
+    ``TRAIN_TP_MESHES`` (16 experts a rank on (1, 2)), each step's
+    metrics and every MoE layer's dropped fraction as the forward and
+    remat's recomputation compute it."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.train import make_train_step
+    model, make, opt, batches = tp_train_model("moe")
+    real = transformer.moe_ffn
+    dropped = []
+
+    def record(*args, **kw):
+        y, aux = real(*args, **kw)
+        dropped.append(float(aux["dropped_fraction"]))
+        return y, aux
+
+    transformer.moe_ffn = record
+    try:
+        params = make()
+        if rank == 0:
+            step = make_train_step(model, opt)
+            (_, _), m = step(params, opt.init(params), batches[0])
+            out["moe unsharded"] = ([{k: float(v) for k, v in m.items()}],
+                                    list(dropped))
+            del m
+        for shape in TRAIN_TP_MESHES:
+            dropped.clear()
+            specs, p = cut_tree(model, params, batches[0], meshes[shape])
+            res = sharded_train(model, opt, batches, meshes[shape], specs,
+                                p, rank, want=False)
+            out[f"moe {shape}"] = (res["metrics"], list(dropped))
+            del p
+    finally:
+        transformer.moe_ffn = real
+    del params
+    torch.cuda.empty_cache()
+
+
+def train_tp_first(rank: int) -> dict:
+    """Phase 5g's first runs on one rank (in 5f's wait for this process's
+    thresholds, beside phases 7 and 7b): transformer-base's parity runs
+    (float32 activations, ``TRAIN_TP_STEPS`` steps on each of
+    ``TRAIN_TP_MESHES``, rank 0 holding the unsharded run), (c) the MoE
+    runs (:func:`moe_mesh_runs`) and (b)'s unsharded mistral-nemo-12b
+    step (:func:`dense_unsharded`).  Returns the state
+    :func:`train_tp_runs` goes on from."""
+    from repro_torch.distributed.context import prepare_remat
+    from repro_torch.launch.mesh import make_host_mesh
+    out = {"seconds": {}}
+    meshes = {s: make_host_mesh(*s) for s in TRAIN_TP_MESHES}
+    prepare_remat()            # on every rank before any timed step
     t = time.perf_counter()
     model, make, opt, batches = tp_train_model("encdec")
     params = make()
@@ -2947,13 +3197,40 @@ def train_tp_runs(rank: int, dense_done: str) -> dict:
         out["encdec unsharded"] = [w[0] for w in want]
     for shape in TRAIN_TP_MESHES:
         out[f"encdec {shape}"] = sharded_train(
-            model, opt, batches, meshes[shape],
+            model, opt, batches[:TRAIN_TP_STEPS], meshes[shape],
             *cut_tree(model, params, batches[0], meshes[shape]), rank, want)
+    out["seconds"]["encdec parity"] = time.perf_counter() - t
+    t = time.perf_counter()
+    moe_mesh_runs(rank, meshes, out)
+    out["seconds"]["moe"] = time.perf_counter() - t
+    dense = dense_unsharded(rank, out)
+    return {"out": out, "meshes": meshes, "dense": dense,
+            "encdec": (model, params, opt, batches, want)}
+
+
+def train_tp_runs(rank: int, paths: dict, first=None) -> dict:
+    """Phase 5g on one rank, after 5f (and :func:`train_tp_first`, run
+    here where ``first`` is empty): (a) transformer-base's checkpointed
+    loop and its restores (:func:`ckpt_runs`, in ``paths["ckpt_5g"]``), the
+    compressor on the ranks' gradients and transformer-base's timed runs
+    (bf16 activations: the unsharded step on rank 0 alone, then each
+    mesh) and (b) mistral-nemo-12b at 2 layers on (1, 2), beside phase 7d
+    and the drivers; then, once ``paths["card_5g"]`` marks the card free,
+    (b) on (2, 1) (:func:`dense_mesh_runs`).  Returns the metrics,
+    ratios, ms, bytes, launches, seconds and peak memory."""
+    import torch
+    import torch.distributed as dist
+    first = first or train_tp_first(rank)
+    out, meshes, counts = first["out"], first["meshes"], {}
+    model, params, opt, batches, want = first.pop("encdec")
+    t0 = t = time.perf_counter()
+    ckpt_runs(rank, model, params, opt, batches, want, meshes,
+              paths["ckpt_5g"], out)
+    out["seconds"]["encdec checkpoint"] = time.perf_counter() - t
     del want
     out["compress"] = compress_on_ranks(model, params, batches[0], rank,
                                         counts)
     del model, params
-    out["seconds"]["encdec parity"] = time.perf_counter() - t
 
     t = time.perf_counter()
     model, make, opt, batches = tp_train_model("encdec bf16")
@@ -2978,30 +3255,35 @@ def train_tp_runs(rank: int, dense_done: str) -> dict:
     del model, params
     torch.cuda.empty_cache()
     out["seconds"]["encdec timed"] = time.perf_counter() - t
-    out["seconds"]["all"] = time.perf_counter() - t0
+    dense = first.pop("dense")
+    dense_mesh_runs(rank, meshes, out, (1, 2), dense)
+    # the (2, 1) ranks (the tied table whole on each) need the card to
+    # themselves: the main process marks it free once its phases are done
+    t = time.perf_counter()
+    wait_for_file(paths["card_5g"], t + TRAIN_TP_TIMEOUT_S,
+                  "the card to itself")
+    out["seconds"]["card wait"] = time.perf_counter() - t
+    dense_mesh_runs(rank, meshes, out, (2, 1), dense)
+    out["seconds"]["after 5f"] = time.perf_counter() - t0
     return out
-
-
-def end_dense_train_tp(tp_ranks: dict) -> None:
-    """Wait for phase 5g's mistral-nemo-12b runs on the ranks to end."""
-    t0 = time.perf_counter()
-    wait_for_ranks(tp_ranks, tp_ranks["dense_done_5g"], TRAIN_TP_TIMEOUT_S,
-                   "5g", load=False)
-    log(f"5g: waited {time.perf_counter() - t0:.1f} s for the ranks' "
-        "mistral-nemo-12b runs")
 
 
 def check_train_tp(tp_ranks: dict) -> dict:
     """Phase 5g's results: every rank's metrics equal the other's bit for
     bit and, on rank 0, the unsharded runs' within ``TRAIN_TP_RTOL``; the
-    gathered gradients and parameters within their bounds (every ratio ≤
-    1); the compressor's means equal the plain version's and K1 launched;
-    mistral's loss vocab-parallel on every step.  Then the ranks are
-    joined.  Logs ms a step against the unsharded step, the FSDP bytes,
-    peak memory and seconds.  Returns the compressor's launch counts."""
+    gradients and parameters within their bounds (every ratio ≤ 1);
+    mistral's remat and plain mesh steps the same bits on every rank, its
+    loss vocab-parallel on (1, 2); the checkpointed loop's checkpoint an
+    unsharded run's layout and its restored steps within
+    ``TRAIN_TP_RTOL``; the MoE's metrics and dropped fractions; the
+    compressor's means equal the plain version's and K1 launched.  Then
+    the ranks are joined.  Logs ms a step against the unsharded step, the
+    FSDP bytes, peak memory and seconds.  Returns the compressor's launch
+    counts."""
     import shutil
     import statistics
     t0 = time.perf_counter()
+    open(tp_ranks["card_5g"], "w").close()   # the (2, 1) runs may start
     try:
         ranks = wait_for_ranks(tp_ranks, tp_ranks["outs_5g"],
                                TRAIN_TP_TIMEOUT_S, "5g")
@@ -3014,47 +3296,121 @@ def check_train_tp(tp_ranks: dict) -> dict:
         shutil.rmtree(tp_ranks["tmp"], ignore_errors=True)
     log(f"5g: waited {time.perf_counter() - t0:.1f} s for the ranks")
     r0 = ranks[0]
-    for name, shapes, want in (
-            ("encdec", TRAIN_TP_MESHES, r0["encdec unsharded"]),
-            ("dense", (DENSE_TRAIN_MESH,), r0["dense unsharded"])):
-        for shape in shapes:
-            key = f"{name} {shape}"
-            got = r0[key]
-            for r, other in enumerate(ranks[1:], 1):
-                if other[key]["metrics"] != got["metrics"]:
-                    raise AssertionError(f"5g {key}: rank {r}'s metrics "
-                                         "differ from rank 0's")
-            rels = [max(rel(g[k], w[k]) for k in ("loss", "ce_loss",
-                                                  "grad_norm", "lr"))
-                    for g, w in zip(got["metrics"], want)]
-            log(f"5g {key}: loss "
-                + ", ".join(f"{g['loss']:.6f}" for g in got["metrics"])
-                + " (unsharded " + ", ".join(f"{w['loss']:.6f}"
-                                             for w in want)
-                + f"), grad_norm {got['metrics'][0]['grad_norm']:.6f}; "
-                f"largest relative metric difference {max(rels):.2e} "
-                f"(bound {TRAIN_TP_RTOL}); "
-                + ("gathered" if name == "encdec" else "rank 0's half of the")
-                + f" gradients at {got['grads']:.3f} of their bound, "
-                f"parameters at "
-                f"{got['params'][0]:.3f} (everywhere) and "
-                f"{got['params'][1]:.3f} (where sure) of theirs; ms a step "
-                + ", ".join(f"{x:.1f}" for x in got["ms"]))
-            if max(rels) > TRAIN_TP_RTOL or got["grads"] > 1 or \
-                    max(got["params"]) > 1 or len(got["metrics"]) != \
-                    len(want):
-                raise AssertionError(f"5g {key} differs from the "
-                                     "unsharded step")
+
+    def same_on_ranks(key, part=lambda x: x["metrics"]):
+        for r, other in enumerate(ranks[1:], 1):
+            if part(other[key]) != part(r0[key]):
+                raise AssertionError(f"5g {key}: rank {r}'s metrics "
+                                     "differ from rank 0's")
+
+    def worst_rel(got, want, keys=("loss", "ce_loss", "grad_norm", "lr")):
+        if len(got) != len(want):
+            raise AssertionError(f"5g: {len(got)} steps against "
+                                 f"{len(want)}")
+        return max(rel(g[k], w[k]) for g, w in zip(got, want) for k in keys)
+
+    runs = [(f"encdec {shape}", r0["encdec unsharded"][:TRAIN_TP_STEPS])
+            for shape in TRAIN_TP_MESHES] + [
+        (f"dense {shape} {v}", r0["dense unsharded"])
+        for shape, names in DENSE_TRAIN_RUNS.items() for v in names]
+    for key, want in runs:
+        got = r0[key]
+        same_on_ranks(key)
+        worst = worst_rel(got["metrics"], want)
+        log(f"5g {key}: loss "
+            + ", ".join(f"{g['loss']:.6f}" for g in got["metrics"])
+            + " (unsharded " + ", ".join(f"{w['loss']:.6f}" for w in want)
+            + f"), grad_norm {got['metrics'][0]['grad_norm']:.6f}; "
+            f"largest relative metric difference {worst:.2e} "
+            f"(bound {TRAIN_TP_RTOL}); "
+            + ("gathered" if key.startswith("encdec") else
+               "rank 0's half of the")
+            + f" gradients at {got['grads']:.3f} of their bound, "
+            f"parameters at {got['params'][0]:.3f} (everywhere) and "
+            f"{got['params'][1]:.3f} (where sure) of theirs; ms a step "
+            + ", ".join(f"{x:.1f}" for x in got["ms"])
+            + (f"; max_memory_allocated "
+               + ", ".join(f"rank {r} {x[key]['grad peak']} B to the "
+                           f"update, {x[key]['peak']} B in all"
+                           for r, x in enumerate(ranks))
+               if "peak" in got else ""))
+        if worst > TRAIN_TP_RTOL or got["grads"] > 1 or \
+                max(got["params"]) > 1:
+            raise AssertionError(f"5g {key} differs from the unsharded "
+                                 "step")
+    for shape in [s for s, v in DENSE_TRAIN_RUNS.items() if len(v) > 1]:
+        plain, remat = (r0[f"dense {shape} {v}"] for v in ("plain",
+                                                            "remat"))
+        bits = [x[f"dense {shape} same bits"] for x in ranks]
+        log(f"5g dense {shape}: remat against remat off: metrics "
+            + ("bit for bit" if plain["metrics"] == remat["metrics"]
+               else "differ")
+            + f", every rank's parameters and first moment the same bits: "
+            f"{bits}; a rank's memory at the loss (allocated, peak so "
+            "far), remat off (every gathered leaf kept for the backward, "
+            "as a gather of the whole tree at the step's start kept it) "
+            + ", ".join(f"{x[f'dense {shape} plain']['at loss']} B"
+                        for x in ranks)
+            + ", remat on (a gather a layer) "
+            + ", ".join(f"{x[f'dense {shape} remat']['at loss']} B"
+                        for x in ranks))
+        if plain["metrics"] != remat["metrics"] or not all(bits):
+            raise AssertionError(f"5g dense {shape}: remat changed the "
+                                 "step")
     calls = r0["dense ce calls"]
     log(f"5g dense: vocab-parallel cross-entropy calls {len(calls)}, "
-        f"logits {calls[0] if calls else None} a rank; max_memory_allocated "
-        f"of the sharded steps " + ", ".join(f"{r['dense peak']} B"
-                                             for r in ranks)
-        + f" (rank 0's unsharded run before them "
-        f"{r0['dense unsharded peak']} B)")
+        f"logits {calls[0] if calls else None} a rank; rank 0's unsharded "
+        f"run {r0['dense unsharded peak']} B at peak; seconds "
+        + json.dumps({k: round(v, 2) for k, v in r0["seconds"].items()
+                      if k.startswith("dense")}))
     if len(calls) != DENSE_TRAIN_STEPS:
         raise AssertionError(f"5g dense: {len(calls)} vocab-parallel "
-                             f"losses in {DENSE_TRAIN_STEPS} steps")
+                             f"losses in {DENSE_TRAIN_STEPS} steps on "
+                             "(1, 2)")
+    # (a) the checkpointed loop and its restores
+    want = r0["encdec unsharded"]
+    for key, steps in (("ckpt loop", want[:CKPT_STEPS]),
+                       ("ckpt (1, 2)", want[CKPT_STEPS:CKPT_STEPS + 1]),
+                       ("ckpt unsharded", want[CKPT_STEPS:CKPT_STEPS + 1])):
+        if key != "ckpt unsharded":
+            same_on_ranks(key, part=lambda x: x)
+        worst = worst_rel(r0[key], steps)
+        log(f"5g encdec {key}: loss "
+            + ", ".join(f"{g['loss']:.6f}" for g in r0[key])
+            + f", largest relative metric difference to the unsharded "
+            f"run's steps {worst:.2e} (bound {TRAIN_TP_RTOL})")
+        if worst > TRAIN_TP_RTOL:
+            raise AssertionError(f"5g encdec {key} differs from the "
+                                 "unsharded run")
+    same, n_keys, n_elems = r0["ckpt layout"]
+    log(f"5g encdec checkpoint of (2, 1): {n_keys} arrays, {n_elems} "
+        f"elements, keys, shapes and dtypes those of the unsharded tree: "
+        f"{same}; seconds " + json.dumps(
+            {f"rank {r} {k}": round(v, 3) for r, x in enumerate(ranks)
+             for k, v in x["ckpt seconds"].items()}))
+    if not same:
+        raise AssertionError("5g: the mesh checkpoint's layout is not the "
+                             "unsharded tree's")
+    # (c) MoE
+    want, want_dropped = r0["moe unsharded"]
+    for shape in TRAIN_TP_MESHES:
+        key = f"moe {shape}"
+        same_on_ranks(key, part=lambda x: x)
+        got, dropped = r0[key]
+        worst = worst_rel(got, want, ("loss", "ce_loss",
+                                      "load_balance_loss", "grad_norm"))
+        dd = max(abs(a - b) for a, b in zip(dropped, want_dropped))
+        log(f"5g {key}: loss {got[0]['loss']:.6f} (unsharded "
+            f"{want[0]['loss']:.6f}), load_balance_loss "
+            f"{got[0]['load_balance_loss']:.6f} "
+            f"({want[0]['load_balance_loss']:.6f}); largest relative "
+            f"metric difference {worst:.2e} (bound {TRAIN_TP_RTOL}); "
+            f"dropped fractions " + ", ".join(f"{x:.6f}" for x in dropped)
+            + f", largest |Δ| {dd:.2e}")
+        if worst > TRAIN_TP_RTOL or len(dropped) != len(want_dropped) \
+                or dd > 1e-6:
+            raise AssertionError(f"5g {key} differs from the unsharded "
+                                 "step")
     base = statistics.median(r0["encdec bf16 unsharded ms"])
     for shape in TRAIN_TP_MESHES:
         for r, got in enumerate(ranks):
@@ -3276,7 +3632,8 @@ def rel(a: float, b: float) -> float:
 def train_transformer_base(model, params) -> None:
     """A full-width training step (bf16 activations, the phase-4 weights):
     the card against the CPU on 8 rows, 20 steps on one batch (the loss
-    must fall; ms a step, target tokens/s, peak memory), one step with
+    must fall; ms a step, target tokens/s, peak memory) with ``remat``
+    on (the config's) and off, one step with
     ``accum_steps=2`` against the mean of the two halves' gradients taken
     outside the step, one with ``mixed_precision`` against the plain step,
     and a profiled step."""
@@ -3349,6 +3706,29 @@ def train_transformer_base(model, params) -> None:
         raise AssertionError(f"training did not lower the loss: {losses}")
     plain = {k: float(metrics[0][k]) for k in ("loss", "grad_norm")}
     del p, s, metrics
+
+    # the same 20 steps with remat off (the config's remat=True is the
+    # reference's default): what recomputing each block costs this step
+    off = make_train_step(EncDecLM(dataclasses.replace(cfg, remat=False),
+                                   device="cuda"), opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p, s = params, state
+
+    def one_off():
+        nonlocal p, s
+        (p, s), m = off(p, s, batch)
+        return m
+
+    ms_off, metrics = step_ms(one_off, TRAIN_STEPS)
+    med_off = statistics.median(ms_off[TRAIN_TIMED])
+    log(f"  remat off: step_ms median(5-20)={med_off:.2f} (min "
+        f"{min(ms_off[TRAIN_TIMED]):.2f}, max {max(ms_off[TRAIN_TIMED]):.2f}"
+        f"); target_tokens_per_s={tgt_tokens / med_off * 1e3:.0f}; "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()} B; "
+        f"remat on/off {med / med_off:.3f}; losses the same bits: "
+        f"{[float(m['loss']) for m in metrics] == losses}")
+    del p, s, metrics, off
 
     # accum_steps=2 against the mean of the halves' losses and gradients,
     # each half's taken here with torch.autograd outside the step
@@ -4135,11 +4515,11 @@ def run_audio():
 
 RECURRENT_ARCHS = ("zamba2-2.7b", "xlstm-1.3b")
 # phase 7d runs both models at their published widths, which give every
-# kernel shape: zamba2-2.7b at 27 of its 54 layers (4 applications of the
-# shared attention block) and xlstm-1.3b at 16 of its 48 (its pattern
+# kernel shape: zamba2-2.7b at 13 of its 54 layers (2 applications of the
+# shared attention block) and xlstm-1.3b at 8 of its 48 (its pattern
 # kept: the depth must divide by its sLSTM period of 8), to pay for phases
-# 5f (xlstm 48 -> 24) and 5g (zamba2 54 -> 27, xlstm 24 -> 16)
-RECURRENT_LAYERS = {"zamba2-2.7b": 27, "xlstm-1.3b": 16}
+# 5f (xlstm 48 -> 24) and 5g (zamba2 54 -> 27 -> 13, xlstm 24 -> 16 -> 8)
+RECURRENT_LAYERS = {"zamba2-2.7b": 13, "xlstm-1.3b": 8}
 RECURRENT_CALIB = 8            # held-out prompts for the KL calibration
 RECURRENT_PROFILE_NEW = 8      # new tokens of the profiled greedy call
 
@@ -4498,23 +4878,21 @@ def main() -> int:
     decoder_tp_counts = check_decoder_tp(tp_ranks, tp_want, moe_cfg)
 
     # 7d. the recurrent families at full width, one at a time (phase 5g's
-    # mistral-nemo-12b runs on the ranks beside it, after 5f: rank 0's
-    # unsharded step takes some 37 GB of the card)
+    # transformer-base runs on the ranks beside it, after 5f)
     torch.cuda.empty_cache()
     recurrent_counts = {}
     for arch in RECURRENT_ARCHS:
         phase(f"7d: {arch} at full width")
         recurrent_counts.update(run_recurrent(arch))
 
-    # 8. the serving driver (phase 5g's transformer-base runs beside it),
-    # once the ranks' mistral-nemo-12b runs are over: the card cannot hold
-    # both
-    end_dense_train_tp(tp_ranks)
+    # 8. the serving driver (phase 5g's transformer-base and MoE runs
+    # beside it)
     torch.cuda.empty_cache()
     phase("serving driver")
     run_driver()
 
-    # 5g. training on a mesh on phase 5e's ranks, checked here
+    # 5g. training on a mesh on phase 5e's ranks, checked here (their
+    # mistral-nemo-12b runs, last, have the card to themselves)
     phase("5g: training on a mesh on two ranks of the card")
     train_tp_counts = check_train_tp(tp_ranks)
 

@@ -5,8 +5,10 @@ Every assigned architecture registers a :class:`ModelConfig` (one file per
 arch under ``repro_torch/configs/``), selectable with ``--arch <id>`` in the
 launchers.  The field names, defaults and derived counts are the
 reference's, so a configuration reads the same in both packages; the
-reference's ``scan_layers``/``remat`` switches have no counterpart, since
-the port runs its layers in an eager loop over unstacked parameters.
+reference's ``scan_layers`` switch has no counterpart, since the port runs
+its layers in an eager loop over unstacked parameters.  ``remat`` has the
+reference's meaning and default: each block of a training forward is
+recomputed in the backward (``distributed.context.run_layers``).
 """
 
 from __future__ import annotations
@@ -85,9 +87,10 @@ class ModelConfig:
     n_enc_layers: int = 0
     input_kind: str = "tokens"      # tokens | embeddings (vlm/audio stubs)
 
-    # execution (the reference's scan_layers/remat have no counterpart)
+    # execution (the reference's scan_layers has no counterpart)
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    remat: bool = True
     quant: QuantSettings = QuantSettings()
 
     @property
@@ -161,6 +164,7 @@ class ModelConfig:
             head_dim=16,
             max_seq=128,
             dtype="float32",
+            remat=False,
         )
         if self.moe:
             small["moe"] = MoEConfig(n_experts=4, top_k=2, group_size=32)

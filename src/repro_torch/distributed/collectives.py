@@ -16,13 +16,20 @@ Training needs collectives that autograd sees.  Each is a
   backward: SUM over the group, then this rank's slice (a reduce-scatter);
 * :func:`tp_enter` — forward: identity; backward: SUM over the group;
 * :func:`tp_row_sum` — forward: SUM over the group; backward: identity;
-* :func:`vocab_gather` — forward: the ranks' vocab columns concatenated;
-  backward: this rank's columns.
+* :func:`tp_gather` — forward: the ranks' slices of a dimension
+  concatenated; backward: this rank's slice (:func:`vocab_gather` on the
+  last dimension);
+* :func:`tp_split` — forward: this rank's slice of a value every rank
+  holds whole; backward: the ranks' slices gathered;
+* :func:`data_sum` — forward and backward: SUM over the group.
 
 ``tp_enter`` goes where a replicated activation meets a column-split
 projection (each rank's input gradient is a partial sum); it also carries a
 leaf that the data group holds whole, whose gradient the ranks' rows each
 give a part of.  ``tp_row_sum`` is a row-parallel projection's exit.
+Under the sequence-split residual (``distributed.context.run_layers``) a
+block's input rows are gathered with ``fsdp_gather`` on the sequence
+instead of ``tp_enter``, and its whole output cut back with ``tp_split``.
 
 :func:`mark_parallel` adds a ``"tp"`` entry to the nodes of a rank's shard
 (``distributed.sharding.shard_params``) that need a collective:
@@ -127,19 +134,49 @@ class _RowSum(torch.autograd.Function):
         return g, None
 
 
-class _VocabGather(torch.autograd.Function):
-    """The ranks' last-dimension columns concatenated; the gradient cut to
-    this rank's columns."""
+class _SliceGather(torch.autograd.Function):
+    """The ranks' slices of ``dim`` concatenated; the gradient cut to this
+    rank's slice (every rank's gradient of the whole is the same)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group, ctx.n = group, x.shape[-1]
-        return group.all_gather(x, -1)
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.n = dim, group, x.shape[dim]
+        return group.all_gather(x, dim)
 
     @staticmethod
     def backward(ctx, g):
-        r = ctx.group.rank
-        return g[..., r * ctx.n:(r + 1) * ctx.n].contiguous(), None
+        return (g.narrow(ctx.dim, ctx.group.rank * ctx.n, ctx.n)
+                .contiguous(), None, None)
+
+
+class _Split(torch.autograd.Function):
+    """This rank's slice of ``dim`` of a value every rank holds whole; the
+    gradient's slices gathered from the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        n = x.shape[dim] // group.size
+        ctx.dim, ctx.group = dim, group
+        return x.narrow(dim, group.rank * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g.contiguous(), ctx.dim), None, None
+
+
+class _Sum(torch.autograd.Function):
+    """The ranks' ``x`` SUMmed; the gradient SUMmed too (each rank's loss
+    reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.contiguous().clone()), None
 
 
 def _recording(x: torch.Tensor) -> bool:
@@ -177,13 +214,42 @@ def tp_row_sum(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
     return _RowSum.apply(x, group)
 
 
-def vocab_gather(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
-    """Vocab-split logits gathered along the last dimension."""
+def tp_gather(x: torch.Tensor, dim: int, group: TPGroup) -> torch.Tensor:
+    """The ranks' slices of ``dim`` concatenated; the gradient cut back to
+    this rank's slice, for a whole value whose gradient every rank holds
+    the same (the experts' outputs, a block's rows made whole again)."""
     if group.size == 1:
         return x
     if not _recording(x):
-        return group.all_gather(x, -1)
-    return _VocabGather.apply(x, group)
+        return group.all_gather(x, dim)
+    return _SliceGather.apply(x, dim % x.dim(), group)
+
+
+def vocab_gather(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
+    """Vocab-split logits gathered along the last dimension."""
+    return tp_gather(x, -1, group)
+
+
+def tp_split(x: torch.Tensor, dim: int, group: TPGroup) -> torch.Tensor:
+    """This rank's ``1/size`` slice of ``dim`` of a value every rank of
+    ``group`` holds whole (a view where autograd does not record); its
+    gradient is the ranks' slices gathered."""
+    if group.size == 1:
+        return x
+    if not _recording(x):
+        n = x.shape[dim] // group.size
+        return x.narrow(dim, group.rank * n, n)
+    return _Split.apply(x, dim % x.dim(), group)
+
+
+def data_sum(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
+    """The SUM of the ranks' ``x`` where every rank's loss reads the sum
+    (a statistic over the global batch): the gradient is SUMmed too."""
+    if group.size == 1:
+        return x
+    if not _recording(x):
+        return group.all_reduce(x.clone())
+    return _Sum.apply(x, group)
 
 
 @dataclasses.dataclass(frozen=True)

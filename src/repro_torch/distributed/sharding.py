@@ -315,12 +315,16 @@ def shard_opt_state(state, specs: Any, mesh, coords: Dict[str, int]):
 
 def spec_leaves(params: Any, specs: Any) -> List[Spec]:
     """The spec of each tensor leaf of a float tree, in
-    ``tree.tree_leaves`` order (dict keys sorted)."""
+    ``tree.tree_leaves`` order (dict keys sorted; a tuple or NamedTuple,
+    such as ``(params, AdamWState)``, by position)."""
     if isinstance(params, dict):
         return [s for k in sorted(params)
                 for s in spec_leaves(params[k], specs[k])]
     if isinstance(params, torch.Tensor):
         return [specs]
+    if isinstance(params, (tuple, list)):
+        return [s for p, sp in zip(params, specs)
+                for s in spec_leaves(p, sp)]
     if params is None:
         return []
     raise TypeError(f"a float parameter tree has no {type(params).__name__} "

@@ -22,6 +22,7 @@ from repro_torch.models import kv_cache as kvc
 from repro_torch.models.layers import (
     apply_rope,
     block_input,
+    block_output,
     dense,
     dense_init,
 )
@@ -126,12 +127,12 @@ def attention(
     cache cursor, ``lengths + [0, S)``; train and prefill positions are
     ``positions`` or ``arange(S)``.
     """
-    B, S, _ = x.shape
     H, HKV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     # tensor parallel, GQA fallback: this rank's query heads read a slice
     # of the whole kv heads (distributed.collectives.HeadSlice)
     hs = params.get("tp")
     x = block_input(x, params["o_proj"])
+    B, S, _ = x.shape
 
     q = dense(params["q_proj"], x, site=f"{site}/q_proj", quant=quant,
               taps=taps).reshape(B, S, H, dh)
@@ -149,7 +150,7 @@ def attention(
         out = out.reshape(B, S, H * dh)
         y = dense(params["o_proj"], out, site=f"{site}/o_proj", quant=quant,
                   taps=taps)
-        return y, None
+        return block_output(y), None
 
     k = dense(params["k_proj"], x, site=f"{site}/k_proj", quant=quant,
               taps=taps).reshape(B, S, HKV, dh)
@@ -211,7 +212,7 @@ def attention(
     out = out.reshape(B, S, H * dh)
     y = dense(params["o_proj"], out, site=f"{site}/o_proj", quant=quant,
               taps=taps)
-    return y, (k, v)
+    return block_output(y), (k, v)
 
 
 def _heads(t: Optional[torch.Tensor], hs) -> Optional[torch.Tensor]:

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core.calibration import Taps
 from repro_torch.core.ptq import FP_CONTEXT, QuantContext
+from repro_torch.distributed.context import run_layers
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models.attention import attention, attention_init
 from repro_torch.models.ffn import ffn, ffn_init
@@ -73,6 +74,11 @@ class EncDecLM:
             raise ValueError(f"{cfg.name} is not an encoder-decoder config")
         self.cfg = cfg
         self.device = torch.device(device)
+        # the block nodes the training forward runs through ``run_layers``
+        # (the mesh step gathers these a block at a time)
+        self.enc_keys = [f"enc_blocks.{i}" for i in range(cfg.n_enc_layers)]
+        self.dec_keys = [f"dec_blocks.{i}" for i in range(cfg.n_layers)]
+        self.block_keys = self.enc_keys + self.dec_keys
 
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
@@ -133,8 +139,13 @@ class EncDecLM:
                             quant: QuantContext = FP_CONTEXT,
                             taps: Optional[Taps] = None) -> torch.Tensor:
         """Encoder layer ``layer_idx`` (quant sites ``enc_blocks.{i}/…``)."""
+        return self._enc_block(
+            params[f"enc_blocks.{layer_idx}"], x,
+            site=f"enc_blocks.{layer_idx}", src_lengths=src_lengths,
+            quant=quant, taps=taps)[0]
+
+    def _enc_block(self, bp, x, *, site, src_lengths, quant, taps):
         cfg = self.cfg
-        bp, site = params[f"enc_blocks.{layer_idx}"], f"enc_blocks.{layer_idx}"
         h = norm(bp["attn_norm"], x, cfg.norm)
         a, _ = attention(bp["attn"], h, cfg=cfg, site=f"{site}/attn",
                          quant=quant, taps=taps, causal=False, rope=False,
@@ -142,7 +153,7 @@ class EncDecLM:
         x = x + a
         h = norm(bp["ffn_norm"], x, cfg.norm)
         return x + ffn(bp["ffn"], h, cfg=cfg, site=f"{site}/ffn",
-                       quant=quant, taps=taps)
+                       quant=quant, taps=taps), None
 
     def encode_staged_finish(self, params, x: torch.Tensor, *,
                              src_lengths: Optional[torch.Tensor] = None,
@@ -168,11 +179,14 @@ class EncDecLM:
         return torch.stack(ks), torch.stack(vs), src_lengths
 
     def _encode_layers(self, params, batch, *, quant, taps) -> torch.Tensor:
+        """The encoder's blocks through ``distributed.context.run_layers``
+        (``cfg.remat``, the training mesh's layout); the stream whole."""
         x = self.encode_staged_begin(params, batch)
-        for i in range(self.cfg.n_enc_layers):
-            x = self.encode_staged_layer(params, x, i,
-                                         src_lengths=batch.get("src_lengths"),
-                                         quant=quant, taps=taps)
+        x, _ = run_layers(x, [
+            (functools.partial(self._enc_block, site=key,
+                               src_lengths=batch.get("src_lengths"),
+                               quant=quant, taps=taps), params[key])
+            for key in self.enc_keys], remat=self.cfg.remat)
         return x
 
     def encode(self, params, batch, *, quant: QuantContext = FP_CONTEXT,
@@ -203,10 +217,13 @@ class EncDecLM:
         return x + f, entries
 
     def _cross_kv(self, bparams, memory, *, site, quant, taps):
-        """Project encoder memory to this layer's cross K/V (done once)."""
+        """Project encoder memory to this layer's cross K/V (done once).
+        The memory is whole on every rank, also inside a block on a
+        sequence-split residual."""
         cfg = self.cfg
         B, S, _ = memory.shape
-        memory = block_input(memory, bparams["cross_attn"]["o_proj"])
+        memory = block_input(memory, bparams["cross_attn"]["o_proj"],
+                             whole=True)
         k = dense(bparams["cross_attn"]["k_proj"], memory,
                   site=f"{site}/cross_attn/k_proj", quant=quant,
                   taps=taps).reshape(B, S, cfg.n_kv_heads, cfg.hd)
@@ -226,16 +243,21 @@ class EncDecLM:
         x = x + sinusoidal_positions(S, D, x.dtype, x.device)[None]
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
-        tgt_lengths = batch.get("tgt_lengths")
-        for i in range(cfg.n_layers):
-            bp, site = params[f"dec_blocks.{i}"], f"dec_blocks.{i}"
-            kv = self._cross_kv(bp, memory, site=site, quant=quant, taps=taps)
-            x, _ = self._dec_block(bp, x, kv, site=site, quant=quant,
-                                   taps=taps, positions=positions,
-                                   kv_lengths=tgt_lengths,
-                                   memory_lengths=mem_lengths)
+        x, _ = run_layers(x, [
+            (functools.partial(self._dec_layer, memory=memory, site=key,
+                               quant=quant, taps=taps, positions=positions,
+                               kv_lengths=batch.get("tgt_lengths"),
+                               memory_lengths=mem_lengths), params[key])
+            for key in self.dec_keys], remat=cfg.remat)
         x = norm(params["dec_final_norm"], x, cfg.norm)
         return unembed(params["embed"], x), {}
+
+    def _dec_layer(self, bp, x, *, memory, site, quant, taps, **kw):
+        """One decoder block of the training forward, its cross K/V
+        projected inside it (so ``remat`` recomputes them)."""
+        kv = self._cross_kv(bp, memory, site=site, quant=quant, taps=taps)
+        return self._dec_block(bp, x, kv, site=site, quant=quant, taps=taps,
+                               **kw)[0], None
 
     # ------------------------------------------------------- serving states
     def init_decode_state(self, batch: int, max_len: int, *, quantized: bool,

@@ -15,7 +15,12 @@ import torch.nn.functional as F
 
 from repro_torch.core.calibration import Taps
 from repro_torch.core.ptq import FP_CONTEXT, QuantContext
-from repro_torch.models.layers import block_input, dense, dense_init
+from repro_torch.models.layers import (
+    block_input,
+    block_output,
+    dense,
+    dense_init,
+)
 
 
 def ffn_init(gen: torch.Generator, cfg, *, dtype=torch.float32, device=None):
@@ -42,9 +47,10 @@ def ffn(params, x: torch.Tensor, *, cfg, site: str,
                   taps=taps)
         u = dense(params["up"], x, site=f"{site}/up", quant=quant, taps=taps)
         h = F.silu(g.to(torch.float32)).to(x.dtype) * u
-        return dense(params["down"], h, site=f"{site}/down", quant=quant,
-                     taps=taps)
+        return block_output(dense(params["down"], h, site=f"{site}/down",
+                                  quant=quant, taps=taps))
     h = dense(params["in"], x, site=f"{site}/in", quant=quant, taps=taps)
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
-    return dense(params["out"], h, site=f"{site}/out", quant=quant, taps=taps)
+    return block_output(dense(params["out"], h, site=f"{site}/out",
+                              quant=quant, taps=taps))

@@ -24,8 +24,14 @@ from repro_torch.core.calibration import Taps, record
 from repro_torch.core.ptq import FP_CONTEXT, QuantContext
 from repro_torch.core.qtensor import BlockQTensor, QTensor
 from repro_torch.core.quantize import quantize_with_thresholds
-from repro_torch.distributed.collectives import tp_enter, tp_row_sum
-from repro_torch.distributed.context import constrain_logits
+from repro_torch.distributed.collectives import (
+    fsdp_gather,
+    tp_enter,
+    tp_gather,
+    tp_row_sum,
+    tp_split,
+)
+from repro_torch.distributed.context import constrain_logits, sequence_group
 from repro_torch.kernels import ops
 
 
@@ -209,17 +215,39 @@ def unembed(node, x: torch.Tensor):
     return logits if par is None else constrain_logits(logits, par.group)
 
 
-def block_input(x: torch.Tensor, node) -> torch.Tensor:
+def block_input(x: torch.Tensor, node, *, whole: bool = False
+                ) -> torch.Tensor:
     """``x`` as it enters a tensor-parallel block's column-split
     projections: where ``node`` (the block's out-projection, or the tied
     table for the unembed) carries a ``"row"`` or ``"vocab"`` mark, each
     rank's input gradient is a partial sum, so under autograd ``x``'s
     gradient is SUMmed over the group (``collectives.tp_enter``).
-    Otherwise ``x`` as it is."""
+    Otherwise ``x`` as it is.
+
+    Inside a block on a sequence-split residual
+    (``distributed.context.sequence_group``), ``x`` is this rank's rows
+    (``whole``: an input every rank holds whole, the encoder memory): they
+    are gathered on the sequence, the gradient SUMmed over the group and
+    cut back where the projections are split
+    (``collectives.fsdp_gather``), cut back alone where the sub-layer runs
+    whole on every rank (``collectives.tp_gather``: an MoE FFN, a
+    projection whose width does not divide the group)."""
     par = node.get("tp") if isinstance(node, dict) else None
-    if par is None or par.kind not in ("row", "vocab"):
-        return x
-    return tp_enter(x, par.group)
+    split = par is not None and par.kind in ("row", "vocab")
+    rows = None if whole else sequence_group()
+    if rows is not None:
+        return fsdp_gather(x, 1, rows) if split else tp_gather(x, 1, rows)
+    return tp_enter(x, par.group) if split else x
+
+
+def block_output(y: torch.Tensor) -> torch.Tensor:
+    """A sub-layer's whole output (the same on every rank of the tensor
+    axis) cut back to this rank's rows on a sequence-split residual, its
+    gradient gathered (``collectives.tp_split``); else ``y``.  A
+    row-parallel projection's bias is added before the cut, so its
+    gradient sums the whole sequence."""
+    rows = sequence_group()
+    return y if rows is None else tp_split(y, 1, rows)
 
 
 def layernorm(node, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -242,6 +270,13 @@ def rmsnorm(node, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def norm(node, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """Layernorm or RMSNorm.  On this rank's rows of a sequence-split
+    residual (``distributed.context.sequence_group``) the parameters'
+    gradients are partial sums over the rows, SUMmed over the group
+    (``collectives.tp_enter``)."""
+    rows = sequence_group()
+    if rows is not None:
+        node = {k: tp_enter(v, rows) for k, v in node.items()}
     return layernorm(node, x) if kind == "layernorm" else rmsnorm(node, x)
 
 

@@ -9,7 +9,10 @@ every expert row bit for bit (empty slots zero) and the same combine
 weights.  The expert FFNs are grouped matmuls: per-expert batched
 s8·s8→s32 through ``kernels.ops.int8_matmul_batched`` (K7) when quantized.
 Tensor parallel (``experts["tp"]``, ``distributed.collectives``): every
-rank routes over all the experts and runs K7 over its own.
+rank routes over all the experts and runs K7 over its own.  On a training
+mesh each data rank routes its rows of the global batch, which must hold
+whole routing groups of the reference's cut, and the load-balance loss and
+the dropped fraction are taken over the global batch.
 
 The router linear is deny-listed from quantization by default
 (``core.policy.DEFAULT_DENY``): its logits feed a softmax/top-k, the class of
@@ -29,8 +32,16 @@ from torch.utils.weak import WeakIdKeyDictionary
 from repro_torch.core.calibration import Taps, record
 from repro_torch.core.ptq import FP_CONTEXT, QuantContext
 from repro_torch.core.qtensor import QTensor
+from repro_torch.distributed.collectives import data_sum, tp_gather, tp_split
+from repro_torch.distributed.context import data_group
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense, dense_init, top_k
+from repro_torch.models.layers import (
+    block_input,
+    block_output,
+    dense,
+    dense_init,
+    top_k,
+)
 
 # a static site's weight scales times its activation scale, kept per
 # weight-scale tensor (by identity) and activation scale: the product
@@ -139,14 +150,29 @@ def moe_ffn(
     group (exact zeros) route like any token: their router logits are all
     zero, the softmax uniform, and ``top_k`` breaks the ties toward the
     lower expert index, as ``jax.lax.top_k`` does.
+
+    On a training mesh (``distributed.context.data_group``) the reference
+    cuts the global batch's tokens into its groups, so this rank's rows
+    must be whole groups of that cut (else a ``ValueError``); the
+    load-balance loss is this rank's share of the global one (its sum
+    over the data group), from expert statistics SUMmed over the group.
     """
+    x = block_input(x, params["experts"])
     B, S, D = x.shape
     m = cfg.moe
     E, K = m.n_experts, m.top_k
     dt = x.dtype
+    data = data_group()
+    n_data = 1 if data is None else data.size
 
     tokens = B * S
-    g_sz = min(m.group_size, tokens)
+    g_sz = min(m.group_size, tokens * n_data)
+    if tokens % g_sz and n_data > 1:
+        raise ValueError(
+            f"{site}: a data rank's {B} rows × {S} positions = {tokens} "
+            f"tokens are not whole routing groups of {g_sz} of the global "
+            f"batch's {tokens * n_data} tokens (rows a rank × sequence "
+            "length must divide by the group size)")
     pad = (-tokens) % g_sz
     x_flat = x.reshape(tokens, D)
     if pad:
@@ -177,8 +203,7 @@ def moe_ffn(
         # (their codes and K7's s32 sums are the unsharded ones) and
         # gathers every expert's output, E·G·C·D elements a layer; the
         # combine below then sums in the unsharded order
-        n = E // par.group.size
-        xe = xe[par.group.rank * n:(par.group.rank + 1) * n]
+        xe = tp_split(xe, 0, par.group)
     g = _expert_dense(experts["gate"], xe, site=f"{site}/experts/gate",
                       quant=quant, taps=taps)
     u = _expert_dense(experts["up"], xe, site=f"{site}/experts/up",
@@ -187,7 +212,7 @@ def moe_ffn(
     y_e = _expert_dense(experts["down"], h, site=f"{site}/experts/down",
                         quant=quant, taps=taps)
     if par is not None:
-        y_e = par.group.all_gather(y_e, 0)
+        y_e = tp_gather(y_e, 0, par.group)
     # combine: each token sums its kept choices' expert rows weighted by
     # their gate values (in the activation dtype, as the reference's combine
     # tensor holds them); a dropped pair reads the zero row past the end
@@ -202,10 +227,21 @@ def moe_ffn(
     y = y.reshape(B, S, D)
 
     # load-balance aux loss terms (Switch-style)
-    me = probs.reshape(-1, E).mean(dim=0)
     first = expert_idx[..., 0].reshape(-1, 1)
-    ce = (first == torch.arange(E, device=x.device)).to(
-        torch.float32).mean(dim=0)
-    aux = {"load_balance_loss": E * torch.sum(me * ce),
-           "dropped_fraction": 1.0 - keep.to(torch.float32).mean()}
-    return y, aux
+    chosen = (first == torch.arange(E, device=x.device)).to(torch.float32)
+    if n_data == 1:
+        me = probs.reshape(-1, E).mean(dim=0)
+        lb = E * torch.sum(me * chosen.mean(dim=0))
+        kept = keep.to(torch.float32).mean()
+    else:
+        # E·Σ me·ce is not linear in a rank's tokens: the statistics are
+        # summed over the data group first, and each rank's loss takes
+        # 1/n_data of the product (so the gradient SUMs over the group)
+        n = probs.shape[0] * probs.shape[1] * n_data
+        me = data_sum(probs.reshape(-1, E).sum(dim=0), data) / n
+        ce = data.all_reduce(chosen.sum(dim=0)) / n
+        lb = E * torch.sum(me * ce) / n_data
+        kept = data.all_reduce(keep.to(torch.float32).sum()) / (
+            keep.numel() * n_data)
+    aux = {"load_balance_loss": lb, "dropped_fraction": 1.0 - kept}
+    return block_output(y), aux

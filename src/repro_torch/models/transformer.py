@@ -13,12 +13,14 @@ embeddings in place of the tokens (cast to the activation dtype).
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.calibration import Taps
 from repro_torch.core.ptq import FP_CONTEXT, QuantContext
+from repro_torch.distributed.context import run_layers
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models.attention import attention, attention_init
 from repro_torch.models.ffn import ffn, ffn_init
@@ -44,6 +46,9 @@ class DecoderLM:
             raise ValueError(f"{cfg.name} is an encoder-decoder config")
         self.cfg = cfg
         self.device = torch.device(device)
+        # the block nodes the training forward runs through ``run_layers``
+        # (the mesh step gathers these a block at a time)
+        self.block_keys = [f"blocks.{i}" for i in range(cfg.n_layers)]
 
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
@@ -87,6 +92,11 @@ class DecoderLM:
             aux = {}
         return x + f, entries, aux
 
+    def _layer(self, bparams, x, **kw):
+        """One block of the training forward: (x, aux)."""
+        x, _, aux = self._block_apply(bparams, x, **kw)
+        return x, aux
+
     def _inputs(self, params, batch) -> torch.Tensor:
         dt = self.cfg.activation_dtype
         if "embeds" in batch:
@@ -97,7 +107,9 @@ class DecoderLM:
                 taps: Optional[Taps] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Full-sequence forward.  Returns (logits (B, S, V), aux) with the
-        load-balance loss summed over the layers."""
+        load-balance loss summed over the layers.  The blocks run through
+        ``distributed.context.run_layers`` (``cfg.remat``, and the
+        training mesh's layout)."""
         cfg = self.cfg
         x = self._inputs(params, batch)
         B, S, _ = x.shape
@@ -105,10 +117,12 @@ class DecoderLM:
                                  device=x.device).expand(B, S)
         kv_lengths = batch.get("lengths")
         lb = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(cfg.n_layers):
-            x, _, aux = self._block_apply(
-                params[f"blocks.{i}"], x, site=f"blocks.{i}", quant=quant,
-                taps=taps, positions=positions, kv_lengths=kv_lengths)
+        x, auxes = run_layers(x, [
+            (functools.partial(self._layer, site=key, quant=quant,
+                               taps=taps, positions=positions,
+                               kv_lengths=kv_lengths), params[key])
+            for key in self.block_keys], remat=cfg.remat)
+        for aux in auxes:
             if "load_balance_loss" in aux:
                 lb = lb + aux["load_balance_loss"]
         x = norm(params["final_norm"], x, cfg.norm)

@@ -7,6 +7,12 @@ step for straggler accounting.  On CUDA each step ends with a
 ``torch.cuda.synchronize`` so the watchdog times the device's work, as the
 reference's ``block_until_ready`` does; metrics cross to the host only on
 the steps that log them.
+
+On a mesh (a ``make_train_step(grad_shardings=...)`` step, which carries
+its ``grad_shardings``) every rank runs the loop with its shards and the
+same batches (the step takes each rank's rows), and one ``Checkpointer``
+over a directory they share: it writes whole arrays, an unsharded run's
+checkpoint, and restores each rank's shard, from a run on any mesh.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.distributed.fault import StepWatchdog
+from repro_torch.distributed.sharding import TreeSharding
 from repro_torch.tree import tree_leaves
 
 log = logging.getLogger("repro_torch.train")
@@ -37,10 +44,17 @@ def train_loop(
     metrics_cb: Optional[Callable[[int, Dict], None]] = None,
 ) -> Dict[str, Any]:
     start = 0
+    layout = getattr(train_step, "grad_shardings", None)
+    # the (params, optimizer state) tree's specs: the moments mirror the
+    # parameters, the step counter is whole
+    shardings = None if layout is None else TreeSharding(
+        layout.mesh, (layout.specs, opt_state._replace(
+            step=(), m=layout.specs, v=layout.specs)))
     if checkpointer is not None and checkpointer.latest_step() is not None:
         meta = checkpointer.read_meta()
         start = int(meta["step"])
-        params, opt_state = checkpointer.restore((params, opt_state))
+        params, opt_state = checkpointer.restore((params, opt_state),
+                                                 shardings=shardings)
         if "data_state" in meta.get("extra", {}):
             batches.load_state_dict(meta["extra"]["data_state"])
         log.info("restored checkpoint at step %d", start)
@@ -67,11 +81,13 @@ def train_loop(
 
         if checkpointer is not None and (step + 1) % save_every == 0:
             checkpointer.save(step + 1, (params, opt_state),
-                              extra={"data_state": batches.state_dict()})
+                              extra={"data_state": batches.state_dict()},
+                              shardings=shardings)
 
     if checkpointer is not None:
         checkpointer.save(steps, (params, opt_state),
-                          extra={"data_state": batches.state_dict()})
+                          extra={"data_state": batches.state_dict()},
+                          shardings=shardings)
         checkpointer.wait()
     return {"params": params, "opt_state": opt_state,
             "history": history, "watchdog": watchdog.summary()}

@@ -11,8 +11,8 @@ leaves its inputs unchanged.  Gradients come from ``torch.autograd`` over
 detached copies of the parameter leaves; accumulation runs the
 microbatches in order and sums their float32 gradients in that order (the
 reference's ``lax.scan``).  Parameters stay float32; activations run in the
-config's dtype.  The port keeps its layers unstacked and has no ``remat``
-(``configs/base.py``).
+config's dtype.  The port keeps its layers unstacked; ``cfg.remat``
+recomputes each block in the backward (``distributed.context.run_layers``).
 
 On a mesh (``grad_shardings``, a ``distributed.sharding.TreeSharding`` of
 ``launch.specs.train_arg_specs``' parameter specs) the step runs on every
@@ -25,6 +25,7 @@ rank's shard of the same update.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -39,7 +40,12 @@ from repro_torch.distributed.collectives import (
     mark_parallel,
     tp_enter,
 )
-from repro_torch.distributed.context import VocabShard, activation_sharding
+from repro_torch.distributed.context import (
+    BlockShard,
+    VocabShard,
+    activation_sharding,
+    prepare_remat,
+)
 from repro_torch.distributed.sharding import (
     MESH_ITEM,
     _coordinate,
@@ -169,11 +175,20 @@ class _MeshStep:
       rank reads its kv heads only: ``tp_enter`` over the model group too.
       Then the rank's tensor-parallel tree is marked as serving marks it,
       and the model runs with the rank's config
-      (``distributed.sharding.local_config``).  A replicated LayerNorm needs
-      nothing: its gradient is equal on every rank already.
-    * **Logits.**  Under the activation sharding ``(batch axes, "model",
-      None)`` a vocab-split unembed keeps its logits split and the CE runs
+      (``distributed.sharding.local_config``).  A block's leaves are made
+      whole as the block runs (``distributed.context.BlockShard``: a
+      gather a layer, inside what ``remat`` recomputes); the embedding
+      and the final norms at the step's start.
+    * **Activations.**  Under the activation sharding ``(batch axes,
+      "model", None)`` the residual stream between blocks is each rank's
+      ``S/tp`` rows (``distributed.context.run_layers``; a norm's
+      parameters there get gradients SUMmed over the tensor axis), and a
+      vocab-split unembed keeps its logits split and the CE runs
       vocab-parallel (``distributed.context.constrain_logits``).
+    * **MoE.**  The experts split whole over the tensor axis (their
+      outputs gathered with a backward that cuts each rank's experts), and
+      the load-balance loss and dropped fraction are the global batch's
+      (``models.moe.moe_ffn``).
     * **Norm.**  Each piece of a leaf counts once across the mesh: a rank
       adds a leaf's squares only where it :func:`owns` its block.
     """
@@ -181,12 +196,11 @@ class _MeshStep:
     def __init__(self, model, layout):
         from repro_torch.models.registry import build_model
         cfg, mesh = model.cfg, layout.mesh
-        if cfg.moe is not None or cfg.family in ("hybrid", "ssm"):
+        if cfg.family in ("hybrid", "ssm"):
             raise NotImplementedError(
                 f"{cfg.name}: a training step on a mesh runs the dense "
-                "families; MoE (its load-balance loss over a split batch, "
-                "the expert-parallel backward) and the recurrent families "
-                f"are not ported yet ({MESH_ITEM})")
+                "and MoE families; the recurrent families are not ported "
+                f"yet ({MESH_ITEM})")
         self.mesh, self.specs, self.cfg = mesh, layout.specs, cfg
         self.model = build_model(local_config(cfg, mesh),
                                  device=str(model.device))
@@ -207,6 +221,11 @@ class _MeshStep:
                                 & set(self.axes)), None) for sp in specs]
         self.partial = gqa_partial_leaves(params, self.specs)
         self.owned = [owns(sp, self.mesh, self.mesh.coords) for sp in specs]
+        # each top-level node's run of leaves (dict keys in sorted order)
+        self.spans, lo = {}, 0
+        for k in sorted(params):
+            n = len(tree_leaves(params[k]))
+            self.spans[k], lo = (lo, lo + n), lo + n
 
     def rows(self, batch, accum_steps: int):
         """This rank's rows of each of the ``accum_steps`` microbatches of
@@ -225,17 +244,30 @@ class _MeshStep:
                          for i in range(accum_steps)])
         return {k: v[idx] for k, v in batch.items()}
 
-    def loss(self, loss_fn, params, leaves: List[torch.Tensor], batch):
+    def node(self, params, leaves: List[torch.Tensor], key: str):
+        """Top-level node ``key`` made whole from this rank's ``leaves``
+        and marked."""
+        lo, hi = self.spans[key]
         whole = []
-        for x, d, partial in zip(leaves, self.fsdp_dims, self.partial):
+        for x, d, partial in zip(leaves[lo:hi], self.fsdp_dims[lo:hi],
+                                 self.partial[lo:hi]):
             x = (tp_enter(x, self.data) if d is None
                  else fsdp_gather(x, d, self.data))
             whole.append(tp_enter(x, self.tp) if partial else x)
-        tree = mark_parallel(tree_unflatten(params, whole), self.specs,
-                             self.tp, n_heads=self.cfg.n_heads,
+        return mark_parallel(tree_unflatten(params[key], whole),
+                             self.specs[key], self.tp,
+                             n_heads=self.cfg.n_heads,
                              n_kv_heads=self.cfg.n_kv_heads)
+
+    def loss(self, loss_fn, params, leaves: List[torch.Tensor], batch):
+        # the model's block nodes are made whole by its block loop as
+        # each runs; the others now
+        blocks = set(self.model.block_keys)
+        tree = {k: BlockShard(functools.partial(self.node, params, leaves, k))
+                if k in blocks else self.node(params, leaves, k)
+                for k in params}
         count = self.data.all_reduce(torch.sum(_labels_and_mask(batch)[1]))
-        with activation_sharding(self.spec):
+        with activation_sharding(self.spec, tp=self.tp, data=self.data):
             return loss_fn(tree, batch, count)
 
     def metrics(self, loss, metrics):
@@ -265,9 +297,13 @@ def make_train_step(model, optimizer: AdamW, *, accum_steps: int = 1,
     The step then runs on each rank of the mesh (:class:`_MeshStep`): it
     takes and returns the rank's shards of the parameters and of the
     optimizer state, and the global batch; ``loss``, ``ce_loss``,
-    ``grad_norm`` and ``lr`` are equal on every rank."""
+    ``grad_norm`` and ``lr`` are equal on every rank.  The step carries
+    ``grad_shardings`` as an attribute (``train.loop.train_loop`` saves
+    and restores through it)."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if model.cfg.remat:
+        prepare_remat()
     mesh = None if grad_shardings is None else _MeshStep(model, grad_shardings)
     loss_fn = make_loss_fn(model if mesh is None else mesh.model, quant)
     cast = _to_bf16 if mixed_precision else (lambda a: a)
@@ -332,4 +368,5 @@ def make_train_step(model, optimizer: AdamW, *, accum_steps: int = 1,
         metrics["lr"] = optimizer._lr(new_opt.step)
         return (new_params, new_opt), metrics
 
+    train_step.grad_shardings = grad_shardings
     return train_step

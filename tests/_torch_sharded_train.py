@@ -10,9 +10,12 @@ import torch
 
 from repro_torch.distributed.collectives import (
     TPGroup,
+    data_sum,
     fsdp_gather,
     tp_enter,
+    tp_gather,
     tp_row_sum,
+    tp_split,
     vocab_gather,
 )
 from repro_torch.distributed.compression import (
@@ -117,7 +120,10 @@ def run_case(setup: dict, family: str, variant: str, mesh,
 
 COLLECTIVES = {"fsdp_gather": lambda x, g: fsdp_gather(x, 0, g),
                "tp_enter": tp_enter, "tp_row_sum": tp_row_sum,
-               "vocab_gather": vocab_gather}
+               "vocab_gather": vocab_gather,
+               "tp_gather": lambda x, g: tp_gather(x, 0, g),
+               "tp_split": lambda x, g: tp_split(x, 1, g),
+               "data_sum": data_sum}
 
 
 def probe_input(rank: int) -> torch.Tensor:

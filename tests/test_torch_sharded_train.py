@@ -60,6 +60,7 @@ from repro_torch.launch.specs import train_arg_specs
 from repro_torch.models import build_model
 from repro_torch.optim import AdamW
 from repro_torch.train import make_train_step
+from repro_torch.tree import tree_leaves
 
 import _torch_sharded_train as st
 
@@ -257,17 +258,27 @@ def test_collective_forward_and_backward(name, world):
     gradient at its input of ``sum(output · upstream)`` with another
     upstream on each rank (``fsdp_gather``: the SUM of the upstreams' row
     blocks of this rank; ``tp_enter``: their SUM; ``tp_row_sum``: this
-    rank's upstream; ``vocab_gather``: this rank's columns of it)."""
+    rank's upstream; ``vocab_gather``: this rank's columns of it;
+    ``tp_gather``: this rank's rows of it; ``tp_split``, this rank's
+    columns of its input: the upstreams side by side; ``data_sum``: the
+    SUM of the upstreams)."""
     xs = [st.probe_input(r) for r in range(world)]
+    n = 4 // world
     want_y = {"fsdp_gather": lambda r: torch.cat(xs, 0),
               "tp_enter": lambda r: xs[r],
               "tp_row_sum": lambda r: sum(xs),
-              "vocab_gather": lambda r: torch.cat(xs, -1)}[name]
+              "vocab_gather": lambda r: torch.cat(xs, -1),
+              "tp_gather": lambda r: torch.cat(xs, 0),
+              "tp_split": lambda r: xs[r][:, n * r:n * r + n],
+              "data_sum": lambda r: sum(xs)}[name]
     ups = [st.probe_upstream(r, want_y(r).shape) for r in range(world)]
     want_g = {"fsdp_gather": lambda r: sum(u[3 * r:3 * r + 3] for u in ups),
               "tp_enter": lambda r: sum(ups),
               "tp_row_sum": lambda r: ups[r],
-              "vocab_gather": lambda r: ups[r][:, 4 * r:4 * r + 4]}[name]
+              "vocab_gather": lambda r: ups[r][:, 4 * r:4 * r + 4],
+              "tp_gather": lambda r: ups[r][3 * r:3 * r + 3],
+              "tp_split": lambda r: torch.cat(ups, -1),
+              "data_sum": lambda r: sum(ups)}[name]
     for r, res in enumerate(_ranks(world)):
         y, g = res["collectives"][name]
         np.testing.assert_allclose(y, want_y(r).numpy(), rtol=1e-6,
@@ -303,13 +314,40 @@ def test_train_arg_specs():
     assert q == (("data",), "model")
 
 
+class _OnePlace:
+    """A ``(1, 1)`` mesh of this process alone: every group of one rank,
+    so every collective is the identity."""
+    axis_names = ("data", "model")
+    shape = {"data": 1, "model": 1}
+    coords = {"data": 0, "model": 0}
+
+    def group(self, axis):
+        return None
+
+
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-2.7b",
                                   "xlstm-1.3b"])
 def test_mesh_step_refuses_moe_and_recurrent(arch):
-    model = build_model(get_config(arch).reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match=MESH_ITEM):
-        make_train_step(model, AdamW(),
-                        grad_shardings=TreeSharding(None, None))
+    """The recurrent families' mesh step is refused, naming the ROADMAP
+    item; MoE's runs (``tests/test_torch_mesh_train.py`` on 2 and 4
+    ranks): on a mesh of one place its step is the unsharded step, bit for
+    bit."""
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, device="cpu")
+    if cfg.moe is None:
+        with pytest.raises(NotImplementedError, match=MESH_ITEM):
+            make_train_step(model, AdamW(),
+                            grad_shardings=TreeSharding(None, None))
+        return
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = LMBatches(cfg.vocab, 8, 16).next_batch()
+    specs = train_arg_specs(cfg, params, batch, _OnePlace())[0]
+    opt = AdamW()
+    got = make_train_step(model, opt, grad_shardings=TreeSharding(
+        _OnePlace(), specs))(params, opt.init(params), batch)
+    want = make_train_step(model, opt)(params, opt.init(params), batch)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(a, b)
 
 
 def test_a_step_leaves_no_reference_cycles():

@@ -246,10 +246,11 @@ def test_accumulation_equals_mean_of_microbatch_gradients(families):
     assert float(m["loss"]) == float((losses[0] + losses[1]) / 2)
 
 
-def test_grad_shardings_are_refused(families):
-    """A mesh step runs the dense families; MoE's is refused
-    (``tests/test_torch_sharded_train.py`` runs the others on meshes)."""
-    _, _, model, _, _ = families["moe"]
+def test_grad_shardings_are_refused():
+    """A mesh step runs the dense and MoE families; a recurrent family's
+    is refused (``tests/test_torch_sharded_train.py`` and
+    ``tests/test_torch_mesh_train.py`` run the others on meshes)."""
+    model = build_model(get_config("zamba2-2.7b").reduced(), device="cpu")
     with pytest.raises(NotImplementedError,
                        match="multi-GPU and the cost accounting"):
         make_train_step(model, AdamW(),

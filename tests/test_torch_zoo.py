@@ -102,10 +102,10 @@ def _assert_same_config(port, ref):
             assert dataclasses.asdict(p) == dataclasses.asdict(r), field.name
         else:
             assert p == r, field.name
-    # the port has every field of the reference's but the scan switches
+    # the port has every field of the reference's but the scan switch
     missing = ({f.name for f in dataclasses.fields(ref)}
                - {f.name for f in dataclasses.fields(port)})
-    assert missing == {"scan_layers", "remat"}
+    assert missing == {"scan_layers"}
 
 
 # ---------------------------------------------------------------------------

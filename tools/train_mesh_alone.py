@@ -5,14 +5,16 @@ two gloo ranks on ``cuda:0``, with the card and the host to themselves.
     python3 tools/train_mesh_alone.py
 
 It builds the kernels, spawns two ranks that run
-``chip_smoke.train_tp_runs`` (mistral-nemo-12b at 1 layer on ``(1, 2)``;
-transformer-base's parity steps on ``(2, 1)`` and ``(1, 2)``, the
-compressor on the ranks' gradients, and the bf16 steps timed) and checks
-their results with ``chip_smoke.check_train_tp``, which prints the
-"5g ..." lines.  In ``chip_smoke.py`` these runs share the card with
-phase 7d and with the drivers, so their ms a step read slower there;
-this is the measurement of the sharded steps beside nothing.  It needs
-about 130 s with the build.
+``chip_smoke.train_tp_runs`` (mistral-nemo-12b at 2 layers on ``(1, 2)``
+with remat and on ``(2, 1)`` with remat off and on; transformer-base's parity steps on
+``(2, 1)`` and ``(1, 2)``, its checkpointed loop on ``(2, 1)`` restored
+onto ``(1, 2)`` and unsharded, the compressor on the ranks' gradients,
+granite-moe-1b-a400m at 2 layers on both meshes, and the bf16 steps
+timed) and checks their results with ``chip_smoke.check_train_tp``,
+which prints the "5g ..." lines.  In ``chip_smoke.py`` these runs share
+the card with phase 7d and with the drivers, so their ms a step read
+slower there; this is the measurement of the sharded steps beside
+nothing.
 """
 
 from __future__ import annotations
@@ -42,9 +44,8 @@ def rank_main(rank: int, world: int, rdzv: str, paths: dict) -> None:
         dist.init_process_group("gloo", init_method=rdzv, rank=rank,
                                 world_size=world)
         try:
-            chip_smoke.save_atomic(
-                chip_smoke.train_tp_runs(rank, paths["dense_done_5g"][rank]),
-                paths["outs_5g"][rank])
+            chip_smoke.save_atomic(chip_smoke.train_tp_runs(rank, paths),
+                                   paths["outs_5g"][rank])
         finally:
             dist.destroy_process_group()
     except BaseException:
@@ -68,7 +69,8 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="train_mesh_")
     n = chip_smoke.TP
     paths = dict(outs_5g=[f"{tmp}/rank{r}-5g.pt" for r in range(n)],
-                 dense_done_5g=[f"{tmp}/rank{r}-5g-dense" for r in range(n)],
+                 ckpt_5g=f"{tmp}/ckpt-5g",
+                 card_5g=f"{tmp}/card-5g",
                  errs=[f"{tmp}/rank{r}.err" for r in range(n)])
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=rank_main, daemon=True,
